@@ -1,0 +1,49 @@
+"""deconv3d-tpu-torch: Bayesian deconvolution of hyperspectral cubes on
+PyTorch and CUDA.
+
+The PyTorch port of ``deconv3d_tpu``: Metropolis-Hastings-within-Gibbs
+sampling of clean MUSE cubes under a separable FSF ⊛ LSF instrument model,
+with incremental local-patch likelihood deltas and convergence diagnostics.
+On a CUDA device every sweep runs through a hand-written Hopper kernel
+(``csrc/mh_sweep.cu``); on the CPU through its plain torch version.
+
+    from deconv3d_tpu_torch import Run, MUSE, Cube
+    run = Run(cube, MUSE(), max_iterations=10_000)
+    run.run()
+    run.save("my_run")
+"""
+
+from .cube import Cube
+from .instruments import (
+    Instrument, MUSE,
+    PointSpreadFunction, MoffatPointSpreadFunction,
+    GaussianPointSpreadFunction, NoPointSpreadFunction,
+    LineSpreadFunction, MUSELineSpreadFunction,
+    GaussianLineSpreadFunction, NoLineSpreadFunction,
+    TabulatedPointSpreadFunction, TabulatedLineSpreadFunction,
+    MoffatFSF, GaussianFSF, NoFSF, TabulatedFSF,
+    MUSELSF, GaussianLSF, NoLSF, TabulatedLSF,
+)
+from .convolve import convolve_cube
+from .sampler import (
+    RunConfig, SamplerState, make_problem, init_state, run_sweeps, ChainResult,
+)
+from .chains import MultiChainResult, gelman_rubin, run_chains
+from .run import Run
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Cube", "Run", "RunConfig",
+    "Instrument", "MUSE",
+    "PointSpreadFunction", "MoffatPointSpreadFunction",
+    "GaussianPointSpreadFunction", "NoPointSpreadFunction",
+    "LineSpreadFunction", "MUSELineSpreadFunction",
+    "GaussianLineSpreadFunction", "NoLineSpreadFunction",
+    "TabulatedPointSpreadFunction", "TabulatedLineSpreadFunction",
+    "MoffatFSF", "GaussianFSF", "NoFSF", "TabulatedFSF",
+    "MUSELSF", "GaussianLSF", "NoLSF", "TabulatedLSF",
+    "convolve_cube",
+    "SamplerState", "make_problem", "init_state", "run_sweeps", "ChainResult",
+    "MultiChainResult", "gelman_rubin", "run_chains",
+]

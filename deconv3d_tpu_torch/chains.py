@@ -1,0 +1,205 @@
+"""Multi-chain layer and convergence diagnostics.
+
+Counterpart of ``deconv3d_tpu/chains.py``.  Chains run one after another,
+each through the single-chain sweep path; batching chains inside the kernel
+is a later slice (ROADMAP.md, Queue 1 item 12).  Convergence is quantified
+with split-R̂ (Gelman-Rubin) and effective sample size from per-sweep
+traces (NumPy, unchanged from the JAX package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import sampler as sm
+
+
+# ---------------------------------------------------------------------------
+# Convergence diagnostics
+# ---------------------------------------------------------------------------
+
+def gelman_rubin(traces) -> float:
+    """Split-R̂ over chain traces ``[n_chains, n_draws]`` (Gelman et al.).
+
+    Each chain is split in half (guards against trending chains), then
+    R̂ = sqrt(((n-1)/n·W + B/n) / W).  Values ≲ 1.01 indicate convergence.
+    """
+    x = np.asarray(traces, dtype=np.float64)
+    if x.ndim != 2:
+        raise ValueError("traces must be [n_chains, n_draws]")
+    m, n = x.shape
+    half = n // 2
+    if half < 2:
+        return float("nan")
+    x = x[:, : 2 * half].reshape(2 * m, half)
+    within = x.var(axis=1, ddof=1).mean()
+    between = half * x.mean(axis=1).var(ddof=1)
+    if within == 0:
+        return 1.0 if between == 0 else float("inf")
+    var_plus = (half - 1) / half * within + between / half
+    return float(np.sqrt(var_plus / within))
+
+
+def effective_sample_size(traces) -> float:
+    """Multi-chain ESS via FFT autocorrelation + Geyer initial monotone
+    sequence (the standard estimator, cf. Stan/ArviZ)."""
+    x = np.asarray(traces, dtype=np.float64)
+    if x.ndim == 1:
+        x = x[None]
+    m, n = x.shape
+    if n < 4:
+        return float(m * n)
+    x = x - x.mean(axis=1, keepdims=True)
+    size = 2 ** int(np.ceil(np.log2(2 * n)))
+    f = np.fft.rfft(x, size, axis=1)
+    acov = np.fft.irfft(f * np.conj(f), size, axis=1)[:, :n].real
+    acov /= np.arange(n, 0, -1)  # unbiased normalisation
+    var = acov[:, 0].mean()
+    if var == 0:
+        return float(m * n)
+    rho = acov.mean(axis=0) / var
+    # Geyer: sum consecutive pairs while positive and monotone decreasing
+    tau = 1.0
+    prev = np.inf
+    for t in range(1, n - 1, 2):
+        pair = rho[t] + rho[t + 1]
+        if pair < 0:
+            break
+        pair = min(pair, prev)
+        tau += 2.0 * pair
+        prev = pair
+    return float(m * n / max(tau, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# Stacking chains
+# ---------------------------------------------------------------------------
+
+def _stack(items):
+    """Stack dataclasses of tensors field by field along a new chain axis."""
+    first = items[0]
+    out = {}
+    for fld in dataclasses.fields(first):
+        vals = [getattr(it, fld.name) for it in items]
+        out[fld.name] = (
+            _stack(vals) if dataclasses.is_dataclass(vals[0])
+            else torch.stack(vals)
+        )
+    return type(first)(**out)
+
+
+def _select(batched, i: int):
+    """Chain ``i`` of a chain-stacked dataclass of tensors."""
+    out = {}
+    for fld in dataclasses.fields(batched):
+        val = getattr(batched, fld.name)
+        out[fld.name] = _select(val, i) if dataclasses.is_dataclass(val) else val[i]
+    return type(batched)(**out)
+
+
+@dataclasses.dataclass
+class MultiChainResult:
+    """Batched ChainResult: every tensor has leading axis n_chains."""
+
+    result: sm.ChainResult
+
+    @property
+    def n_chains(self) -> int:
+        return self.result.chi2_trace.shape[0]
+
+    def diagnostics(self, discard_frac: float = 0.0) -> Dict[str, float]:
+        """R̂ and ESS per monitored statistic, from post-burn-in traces."""
+        out: Dict[str, float] = {}
+        start = int(self.result.chi2_trace.shape[1] * discard_frac)
+        for name, tr in (
+            ("chi2", self.result.chi2_trace),
+            ("flux", self.result.flux_trace),
+        ):
+            t = tr.cpu().numpy()[:, start:]
+            out[f"rhat_{name}"] = gelman_rubin(t)
+            out[f"ess_{name}"] = effective_sample_size(t)
+        mon = self.result.monitor_trace.cpu().numpy()[:, start:, :]
+        rhats = [gelman_rubin(mon[:, :, k]) for k in range(mon.shape[-1])]
+        rhats = [r for r in rhats if np.isfinite(r)]
+        if rhats:
+            out["rhat_monitor_max"] = float(np.max(rhats))
+            out["rhat_monitor_mean"] = float(np.mean(rhats))
+        return out
+
+    def posterior_mean(self, problem: sm.Problem) -> torch.Tensor:
+        """Pooled posterior mean over all chains' kept samples."""
+        s = self.result.state
+        total = torch.sum(s.sum_clean, dim=0)
+        n = torch.clamp(torch.sum(s.n_kept), min=1.0)
+        return (total / n)[:, : problem.Y, : problem.X]
+
+    def rhat_cube(self, problem: sm.Problem) -> np.ndarray:
+        """Dense per-voxel Gelman-Rubin R̂ [L, Y, X] from the accumulators
+        (not split-R̂: no within-chain halves are stored)."""
+        s = self.result.state
+        m = s.sum_clean.shape[0]
+        if m < 2:
+            raise ValueError("rhat_cube needs >= 2 chains")
+        n = np.maximum(s.n_kept.cpu().numpy().astype(np.float64), 1.0)
+        if np.any(n < 2):
+            raise ValueError("rhat_cube needs >= 2 kept samples per chain")
+        nn = n.reshape(m, 1, 1, 1)
+        means = s.sum_clean.cpu().numpy().astype(np.float64) / nn
+        within = (
+            s.sum_sq.cpu().numpy().astype(np.float64) / nn - means**2
+        ) * (nn / (nn - 1.0))
+        W = within.mean(axis=0)
+        navg = float(n.mean())
+        B = navg * means.var(axis=0, ddof=1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            var_plus = (navg - 1.0) / navg * W + B / navg
+            rhat = np.sqrt(var_plus / W)
+        rhat = np.where(W <= 0, np.where(B <= 0, 1.0, np.inf), rhat)
+        return rhat[:, : problem.Y, : problem.X]
+
+
+def chain_key(seed: int, chain: int) -> int:
+    """64-bit Philox key of chain ``chain``: the seed in the low word, the
+    chain index added to the high word (chain 0 keeps the seed itself)."""
+    return (int(seed) + (int(chain) << 32)) & 0xFFFFFFFFFFFFFFFF
+
+
+def init_chain_states(
+    problem: sm.Problem, n_chains: int, seed: Optional[int] = None
+) -> sm.SamplerState:
+    """Batched initial state: one shared init, per-chain Philox keys."""
+    state0 = sm.init_state(problem)
+    base = problem.config.seed if seed is None else seed
+    batched = _stack([state0] * n_chains)
+    keys = [chain_key(base, c) for c in range(n_chains)]
+    # int64 holds the 64-bit key pattern (two's complement)
+    batched.key = torch.tensor(
+        [k - (1 << 64) if k >= 1 << 63 else k for k in keys],
+        dtype=torch.int64, device=problem.device,
+    )
+    return batched
+
+
+def run_chains(
+    problem: sm.Problem,
+    n_chains: int,
+    n_sweeps: Optional[int] = None,
+    mesh=None,
+    states: Optional[sm.SamplerState] = None,
+) -> MultiChainResult:
+    """Run ``n_chains`` independent chains, one after another."""
+    if mesh is not None:
+        raise sm.not_ported("mesh", mesh)
+    if n_sweeps is None:
+        n_sweeps = problem.config.max_iterations
+    if states is None:
+        states = init_chain_states(problem, n_chains)
+    results = [
+        sm.run_sweeps(problem, _select(states, c), n_sweeps)
+        for c in range(n_chains)
+    ]
+    return MultiChainResult(result=_stack(results))

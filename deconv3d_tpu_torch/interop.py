@@ -1,0 +1,79 @@
+"""Carry problems and states across packages as NumPy arrays.
+
+``problem_from_numpy`` / ``state_from_numpy`` build the port's
+:class:`~deconv3d_tpu_torch.sampler.Problem` / ``SamplerState`` from the
+JAX package's leaves (any mapping of field name → array); ``*_to_numpy``
+go the other way.  No JAX import: the caller hands over NumPy arrays, so
+both packages can start from the identical state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from . import sampler as sm
+
+_PROBLEM_INTS = ("L", "Y", "X", "f", "ny", "nx")
+_PROBLEM_TENSORS = (
+    "fsf", "lsf", "data_pad", "w_pad", "quad", "valid", "monitor_idx",
+    "fsf_spec", "fsf_imgs",
+)
+
+
+def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
+                       device="cpu") -> sm.Problem:
+    """Port Problem from a mapping of field name → NumPy array / int."""
+    kw = {n: int(d[n]) for n in _PROBLEM_INTS}
+    for n in _PROBLEM_TENSORS:
+        arr = np.asarray(d[n])
+        dtype = (
+            torch.bool if arr.dtype == bool
+            else torch.int64 if np.issubdtype(arr.dtype, np.integer)
+            else torch.float32
+        )
+        kw[n] = torch.tensor(arr, dtype=dtype, device=device)
+    return sm.Problem(config=config, **kw)
+
+
+def problem_to_numpy(problem: sm.Problem) -> dict:
+    out = {n: getattr(problem, n) for n in _PROBLEM_INTS}
+    for n in _PROBLEM_TENSORS:
+        out[n] = getattr(problem, n).cpu().numpy()
+    return out
+
+
+def key_from_words(words) -> int:
+    """64-bit Philox key from a 2-word uint32 key (high word first, as a
+    JAX ``PRNGKey(seed)`` holds ``[0, seed]``) or from a scalar."""
+    w = np.asarray(words).astype(np.uint64).reshape(-1)
+    if w.size == 1:
+        return int(w[0])
+    return int((w[0] << np.uint64(32)) | w[1])
+
+
+def state_from_numpy(d: Mapping, device="cpu") -> sm.SamplerState:
+    """Port SamplerState from a mapping of field name → NumPy array."""
+    kw = {}
+    for fld in dataclasses.fields(sm.SamplerState):
+        arr = np.asarray(d[fld.name])
+        if fld.name == "key":
+            key = key_from_words(arr)
+            key = key - (1 << 64) if key >= 1 << 63 else key
+            kw["key"] = torch.tensor(key, dtype=torch.int64, device=device)
+        elif fld.name == "sweep":
+            kw["sweep"] = torch.tensor(int(arr), dtype=torch.int64, device=device)
+        else:
+            kw[fld.name] = torch.tensor(arr, dtype=torch.float32,
+                                        device=device)
+    return sm.SamplerState(**kw)
+
+
+def state_to_numpy(state: sm.SamplerState) -> dict:
+    return {
+        fld.name: getattr(state, fld.name).cpu().numpy()
+        for fld in dataclasses.fields(state)
+    }

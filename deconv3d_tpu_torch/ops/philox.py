@@ -1,0 +1,117 @@
+"""Counter-based Philox4x32-10 in plain torch — the sampler's random bits.
+
+The JAX package's kernels draw from the TPU's hardware PRNG, whose bits no
+other device reproduces.  The port uses Philox4x32-10 (Salmon et al., SC'11,
+"Parallel random numbers: as easy as 1, 2, 3"), a counter-based generator:
+every 128-bit output is a pure function of a 128-bit counter and a 64-bit
+key, so any draw can be recomputed anywhere — in this module on tensors, and
+inside the CUDA sweep kernel (``csrc/philox.cuh``), bit for bit.
+
+Uint32 words live in int64 tensors masked to 32 bits; the 32×32→64-bit
+products are split into 16-bit halves so that no intermediate leaves int64.
+
+Counter layout of the MH sweep (one 4-word block per counter):
+
+    key     = (chain key & 0xffffffff, chain key >> 32)
+    counter = (λ >> 2, ABSOLUTE sweep, color, stream << 24 | spaxel row ij)
+
+word ``λ & 3`` of the block is the jump uniform of wavelength λ (stream 0);
+word 0 of the stream-1 block at λ = 0 is the accept uniform.  Keying by the
+absolute sweep makes any segmentation of a run, and any resume, draw the
+identical numbers (the tiled TPU kernel keys its streams the same way,
+``deconv3d_tpu/ops/pallas_tiled.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+ROUNDS = 10
+
+#: stream ids of the MH sweep's draws (high byte of counter word 3)
+STREAM_JUMP = 0
+STREAM_ACCEPT = 1
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of the 64-bit product ``a · m`` (a < 2³²)."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    low = a_lo * m_lo
+    mid = a_hi * m_lo + a_lo * m_hi            # < 2³³
+    low_full = low + ((mid & 0xFFFF) << 16)    # < 2³³
+    lo = low_full & M32
+    hi = (a_hi * m_hi + (mid >> 16) + (low_full >> 32)) & M32
+    return hi, lo
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 of ``counter`` (4 word tensors) under ``key`` (2 words).
+
+    Words are int64 tensors (or ints) holding values in [0, 2³²); they
+    broadcast against each other.  Returns the 4 output words.
+    """
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = int(key[0]) & M32, int(key[1]) & M32
+    for r in range(ROUNDS):
+        if r:
+            k0 = (k0 + PHILOX_W0) & M32
+            k1 = (k1 + PHILOX_W1) & M32
+        hi0, lo0 = _mulhilo(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words → float32 uniforms (2k+1)·2⁻²⁴, k = the top 23 bits.
+
+    Every value is exact in float32, lies in (0, 1), is never 0.5, and the
+    set is symmetric about 0.5 (so tan(π(u − ½)) is a symmetric Cauchy
+    draw).  The TPU kernel's k·2⁻²⁴ + 2⁻²⁵ on the top 24 bits needs 25
+    significant bits above 0.5: evaluated in float32 it rounds half to even
+    and returns exactly 0.5 and 1.0 for two of its 2²⁴ inputs.
+    """
+    k = (bits >> 9).to(torch.float32)
+    return (2.0 * k + 1.0) * 2.0 ** -24
+
+
+def key_words(key: int):
+    """(k0, k1) uint32 words of a 64-bit chain key."""
+    key = int(key)
+    return key & M32, (key >> 32) & M32
+
+
+def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
+                   device=None) -> torch.Tensor:
+    """All uniforms of one MH sweep: ``[n_colors, nij, L + 1]`` float32.
+
+    ``[..., :L]`` are the jump uniforms of each (color, spaxel row, λ),
+    ``[..., L]`` the accept uniform — exactly what the CUDA kernel draws.
+    """
+    dev = torch.device(device) if device is not None else None
+    lam = torch.arange(L, dtype=torch.int64, device=dev)
+    color = torch.arange(n_colors, dtype=torch.int64, device=dev)[:, None, None]
+    ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :, None]
+    words = philox4x32(
+        (lam >> 2, sweep & M32, color, (STREAM_JUMP << 24) | ij),
+        key_words(key),
+    )
+    stacked = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    jump_bits = torch.gather(
+        stacked, -1, (lam & 3).expand(n_colors, nij, L)[..., None]
+    )[..., 0]
+    acc_bits = philox4x32(
+        (0, sweep & M32, color[..., 0], (STREAM_ACCEPT << 24) | ij[..., 0]),
+        key_words(key),
+    )[0]
+    bits = torch.cat(
+        [jump_bits, torch.broadcast_to(acc_bits, (n_colors, nij))[..., None]],
+        dim=-1,
+    )
+    return bits_to_uniform(bits)

@@ -1,0 +1,462 @@
+"""MH-within-Gibbs sampler core on torch — color-decomposed sweeps.
+
+PyTorch counterpart of ``deconv3d_tpu/sampler.py`` for the default path
+(``sampler='mh'``, one chain per kernel launch).  The scheme is the JAX
+package's:
+
+  * The FSF footprint is ``f×f`` (odd).  Spaxels whose (y, x) offsets are
+    both multiples of ``f`` have disjoint likelihood patches, so their
+    single-site MH updates commute.  Coloring the spaxel grid by
+    ``(y mod f, x mod f)`` gives ``f²`` colors; one *sweep* scans the colors
+    in order and updates every spaxel of a color at once.
+  * A spaxel-spectrum perturbation δ changes the model by the separable
+    outer product g[μ]·F[μ,dy,dx] with g = LSF(δ), so Δχ² needs only the
+    residual patch and the precomputed ``quad = Σ F² w``.
+
+Both engines build the *kernel-engine problem* of the JAX package: weights
+rounded to bfloat16 values before ``quad`` and χ², and the FSF replaced by
+its low-rank reconstruction Σ_s spec_s ⊗ img_s.  The engine follows the
+device: on a CUDA device every sweep runs the hand-written kernel
+(``csrc/mh_sweep.cu``, engine ``'cuda'``), on the CPU its plain torch
+version (``ops/sweep.py``, engine ``'torch'``).  Both sample the same
+posterior.
+
+State layout (public, λ-major as in the JAX package):
+    clean  [L, Yc, Xc]   Yc = ceil(Y/f)·f   (zero-padded clean cube)
+    resid  [L, Hp, Wp]   Hp = f-1 + Yc      (data - conv(clean), zero-padded)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import convolve as cv
+from .cube import Cube, torch_dtype
+from .instruments import Instrument
+
+#: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
+_NOT_PORTED = {
+    "sampler": "Queue 1 item 9 (gibbs, positivity), 10 (gibbs_block), "
+               "14 (direct)",
+    "positivity": "Queue 1 item 9 (gibbs/positivity)",
+    "coarse_every": "Queue 1 item 13 (coarse passes)",
+    "prior_precision": "Queue 1 item 14 (direct sampler, MAP)",
+    "chi2_rebaseline_every": "Queue 1 item 11 (full field)",
+    "tile": "Queue 1 item 11 (full field, tiled kernel)",
+    "lambda_chunk": "Queue 1 item 11 (full field)",
+    "mesh": "Queue 1 item 16 (torch.distributed)",
+}
+
+
+def not_ported(knob: str, value) -> NotImplementedError:
+    return NotImplementedError(
+        f"{knob}={value!r} is not ported to deconv3d_tpu_torch yet: "
+        f"see ROADMAP.md, {_NOT_PORTED[knob]}"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Sampler knobs — the JAX package's fields and defaults.
+
+    ``max_iterations`` counts full sweeps (every unmasked spaxel visited
+    once).  Knobs of samplers and engines not ported yet keep their fields
+    so configurations carry over; :func:`make_problem` raises
+    ``NotImplementedError`` for any value that would switch one of them
+    on (the ``direct_*`` and ``coarse_scale``/``coarse_mode`` knobs only act
+    through ``sampler='direct'`` and ``coarse_every``).
+    ``engine``: ``'auto'`` takes the device's engine — ``'cuda'`` (the
+    hand-written kernel) on a CUDA device, ``'torch'`` (its plain torch
+    version) otherwise; naming the other device's engine raises.
+    """
+
+    max_iterations: int = 1000
+    burn_in: Optional[int] = None          # default: max_iterations // 2
+    keep_one_in: int = 1                   # thinning of the posterior mean
+    track_variance: bool = True
+    n_monitor: int = 8                     # voxels traced per sweep (for R̂)
+    jump_scale: Optional[float] = None     # None → auto from weights
+    target_acceptance: float = 0.234       # adaptive-MH target
+    adapt_rate: float = 0.10               # Robbins-Monro step for log-scale
+    # post-burn-in the adaptation decays as (sweeps past burn-in)^-decay;
+    # None/0 freezes at burn-in
+    adapt_decay: Optional[float] = 0.7
+    positivity: bool = False
+    sampler: str = "mh"
+    initial: str = "zeros"                 # 'zeros' | 'data'
+    fsf_size: Optional[int] = None
+    lsf_width: Optional[int] = None
+    seed: int = 0
+    dtype: np.dtype = np.float32
+    engine: str = "auto"                   # 'auto' | 'cuda' | 'torch'
+    tile: Optional[Tuple[int, int]] = None
+    coarse_every: Optional[int] = None
+    coarse_scale: float = 2.4
+    coarse_mode: str = "global"
+    lambda_chunk: Optional[int] = None
+    fsf_tol: float = 1e-5                  # low-rank FSF tolerance
+    fsf_max_rank: int = 8
+    direct_tol: float = 1e-6
+    direct_maxiter: int = 500
+    direct_precond: str = "banded"
+    direct_radial_bins: int = 256
+    direct_precond_scale: bool = False
+    direct_precond_tau: "float | str" = "auto"
+    direct_spatial: str = "auto"
+    chi2_rebaseline_every: Optional[int] = None
+    prior_precision: "float | str" = 0.0
+
+    def resolved_burn_in(self) -> int:
+        if self.burn_in is not None:
+            return self.burn_in
+        return self.max_iterations // 2
+
+
+def adapt_schedule(ids: torch.Tensor, cfg: RunConfig) -> torch.Tensor:
+    """Per-sweep Robbins-Monro step sizes (float32) for absolute sweeps ``ids``.
+
+    Full ``adapt_rate`` during burn-in; afterwards frozen (``adapt_decay``
+    falsy) or decaying as t^-adapt_decay (diminishing adaptation).
+    """
+    burn = cfg.resolved_burn_in()
+    in_burn = ids < burn
+    rate = torch.tensor(cfg.adapt_rate, dtype=torch.float32)
+    if not cfg.adapt_decay:
+        return torch.where(in_burn, rate, torch.zeros((), dtype=torch.float32))
+    t = torch.clamp(ids - burn + 1, min=1).to(torch.float32)
+    tail = rate * t ** torch.tensor(-cfg.adapt_decay, dtype=torch.float32)
+    return torch.where(in_burn, rate, tail)
+
+
+def keep_schedule(ids: torch.Tensor, cfg: RunConfig) -> torch.Tensor:
+    """1.0 for the absolute sweeps ``ids`` that enter the accumulators."""
+    burn = cfg.resolved_burn_in()
+    keep = (ids >= burn) & ((ids - burn) % cfg.keep_one_in == 0)
+    return keep.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Problem, state, result
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Problem:
+    """Everything constant across sweeps (geometry + device tensors)."""
+
+    L: int
+    Y: int
+    X: int
+    f: int                          # FSF footprint (odd)
+    ny: int                         # ceil(Y / f)
+    nx: int                         # ceil(X / f)
+    fsf: torch.Tensor               # [L, f, f] low-rank reconstruction
+    lsf: torch.Tensor               # [L, lw]
+    data_pad: torch.Tensor          # [L, Hp, Wp]
+    w_pad: torch.Tensor             # [L, Hp, Wp] bf16-valued 1/variance
+    quad: torch.Tensor              # [L, Yc, Xc]  Σ_{dy,dx} F² w per spaxel
+    valid: torch.Tensor             # [Yc, Xc] bool
+    monitor_idx: torch.Tensor       # [K] flat indices into clean
+    fsf_spec: torch.Tensor          # [S, L]
+    fsf_imgs: torch.Tensor          # [S, f, f]
+    config: RunConfig = RunConfig()
+
+    @property
+    def device(self) -> torch.device:
+        return self.data_pad.device
+
+    @property
+    def Yc(self) -> int:
+        return self.ny * self.f
+
+    @property
+    def Xc(self) -> int:
+        return self.nx * self.f
+
+    @property
+    def Hp(self) -> int:
+        return self.f - 1 + self.Yc
+
+    @property
+    def Wp(self) -> int:
+        return self.f - 1 + self.Xc
+
+    @property
+    def n_colors(self) -> int:
+        return self.f * self.f
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.valid.sum())
+
+
+@dataclasses.dataclass
+class SamplerState:
+    clean: torch.Tensor        # [L, Yc, Xc]
+    resid: torch.Tensor        # [L, Hp, Wp]
+    key: torch.Tensor          # int64 scalar: the chain's 64-bit Philox key
+    chi2: torch.Tensor         # float32 scalar, Kahan-compensated
+    chi2_comp: torch.Tensor    # Kahan compensation term
+    log_scale: torch.Tensor    # [Yc, Xc] per-spaxel log jump scale
+    n_accept: torch.Tensor     # float32 scalar
+    n_propose: torch.Tensor    # float32 scalar
+    sum_clean: torch.Tensor    # [L, Yc, Xc] posterior-mean accumulator
+    sum_sq: torch.Tensor       # [L, Yc, Xc] posterior-var accumulator
+    n_kept: torch.Tensor       # float32 scalar
+    sweep: torch.Tensor        # int64 absolute sweep counter
+
+
+@dataclasses.dataclass
+class ChainResult:
+    """Output of run_sweeps: final state + per-sweep traces."""
+
+    state: SamplerState
+    chi2_trace: torch.Tensor        # [n_sweeps]
+    accept_trace: torch.Tensor      # [n_sweeps] sweep acceptance rate
+    flux_trace: torch.Tensor        # [n_sweeps] Σ clean over valid spaxels
+    monitor_trace: torch.Tensor     # [n_sweeps, K] monitored clean voxels
+
+
+# ---------------------------------------------------------------------------
+# Problem construction
+# ---------------------------------------------------------------------------
+
+def _quad_conv(w_pad: torch.Tensor, fsf: torch.Tensor) -> torch.Tensor:
+    """Depthwise VALID correlation of w with F² → [L, Yc, Xc]."""
+    fsf2 = (fsf.to(torch.float64) ** 2).to(w_pad.dtype)
+    with cv.no_tf32():
+        return torch.nn.functional.conv2d(
+            w_pad[None], fsf2[:, None], groups=w_pad.shape[0]
+        )[0]
+
+
+def _check_config(config: RunConfig) -> None:
+    if config.sampler != "mh":
+        raise not_ported("sampler", config.sampler)
+    if config.positivity:
+        raise not_ported("positivity", True)
+    if config.coarse_every:
+        raise not_ported("coarse_every", config.coarse_every)
+    if config.prior_precision == "auto" or config.prior_precision:
+        raise not_ported("prior_precision", config.prior_precision)
+    if config.chi2_rebaseline_every:
+        raise not_ported("chi2_rebaseline_every", config.chi2_rebaseline_every)
+    if config.tile is not None:
+        raise not_ported("tile", config.tile)
+    if config.lambda_chunk:
+        raise not_ported("lambda_chunk", config.lambda_chunk)
+    if config.engine not in ("auto", "cuda", "torch"):
+        raise ValueError(
+            f"engine must be 'auto', 'cuda' or 'torch', got {config.engine!r}"
+        )
+
+
+def make_problem(
+    cube: Cube, instrument: Instrument, config: RunConfig = RunConfig(),
+    device=None,
+) -> Problem:
+    """Rasterise kernels, build padded weights and per-spaxel quad terms.
+
+    ``device`` defaults to the cube's.  The engine is the device's:
+    ``'cuda'`` on a CUDA device, ``'torch'`` otherwise; a ``config.engine``
+    other than ``'auto'`` or that one raises.
+    """
+    _check_config(config)
+    device = torch.device(device) if device is not None else cube.device
+    engine = "cuda" if device.type == "cuda" else "torch"
+    if config.engine not in ("auto", engine):
+        raise RuntimeError(
+            f"engine={config.engine!r} cannot run on {device}: on a CUDA "
+            f"device every sweep runs the CUDA kernel (engine 'cuda'), "
+            f"elsewhere its plain torch version (engine 'torch')"
+        )
+    config = dataclasses.replace(config, engine=engine)
+    cube = cube.to(device).sanitized()
+    dtype = torch_dtype(config.dtype)
+    L, Y, X = cube.shape
+    lam = cube.wavelengths()
+
+    fsf_np = instrument.fsf.bank(
+        lam, size=config.fsf_size, pixel_scale=instrument.pixel_scale
+    )
+    lsf_np = instrument.lsf.bank(lam, cdelt=cube.cdelt, width=config.lsf_width)
+    # The low-rank reconstruction F̃ = Σ_s spec ⊗ img becomes the forward
+    # model everywhere, so the chain is exact for F̃ (ops/fsf_factor.py).
+    from .ops.fsf_factor import factor_bank
+
+    spec_np, imgs_np, fsf_np, _err = factor_bank(
+        fsf_np, tol=config.fsf_tol, max_rank=config.fsf_max_rank
+    )
+
+    f = fsf_np.shape[-1]
+    ny, nx = -(-Y // f), -(-X // f)
+    Yc, Xc = ny * f, nx * f
+    Hp, Wp = f - 1 + Yc, f - 1 + Xc
+    h = f // 2
+
+    var = cube.variance.to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    w = torch.where(torch.isfinite(var) & (var > 0), 1.0 / var, zero)
+    w = torch.where(cube.mask[None], zero, w)
+    # bfloat16-valued weights, as the TPU kernel engines keep them: quad,
+    # chi² and accepts all see the same w̃, so the sampled posterior is the
+    # w̃-weighted one on every engine and device.
+    w = w.to(torch.bfloat16).to(dtype)
+    w_pad = torch.zeros((L, Hp, Wp), dtype=dtype, device=device)
+    w_pad[:, h : h + Y, h : h + X] = w
+    data_pad = torch.zeros((L, Hp, Wp), dtype=dtype, device=device)
+    data_pad[:, h : h + Y, h : h + X] = cube.data.to(dtype)
+
+    fsf = torch.as_tensor(fsf_np, dtype=dtype, device=device)
+    quad = _quad_conv(w_pad, torch.as_tensor(fsf_np, device=device))
+
+    mask_np = cube.mask.cpu().numpy()
+    valid = np.zeros((Yc, Xc), dtype=bool)
+    valid[:Y, :X] = ~mask_np
+    # spaxels with zero total weight in their footprint have an improper
+    # flat conditional: freeze them at their initial value
+    valid &= (quad.sum(dim=0) > 0).cpu().numpy()
+
+    # deterministic set of monitored voxels (for per-parameter R̂)
+    k = max(1, config.n_monitor)
+    vy, vx = np.nonzero(valid)
+    mon_rng = np.random.default_rng(config.seed + 7919)
+    if len(vy) == 0:
+        monitor = np.zeros(k, dtype=np.int64)
+    else:
+        pick = mon_rng.choice(len(vy), size=k, replace=len(vy) < k)
+        lam_pick = mon_rng.integers(0, L, size=k)
+        monitor = (lam_pick * Yc * Xc + vy[pick] * Xc + vx[pick]).astype(
+            np.int64
+        )
+
+    return Problem(
+        L=L, Y=Y, X=X, f=f, ny=ny, nx=nx,
+        fsf=fsf,
+        lsf=torch.as_tensor(lsf_np, dtype=dtype, device=device),
+        data_pad=data_pad,
+        w_pad=w_pad,
+        quad=quad,
+        valid=torch.as_tensor(valid, device=device),
+        monitor_idx=torch.as_tensor(monitor, device=device),
+        fsf_spec=torch.as_tensor(spec_np, dtype=dtype, device=device),
+        fsf_imgs=torch.as_tensor(imgs_np, dtype=dtype, device=device),
+        config=config,
+    )
+
+
+def init_state(problem: Problem, cube: Optional[Cube] = None,
+               key: Optional[int] = None) -> SamplerState:
+    """Initial sampler state: clean guess, full-cube residual, chi².
+
+    ``key`` is the chain's 64-bit Philox key (default ``config.seed``).
+    """
+    p, cfg = problem, problem.config
+    dtype = torch_dtype(cfg.dtype)
+    dev = p.device
+    h = p.f // 2
+    clean = torch.zeros((p.L, p.Yc, p.Xc), dtype=dtype, device=dev)
+    if cfg.initial == "data":
+        init_data = (
+            torch.nan_to_num(cube.data.to(dev, dtype)) if cube is not None
+            else p.data_pad[:, h : h + p.Y, h : h + p.X]
+        )
+        clean[:, : p.Y, : p.X] = init_data
+    elif cfg.initial != "zeros":
+        raise ValueError(f"initial must be 'zeros' or 'data', got {cfg.initial!r}")
+
+    conv = cv.convolve_cube(clean[:, : p.Y, : p.X], p.fsf, p.lsf)
+    resid = p.data_pad.clone()
+    resid[:, h : h + p.Y, h : h + p.X] -= conv
+    # zero residual where weight is zero so chi² and patch updates agree
+    resid = torch.where(p.w_pad > 0, resid, torch.zeros((), dtype=dtype, device=dev))
+    chi2 = torch.sum(resid * resid * p.w_pad, dtype=torch.float32)
+
+    if cfg.jump_scale is not None:
+        log_scale = torch.full((p.Yc, p.Xc), float(np.log(cfg.jump_scale)),
+                               dtype=dtype, device=dev)
+    else:
+        # Cauchy random-walk over an ~L-dimensional spectrum: measured
+        # adapted scales follow ≈ 3.0·σ·L^(-5/6) (see the JAX package)
+        sigma = 1.0 / torch.sqrt(torch.clamp(p.quad.mean(dim=0), min=1e-20))
+        log_scale = torch.log(3.0 * float(p.L) ** (-5.0 / 6.0) * sigma).to(dtype)
+    log_scale = torch.where(p.valid, log_scale, torch.zeros((), dtype=dtype, device=dev))
+
+    scalar = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
+    return SamplerState(
+        clean=clean,
+        resid=resid,
+        key=scalar(cfg.seed if key is None else key, torch.int64),
+        chi2=chi2,
+        chi2_comp=scalar(0.0),
+        log_scale=log_scale,
+        n_accept=scalar(0.0),
+        n_propose=scalar(0.0),
+        sum_clean=torch.zeros((p.L, p.Yc, p.Xc), dtype=dtype, device=dev),
+        sum_sq=(
+            torch.zeros((p.L, p.Yc, p.Xc), dtype=dtype, device=dev)
+            if cfg.track_variance
+            else torch.zeros((1, 1, 1), dtype=dtype, device=dev)
+        ),
+        n_kept=scalar(0.0),
+        sweep=scalar(0, torch.int64),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The hot loop
+# ---------------------------------------------------------------------------
+
+def run_sweeps(
+    problem: Problem, state: SamplerState, n_sweeps: int
+) -> ChainResult:
+    """Run ``n_sweeps`` full MH sweeps (the hot path).
+
+    On a CUDA device every sweep is one launch of the CUDA kernel; on the
+    CPU its plain torch version runs (``ops.sweep.mh_segment``).  Burn-in
+    sweeps adapt the per-spaxel jump scale and stay out of the posterior
+    accumulators.
+    """
+    from .ops import sweep as sw
+
+    return sw.mh_segment(problem, state, n_sweeps).result
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers
+# ---------------------------------------------------------------------------
+
+def full_chi2(problem: Problem, state: SamplerState) -> torch.Tensor:
+    """Recompute chi² from scratch via the full conv path (drift check)."""
+    p = problem
+    h = p.f // 2
+    conv = cv.convolve_cube(state.clean[:, : p.Y, : p.X], p.fsf, p.lsf)
+    resid = p.data_pad[:, h : h + p.Y, h : h + p.X] - conv
+    w = p.w_pad[:, h : h + p.Y, h : h + p.X]
+    return torch.sum(resid * resid * w, dtype=torch.float32)
+
+
+def posterior_mean(problem: Problem, state: SamplerState) -> torch.Tensor:
+    """Posterior-mean clean cube [L, Y, X] from the accumulators."""
+    p = problem
+    mean = state.sum_clean / torch.clamp(state.n_kept, min=1.0)
+    return mean[:, : p.Y, : p.X]
+
+
+def posterior_std(problem: Problem, state: SamplerState) -> torch.Tensor:
+    p = problem
+    if not p.config.track_variance:
+        raise ValueError(
+            "posterior std unavailable: the run used track_variance=False"
+        )
+    n = torch.clamp(state.n_kept, min=1.0)
+    mean = state.sum_clean / n
+    var = torch.clamp(state.sum_sq / n - mean * mean, min=0.0)
+    return torch.sqrt(var)[:, : p.Y, : p.X]
