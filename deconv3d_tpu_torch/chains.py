@@ -1,10 +1,12 @@
 """Multi-chain layer and convergence diagnostics.
 
-Counterpart of ``deconv3d_tpu/chains.py``.  Chains run one after another,
-each through the single-chain sweep path; batching chains inside the kernel
-is a later slice (ROADMAP.md, Queue 1 item 12).  Convergence is quantified
-with split-R̂ (Gelman-Rubin) and effective sample size from per-sweep
-traces (NumPy, unchanged from the JAX package).
+Counterpart of ``deconv3d_tpu/chains.py``.  All chains of a run go through
+one batched segment per call (``sampler.run_sweeps`` on a chain-stacked
+state: on a CUDA device one kernel launch per sweep for the whole batch);
+they are split into groups only where the batch's working set would not fit
+the card's free memory.  Convergence is quantified with split-R̂
+(Gelman-Rubin) and effective sample size from per-sweep traces (NumPy,
+unchanged from the JAX package).
 """
 
 from __future__ import annotations
@@ -79,26 +81,28 @@ def effective_sample_size(traces) -> float:
 # Stacking chains
 # ---------------------------------------------------------------------------
 
-def _stack(items):
-    """Stack dataclasses of tensors field by field along a new chain axis."""
+def _fieldwise(fn, items):
+    """``fn`` of each field's values across ``items`` (dataclasses of
+    tensors, nested ones recursed), as a dataclass of the same type."""
     first = items[0]
     out = {}
     for fld in dataclasses.fields(first):
         vals = [getattr(it, fld.name) for it in items]
         out[fld.name] = (
-            _stack(vals) if dataclasses.is_dataclass(vals[0])
-            else torch.stack(vals)
+            _fieldwise(fn, vals) if dataclasses.is_dataclass(vals[0])
+            else fn(vals)
         )
     return type(first)(**out)
 
 
-def _select(batched, i: int):
-    """Chain ``i`` of a chain-stacked dataclass of tensors."""
-    out = {}
-    for fld in dataclasses.fields(batched):
-        val = getattr(batched, fld.name)
-        out[fld.name] = _select(val, i) if dataclasses.is_dataclass(val) else val[i]
-    return type(batched)(**out)
+def stack_chains(items):
+    """Stack single-chain dataclasses along a new leading chain axis."""
+    return _fieldwise(torch.stack, items)
+
+
+def select_chains(batched, index):
+    """Chains ``index`` (an int or a slice) of a chain-stacked dataclass."""
+    return _fieldwise(lambda vals: vals[0][index], [batched])
 
 
 @dataclasses.dataclass
@@ -174,7 +178,7 @@ def init_chain_states(
     """Batched initial state: one shared init, per-chain Philox keys."""
     state0 = sm.init_state(problem)
     base = problem.config.seed if seed is None else seed
-    batched = _stack([state0] * n_chains)
+    batched = stack_chains([state0] * n_chains)
     keys = [chain_key(base, c) for c in range(n_chains)]
     # int64 holds the 64-bit key pattern (two's complement)
     batched.key = torch.tensor(
@@ -184,6 +188,35 @@ def init_chain_states(
     return batched
 
 
+def segment_bytes_per_chain(problem: sm.Problem) -> int:
+    """Device bytes one more chain adds to a batched segment: the segment's
+    λ-last copies of its residual, clean cube and accumulators, the new
+    state's λ-first copies, and the kernel scratch (float32)."""
+    p = problem
+    cube = p.L * p.Yc * p.Xc
+    resid = p.L * p.Hp * p.Wp
+    scratch = 3 * p.ny * p.nx * p.L          # about either kernel's
+    return 4 * (2 * resid + 6 * cube + scratch)
+
+
+def device_free_bytes(device: torch.device) -> Optional[int]:
+    """Free bytes on a CUDA device (``torch.cuda.mem_get_info``); None —
+    no limit — elsewhere."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[0])
+
+
+def max_chain_batch(problem: sm.Problem, n_chains: int) -> int:
+    """Chains per batched segment: all of them, unless their working set
+    (:func:`segment_bytes_per_chain` each) exceeds the free device memory."""
+    free = device_free_bytes(problem.device)
+    if free is None:
+        return max(1, n_chains)
+    fit = free // segment_bytes_per_chain(problem)
+    return int(max(1, min(n_chains, fit)))
+
+
 def run_chains(
     problem: sm.Problem,
     n_chains: int,
@@ -191,15 +224,26 @@ def run_chains(
     mesh=None,
     states: Optional[sm.SamplerState] = None,
 ) -> MultiChainResult:
-    """Run ``n_chains`` independent chains, one after another."""
+    """Run ``n_chains`` independent chains in lockstep, batched.
+
+    One ``sampler.run_sweeps`` call for the whole batch (on a CUDA device:
+    one kernel launch per sweep for all chains), or one per group of
+    :func:`max_chain_batch` chains where the batch would not fit the card.
+    Each chain keeps its Philox key (:func:`chain_key`), so it draws the
+    same numbers in any batch.
+    """
     if mesh is not None:
         raise sm.not_ported("mesh", mesh)
     if n_sweeps is None:
         n_sweeps = problem.config.max_iterations
     if states is None:
         states = init_chain_states(problem, n_chains)
+    cb = max_chain_batch(problem, n_chains)
     results = [
-        sm.run_sweeps(problem, _select(states, c), n_sweeps)
-        for c in range(n_chains)
+        sm.run_sweeps(problem, select_chains(states, slice(lo, lo + cb)),
+                      n_sweeps)
+        for lo in range(0, n_chains, cb)
     ]
-    return MultiChainResult(result=_stack(results))
+    return MultiChainResult(
+        result=results[0] if len(results) == 1
+        else _fieldwise(torch.cat, results))

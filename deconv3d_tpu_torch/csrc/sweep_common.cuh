@@ -1,0 +1,149 @@
+// Pieces shared by the MH and exact-Gibbs sweep kernels (mh_sweep.cu,
+// gibbs_sweep.cu): the patch contraction and commit of one (chain, spaxel,
+// 32-wavelength chunk) task, and the cooperative launch.
+//
+// Layout (lambda-contiguous; the wrapper transposes at the segment
+// boundary): residual [C, Hp, Wp, L], weights [Hp, Wp, L], clean
+// [C, Yc, Xc, L], quad/qvox [Yc, Xc, L].  A task's block holds 32 x nw
+// threads: lanes on wavelengths (one 128-byte load per warp), warps on
+// patch rows dy = warp, warp + nw, ...
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace deconv3d {
+
+constexpr int kMaxRank = 8;
+constexpr int kChunk = 32;          // wavelengths per task (one per lane)
+// a block holds min(f, 18) warps (one per patch row; MUSE's f = 17), so a
+// thread may use up to 113 registers; a larger f loops the warps over rows
+constexpr int kMaxWarps = 18;
+constexpr int kMaxThreads = 32 * kMaxWarps;
+constexpr float kPi = 3.14159265358979323846f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// Copy the S FSF images [S, f, f] into shared memory (whole block).
+__device__ __forceinline__ void load_images(float* img_s, const float* imgs,
+                                            int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) img_s[k] = imgs[k];
+  __syncthreads();
+}
+
+// This warp's share of the patch contraction at wavelength l:
+//   pool_s[(warp * S + s) * kChunk + lane] =
+//     sum_{dy = warp, warp+nw, ...} sum_dx img_s[s, dy, dx] * (resid * w)[dy, dx]
+// where `row0` is the offset of patch pixel (0, 0) at wavelength l in the
+// chain's residual and in the weights.  The caller syncs the block before
+// reading the partials.
+__device__ __forceinline__ void patch_partials(const float* resid,
+                                               const float* w,
+                                               const float* img_s,
+                                               float* pool_s, size_t row0,
+                                               bool on, int Wp, int L, int f,
+                                               int S) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  float pooled[kMaxRank];
+#pragma unroll
+  for (int s = 0; s < kMaxRank; ++s) pooled[s] = 0.0f;
+  if (on) {
+    for (int dy = warp; dy < f; dy += nw) {
+      const size_t row = row0 + static_cast<size_t>(dy) * Wp * L;
+#pragma unroll 8
+      for (int dx = 0; dx < f; ++dx) {
+        const size_t off = row + static_cast<size_t>(dx) * L;
+        const float rw = resid[off] * w[off];
+#pragma unroll
+        for (int s = 0; s < kMaxRank; ++s)
+          if (s < S) pooled[s] += img_s[(s * f + dy) * f + dx] * rw;
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kMaxRank; ++s)
+    if (s < S) pool_s[(warp * S + s) * kChunk + lane] = pooled[s];
+}
+
+// lin at wavelength l (lane's) from the per-warp partials, summed over the
+// warps in a fixed order: lin = sum_s spec[s, l] * sum_r pool_s[r, s].
+__device__ __forceinline__ float partials_to_lin(const float* pool_s,
+                                                 const float* spec, int l,
+                                                 int L, int S) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  float lin = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kMaxRank; ++s) {
+    if (s < S) {
+      float p = 0.0f;
+      for (int r = 0; r < nw; ++r) p += pool_s[(r * S + s) * kChunk + lane];
+      lin += spec[s * L + l] * p;
+    }
+  }
+  return lin;
+}
+
+// resid -= sum_s (spec[s, l] * g) * img_s over this warp's patch rows at
+// wavelength l (row0 as in patch_partials).
+__device__ __forceinline__ void patch_commit(float* resid, const float* img_s,
+                                             const float* spec, float g,
+                                             size_t row0, int l, int Wp,
+                                             int L, int f, int S) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  float gs[kMaxRank];
+#pragma unroll
+  for (int s = 0; s < kMaxRank; ++s) gs[s] = s < S ? spec[s * L + l] * g : 0.0f;
+  for (int dy = warp; dy < f; dy += nw) {
+    const size_t row = row0 + static_cast<size_t>(dy) * Wp * L;
+#pragma unroll 8
+    for (int dx = 0; dx < f; ++dx) {
+      float delta = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kMaxRank; ++s)
+        if (s < S) delta += gs[s] * img_s[(s * f + dy) * f + dx];
+      resid[row + static_cast<size_t>(dx) * L] -= delta;
+    }
+  }
+}
+
+// Launch `kernel(args)` cooperatively with `threads` threads and `smem`
+// bytes of dynamic shared memory, on as many blocks as fit the card at
+// once (at most `tasks`); the kernel walks its tasks grid-stride.
+template <typename Kernel, typename Args>
+inline int launch_cooperative(Kernel kernel, Args* args, int threads,
+                              size_t smem, long long tasks,
+                              cudaStream_t stream) {
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         threads, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(e);
+  long long grid = static_cast<long long>(per_sm) * sms;
+  if (grid > tasks) grid = tasks;
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  void* params[] = {args};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                  dim3(static_cast<unsigned>(grid)),
+                                  dim3(threads), params, smem, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace deconv3d

@@ -20,8 +20,11 @@ from . import sampler as sm
 _PROBLEM_INTS = ("L", "Y", "X", "f", "ny", "nx")
 _PROBLEM_TENSORS = (
     "fsf", "lsf", "data_pad", "w_pad", "quad", "valid", "monitor_idx",
-    "fsf_spec", "fsf_imgs",
+    "fsf_spec", "fsf_imgs", "qvox", "quad_lo",
 )
+#: leaves that may be None (``qvox`` and ``quad_lo`` exist for
+#: ``sampler='gibbs'`` only; the JAX package has no ``quad_lo``)
+_OPTIONAL = ("qvox", "quad_lo")
 
 
 def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
@@ -29,6 +32,9 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
     """Port Problem from a mapping of field name → NumPy array / int."""
     kw = {n: int(d[n]) for n in _PROBLEM_INTS}
     for n in _PROBLEM_TENSORS:
+        if n in _OPTIONAL and d.get(n) is None:
+            kw[n] = None
+            continue
         arr = np.asarray(d[n])
         dtype = (
             torch.bool if arr.dtype == bool
@@ -42,7 +48,8 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
 def problem_to_numpy(problem: sm.Problem) -> dict:
     out = {n: getattr(problem, n) for n in _PROBLEM_INTS}
     for n in _PROBLEM_TENSORS:
-        out[n] = getattr(problem, n).cpu().numpy()
+        t = getattr(problem, n)
+        out[n] = None if t is None else t.cpu().numpy()
     return out
 
 

@@ -16,7 +16,9 @@ Counter layout of the MH sweep (one 4-word block per counter):
     counter = (λ >> 2, ABSOLUTE sweep, color, stream << 24 | spaxel row ij)
 
 word ``λ & 3`` of the block is the jump uniform of wavelength λ (stream 0);
-word 0 of the stream-1 block at λ = 0 is the accept uniform.  Keying by the
+word 0 of the stream-1 block at λ = 0 is the accept uniform.  The exact-Gibbs
+sweep draws its Box-Muller pair (u1, u2) of every (color, spaxel, λ) from
+streams 2 and 3 in the same layout.  Keying by the
 absolute sweep makes any segmentation of a run, and any resume, draw the
 identical numbers (the tiled TPU kernel keys its streams the same way,
 ``deconv3d_tpu/ops/pallas_tiled.py``).
@@ -33,9 +35,11 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 ROUNDS = 10
 
-#: stream ids of the MH sweep's draws (high byte of counter word 3)
+#: stream ids of the sweeps' draws (high byte of counter word 3)
 STREAM_JUMP = 0
 STREAM_ACCEPT = 1
+STREAM_NORMAL_U1 = 2
+STREAM_NORMAL_U2 = 3
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -87,6 +91,24 @@ def key_words(key: int):
     return key & M32, (key >> 32) & M32
 
 
+def _lambda_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
+                     stream: int, device=None) -> torch.Tensor:
+    """``[n_colors, nij, L]`` uniforms of one stream: word ``λ & 3`` of the
+    block at counter (λ >> 2, sweep, color, stream << 24 | ij)."""
+    dev = torch.device(device) if device is not None else None
+    lam = torch.arange(L, dtype=torch.int64, device=dev)
+    color = torch.arange(n_colors, dtype=torch.int64, device=dev)[:, None, None]
+    ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :, None]
+    words = philox4x32(
+        (lam >> 2, sweep & M32, color, (stream << 24) | ij), key_words(key)
+    )
+    stacked = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = torch.gather(
+        stacked, -1, (lam & 3).expand(n_colors, nij, L)[..., None]
+    )[..., 0]
+    return bits_to_uniform(bits)
+
+
 def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
                    device=None) -> torch.Tensor:
     """All uniforms of one MH sweep: ``[n_colors, nij, L + 1]`` float32.
@@ -95,23 +117,23 @@ def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
     ``[..., L]`` the accept uniform — exactly what the CUDA kernel draws.
     """
     dev = torch.device(device) if device is not None else None
-    lam = torch.arange(L, dtype=torch.int64, device=dev)
-    color = torch.arange(n_colors, dtype=torch.int64, device=dev)[:, None, None]
-    ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :, None]
-    words = philox4x32(
-        (lam >> 2, sweep & M32, color, (STREAM_JUMP << 24) | ij),
-        key_words(key),
-    )
-    stacked = torch.stack(torch.broadcast_tensors(*words), dim=-1)
-    jump_bits = torch.gather(
-        stacked, -1, (lam & 3).expand(n_colors, nij, L)[..., None]
-    )[..., 0]
+    jump = _lambda_uniforms(key, sweep, n_colors, nij, L, STREAM_JUMP, dev)
+    color = torch.arange(n_colors, dtype=torch.int64, device=dev)[:, None]
+    ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :]
     acc_bits = philox4x32(
-        (0, sweep & M32, color[..., 0], (STREAM_ACCEPT << 24) | ij[..., 0]),
-        key_words(key),
+        (0, sweep & M32, color, (STREAM_ACCEPT << 24) | ij), key_words(key)
     )[0]
-    bits = torch.cat(
-        [jump_bits, torch.broadcast_to(acc_bits, (n_colors, nij))[..., None]],
-        dim=-1,
-    )
-    return bits_to_uniform(bits)
+    acc = bits_to_uniform(torch.broadcast_to(acc_bits, (n_colors, nij)))
+    return torch.cat([jump, acc[..., None]], dim=-1)
+
+
+def gibbs_sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int,
+                         L: int, device=None) -> torch.Tensor:
+    """The Box-Muller pairs of one exact-Gibbs sweep: ``[n_colors, nij, 2,
+    L]`` float32, ``[:, :, 0]`` = u1 (stream 2), ``[:, :, 1]`` = u2 (stream
+    3).  The normal of voxel λ is ``sqrt(−2 log u1) · cos(2π u2)``; u1 is
+    never 0, so ``log u1`` is finite."""
+    return torch.stack([
+        _lambda_uniforms(key, sweep, n_colors, nij, L, stream, device)
+        for stream in (STREAM_NORMAL_U1, STREAM_NORMAL_U2)
+    ], dim=2)

@@ -1,58 +1,72 @@
-"""MH sweep segments: the CUDA kernel's wrapper and its plain torch version.
+"""Sweep segments: the CUDA kernels' wrappers and their plain torch versions.
 
-Counterpart of ``deconv3d_tpu/ops/pallas_sweep.py`` (mode ``'mh'``, one
-chain).  :func:`mh_segment` runs each sweep through the hand-written kernel
-``csrc/mh_sweep.cu`` when the problem lives on a CUDA device, and takes
-:func:`mh_segment_reference` — the same sweep in plain torch — only for
-tensors on the CPU.  Both share everything around the sweep:
+Counterpart of ``deconv3d_tpu/ops/pallas_sweep.py`` (modes ``'mh'`` and
+``'gibbs'``, any chain batch C).  :func:`mh_segment` and
+:func:`gibbs_segment` run each sweep through the hand-written kernels
+``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu`` when the problem lives on a
+CUDA device — one launch per sweep for the whole batch of chains — and take
+:func:`mh_segment_reference` / :func:`gibbs_segment_reference`, the same
+sweep in plain torch, only for tensors on the CPU.  All four share
+everything around the sweep:
 
-  * the λ-contiguous segment layout (``[Hp, Wp, L]`` residual and weights,
-    ``[Yc, Xc, L]`` clean and quad), set up at the segment start and undone
-    at its end;
-  * per-(sweep, color, spaxel) outputs — the accept flag and the proposed
-    Δχ² — summed in a fixed order (float64) into the per-sweep Kahan χ²
-    update, as ``_assemble`` does in the JAX package;
+  * the λ-contiguous segment layout (``[C, Hp, Wp, L]`` residual, shared
+    ``[Hp, Wp, L]`` weights, ``[C, Yc, Xc, L]`` clean, ``[Yc, Xc, L]`` quad
+    and qvox), set up at the segment start and undone at its end;
+  * per-(sweep, chain, color, spaxel) outputs — MH: the accept flag and the
+    proposed Δχ²; gibbs: the number of voxels drawn and the Δχ² of the
+    color's committed draws — summed in a fixed order (float64) into each
+    chain's per-sweep Kahan χ² update, as ``_assemble`` does in the JAX
+    package;
   * the posterior accumulators, flux and monitor traces as plain torch ops
-    after every sweep.
+    after every sweep, batched over the chains.
 
-Random numbers come from Philox keyed by (chain key, ABSOLUTE sweep, color,
-spaxel row, λ, stream) (``ops/philox.py``), so segmentation and resume are
-bit-exact.  For parity tests both functions take ``uniforms``
-``[n_sweeps, n_colors, nij, L + 1]`` (the L jump uniforms and the accept
-uniform of every decision) in place of the generator.
+A state is one chain's, or chain-stacked (a leading chain axis on every
+field).  Chains in a batch share the problem and advance in lockstep: their
+sweep counters must be equal.  Random numbers come from Philox keyed by
+(chain key, ABSOLUTE sweep, color, spaxel row, λ, stream)
+(``ops/philox.py``), so segmentation, resume and batching are bit-exact: a
+chain draws the same numbers alone or in a batch.  For parity tests every
+function takes injected ``uniforms`` in place of the generator: MH
+``[n_sweeps, (C,) n_colors, nij, L + 1]`` (the L jump uniforms and the
+accept uniform of every decision), gibbs ``[n_sweeps, (C,) n_colors, nij,
+2, L]`` (the Box-Muller pair of every voxel).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
+from .. import chains as ch
 from .. import sampler as sm
 from . import philox
 
 
 @dataclasses.dataclass
 class Segment:
-    """A segment's ChainResult plus its per-decision outputs."""
+    """A segment's ChainResult plus its per-(sweep, color, spaxel) outputs
+    (a chain axis after the sweep axis for a chain-stacked state)."""
 
     result: sm.ChainResult
-    accept: torch.Tensor            # [n_sweeps, n_colors, nij] 1.0 / 0.0
-    dchi: torch.Tensor              # [n_sweeps, n_colors, nij] proposed Δχ²
-    uniforms: Optional[torch.Tensor] = None   # [n_sweeps, n_colors, nij, L+1]
+    accept: torch.Tensor    # MH: accept flag 1/0; gibbs: voxels drawn
+    dchi: torch.Tensor      # MH: proposed Δχ²; gibbs: committed Δχ²
+    uniforms: Optional[torch.Tensor] = None   # the draws, when recorded
 
 
 @dataclasses.dataclass
 class _SweepState:
     """Segment-layout tensors one sweep reads and updates in place."""
 
-    resid: torch.Tensor      # [Hp, Wp, L]
+    resid: torch.Tensor      # [C, Hp, Wp, L]
     w: torch.Tensor          # [Hp, Wp, L]
     quad: torch.Tensor       # [Yc, Xc, L]
-    clean: torch.Tensor      # [Yc, Xc, L]
-    log_scale: torch.Tensor  # [Yc, Xc]
+    qvox: Optional[torch.Tensor]   # [Yc, Xc, L] (gibbs)
+    quad_lo: Optional[torch.Tensor]   # [Yc, Xc, L] (gibbs; None = zero)
+    clean: torch.Tensor      # [C, Yc, Xc, L]
+    log_scale: torch.Tensor  # [C, Yc, Xc]
     valid: torch.Tensor      # [Yc, Xc] float 1/0
     spec: torch.Tensor       # [S, L]
     imgs: torch.Tensor       # [S, f, f]
@@ -60,19 +74,29 @@ class _SweepState:
     f: int
     ny: int
     nx: int
-    key: int
+    keys: List[int]          # per-chain 64-bit Philox keys
     target: float
-    scratch: Optional[torch.Tensor] = None   # kernel workspace, reused
+    key_words: Optional[torch.Tensor] = None   # [C, 2] int32, kernel only
+    scratch: Optional[torch.Tensor] = None     # kernel workspace, reused
+
+    @property
+    def C(self) -> int:
+        return self.resid.shape[0]
 
 
 def _lambda_last(t: torch.Tensor) -> torch.Tensor:
-    """[L, A, B] → contiguous [A, B, L]."""
-    return t.permute(1, 2, 0).contiguous()
+    """[..., L, A, B] → contiguous [..., A, B, L]."""
+    return t.movedim(-3, -1).contiguous()
 
 
 def _lambda_first(t: torch.Tensor) -> torch.Tensor:
-    """[A, B, L] → contiguous [L, A, B]."""
-    return t.permute(2, 0, 1).contiguous()
+    """[..., A, B, L] → contiguous [..., L, A, B]."""
+    return t.movedim(-1, -3).contiguous()
+
+
+def _cells(t: torch.Tensor, ny: int, f: int, nx: int) -> torch.Tensor:
+    """[C, Yc, Xc, ...] → view [C, ny, f, nx, f, ...]."""
+    return t.view(t.shape[0], ny, f, nx, f, *t.shape[3:])
 
 
 # ---------------------------------------------------------------------------
@@ -90,147 +114,291 @@ def _lsf_band(v: torch.Tensor, lsf: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
-                 accept_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
-    """One MH sweep over all f² colors with the uniforms ``u``
-    ``[n_colors, nij, L+1]``; updates ``k`` in place."""
+def _lsf_band_T(v: torch.Tensor, lsf: torch.Tensor) -> torch.Tensor:
+    """The transpose band: out[..., l] = Σ_d lsf[l + half − d, d] ·
+    v[..., l + half − d] (zero outside)."""
+    L, lw = lsf.shape
+    half = lw // 2
+    vp = torch.nn.functional.pad(v, (half, half))
+    lsfp = torch.nn.functional.pad(lsf, (0, 0, half, half))
+    out = torch.zeros_like(v)
+    for d in range(lw):
+        o = 2 * half - d
+        out = out + lsfp[o : o + L, d] * vp[..., o : o + L]
+    return out
+
+
+def _color_lin(k: _SweepState, cy: int, cx: int):
+    """The color's residual patches ``[C, ny, f, nx, f, L]`` (a view) and
+    ``lin[C, ny, nx, L] = Σ_s spec_s · Σ_ab img_s · (resid·w)`` over them."""
     f, ny, nx = k.f, k.ny, k.nx
     L = k.spec.shape[1]
     BY, BX = ny * f, nx * f
+    rblk = k.resid[:, cy : cy + BY, cx : cx + BX].view(k.C, ny, f, nx, f, L)
+    wblk = k.w[cy : cy + BY, cx : cx + BX].view(ny, f, nx, f, L)
+    pooled = torch.einsum("sab,ciajbl->csijl", k.imgs, rblk * wblk)
+    lin = (k.spec[None, :, None, None, :] * pooled).sum(dim=1)
+    return rblk, lin
+
+
+def _commit(k: _SweepState, rblk: torch.Tensor, gacc: torch.Tensor) -> None:
+    """resid −= Σ_s (spec_s · gacc) ⊗ img_s over the color's patches."""
+    delta = torch.zeros_like(rblk)
+    for s in range(k.spec.shape[0]):
+        gs = k.spec[s] * gacc                                  # [C,ny,nx,L]
+        delta = delta + (gs[:, :, None, :, None, :]
+                         * k.imgs[s][None, None, :, None, :, None])
+    rblk -= delta
+
+
+def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
+                    accept_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
+    """One MH sweep over all f² colors with the uniforms ``u``
+    ``[C, n_colors, nij, L+1]``; updates ``k`` in place."""
+    f, ny, nx, C = k.f, k.ny, k.nx, k.C
+    L = k.spec.shape[1]
     pi = torch.tensor(math.pi, dtype=k.resid.dtype)
-    cells = lambda t: t.view(ny, f, nx, f, *t.shape[2:])  # noqa: E731
     for c in range(f * f):
         cy, cx = divmod(c, f)
-        rblk = k.resid[cy : cy + BY, cx : cx + BX].view(ny, f, nx, f, L)
-        wblk = k.w[cy : cy + BY, cx : cx + BX].view(ny, f, nx, f, L)
-        pooled = torch.einsum("sab,iajbl->sijl", k.imgs, rblk * wblk)
-        lin = (k.spec[:, None, None, :] * pooled).sum(dim=0)     # [ny,nx,L]
-
-        v = cells(k.valid)[:, cy, :, cx]                          # [ny,nx]
-        ls = cells(k.log_scale)[:, cy, :, cx]                     # view
-        q = cells(k.quad)[:, cy, :, cx]                           # [ny,nx,L]
-        uc = u[c].view(ny, nx, L + 1)
+        rblk, lin = _color_lin(k, cy, cx)
+        v = _cells(k.valid[None], ny, f, nx)[0, :, cy, :, cx]     # [ny,nx]
+        ls = _cells(k.log_scale, ny, f, nx)[:, :, cy, :, cx]      # view
+        q = _cells(k.quad[None], ny, f, nx)[0, :, cy, :, cx]      # [ny,nx,L]
+        uc = u[:, c].view(C, ny, nx, L + 1)
         draw = torch.clamp(torch.tan(pi * (uc[..., :L] - 0.5)), -1e3, 1e3)
         jumps = torch.exp(ls)[..., None] * draw * v[..., None]
         g = _lsf_band(jumps, k.lsf)
-        dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)            # [ny,nx]
+        dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)            # [C,ny,nx]
         accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
-
-        gacc = g * accf[..., None]
-        delta = torch.zeros_like(rblk)
-        for s in range(k.spec.shape[0]):
-            gs = k.spec[s] * gacc                                  # [ny,nx,L]
-            delta = delta + gs[:, None, :, None, :] * k.imgs[s][None, :, None, :, None]
-        rblk -= delta
-        cells(k.clean)[:, cy, :, cx] += jumps * accf[..., None]
+        _commit(k, rblk, g * accf[..., None])
+        _cells(k.clean, ny, f, nx)[:, :, cy, :, cx] += jumps * accf[..., None]
         ls += adapt * (accf - k.target) * v
-        accept_out[c] = accf.reshape(-1)
-        dchi_out[c] = dchi.reshape(-1)
+        accept_out[:, c] = accf.reshape(C, -1)
+        dchi_out[:, c] = dchi.reshape(C, -1)
+
+
+def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
+                       live_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
+    """One exact-Gibbs sweep over all f² colors with the Box-Muller pairs
+    ``u`` ``[C, n_colors, nij, 2, L]``; updates ``k`` in place.
+
+    Per color: lin once from the residual, then the ``lw`` λ-phases, each
+    drawing the voxels λ ≡ phase (mod lw) from N(linT/qvox, 1/qvox) and
+    updating lin ← lin − g·quad (exact: same-color patches are disjoint),
+    then one residual commit of the summed g.  Δχ² of the color is that of
+    the summed g against the color's first lin, equal to the phases' sum;
+    its g²·quad_lo part is summed on its own, below the float32 ulp of
+    g²·quad where it would round away.
+    """
+    f, ny, nx, C = k.f, k.ny, k.nx, k.C
+    L, lw = k.lsf.shape
+    dt = k.resid.dtype
+    two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
+    phase = torch.arange(L, device=k.resid.device) % lw
+    for c in range(f * f):
+        cy, cx = divmod(c, f)
+        rblk, lin0 = _color_lin(k, cy, cx)
+        v = _cells(k.valid[None], ny, f, nx)[0, :, cy, :, cx]     # [ny,nx]
+        q = _cells(k.quad[None], ny, f, nx)[0, :, cy, :, cx]      # [ny,nx,L]
+        qv = _cells(k.qvox[None], ny, f, nx)[0, :, cy, :, cx]
+        uc = u[:, c].view(C, ny, nx, 2, L)
+        normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) * torch.cos(
+            two_pi * uc[..., 1, :])
+        qs = torch.clamp(qv, min=1e-30)
+        live_all = v[..., None] * (qv > 0).to(dt)                 # [ny,nx,L]
+        lin = lin0
+        gacc = torch.zeros_like(lin)
+        emitted = torch.zeros_like(lin)
+        for ph in range(lw):
+            sel = live_all * (phase == ph).to(dt)
+            jumps = sel * (_lsf_band_T(lin, k.lsf) / qs
+                           + normal * torch.rsqrt(qs))
+            g = _lsf_band(jumps, k.lsf)
+            lin = lin - g * q
+            gacc = gacc + g
+            emitted = emitted + jumps
+        dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)  # [C,ny,nx]
+        if k.quad_lo is not None:
+            qlo = _cells(k.quad_lo[None], ny, f, nx)[0, :, cy, :, cx]
+            dchi = dchi + (gacc * gacc * qlo).sum(dim=-1)
+        _commit(k, rblk, gacc)
+        _cells(k.clean, ny, f, nx)[:, :, cy, :, cx] += emitted
+        live_out[:, c] = live_all.sum(dim=-1).reshape(1, -1)
+        dchi_out[:, c] = dchi.reshape(C, -1)
 
 
 # ---------------------------------------------------------------------------
-# One sweep: the CUDA kernel
+# One sweep: the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _check_cuda(name: str, t: torch.Tensor, device, dtype=torch.float32):
+def _check_cuda(name: str, t: torch.Tensor, device, shape, dtype=torch.float32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def _sweep_cuda(k: _SweepState, sweep: int, adapt: float,
-                u: Optional[torch.Tensor], accept_out: torch.Tensor,
-                dchi_out: torch.Tensor,
-                u_out: Optional[torch.Tensor] = None) -> None:
-    """Launch ``csrc/mh_sweep.cu`` for one sweep on the current stream."""
+def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
+    """Checked tensors of one launch, the scratch, and the geometry ints."""
     from .._build import load_library
 
-    import ctypes
-
     dev = k.resid.device
-    f, ny, nx = k.f, k.ny, k.nx
+    f, ny, nx, C = k.f, k.ny, k.nx, k.C
     S, L = k.spec.shape
+    lw = int(k.lsf.shape[1])
     nij, n_colors = ny * nx, f * f
-    Hp, Wp = f - 1 + ny * f, f - 1 + nx * f
+    Hp, Wp, Yc, Xc = f - 1 + ny * f, f - 1 + nx * f, ny * f, nx * f
+    per = (L + 1,) if mode == "mh" else (2, L)
     shapes = {
-        "resid": (k.resid, (Hp, Wp, L)), "w": (k.w, (Hp, Wp, L)),
-        "quad": (k.quad, (ny * f, nx * f, L)),
-        "clean": (k.clean, (ny * f, nx * f, L)),
-        "log_scale": (k.log_scale, (ny * f, nx * f)),
-        "valid": (k.valid, (ny * f, nx * f)),
+        "resid": (k.resid, (C, Hp, Wp, L)), "w": (k.w, (Hp, Wp, L)),
+        "quad": (k.quad, (Yc, Xc, L)), "clean": (k.clean, (C, Yc, Xc, L)),
+        "log_scale": (k.log_scale, (C, Yc, Xc)), "valid": (k.valid, (Yc, Xc)),
         "spec": (k.spec, (S, L)), "imgs": (k.imgs, (S, f, f)),
-        "lsf": (k.lsf, (L, k.lsf.shape[1])),
-        "accept_out": (accept_out, (n_colors, nij)),
-        "dchi_out": (dchi_out, (n_colors, nij)),
+        "lsf": (k.lsf, (L, lw)),
+        "out_a": (out_a, (C, n_colors, nij)),
+        "dchi_out": (out_b, (C, n_colors, nij)),
     }
+    if mode == "gibbs":
+        shapes["qvox"] = (k.qvox, (Yc, Xc, L))
+    if k.quad_lo is not None:
+        shapes["quad_lo"] = (k.quad_lo, (Yc, Xc, L))
     if u is not None:
-        shapes["uniforms"] = (u, (n_colors, nij, L + 1))
+        shapes["uniforms"] = (u, (C, n_colors, nij, *per))
     if u_out is not None:
-        shapes["uniforms_out"] = (u_out, (n_colors, nij, L + 1))
+        shapes["uniforms_out"] = (u_out, (C, n_colors, nij, *per))
     for name, (t, shape) in shapes.items():
-        _check_cuda(name, t, dev)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        _check_cuda(name, t, dev, shape)
     if not 1 <= S <= 8:
-        raise ValueError(f"the kernel takes FSF rank 1..8, got {S}")
-
+        raise ValueError(f"the kernels take FSF rank 1..8, got {S}")
+    if k.key_words is None:
+        words = [philox.key_words(key) for key in k.keys]
+        k.key_words = torch.tensor(
+            [[w - (1 << 32) if w >= 1 << 31 else w for w in pair]
+             for pair in words], dtype=torch.int32, device=dev)
     lib = load_library()
-    n_scratch = lib.mh_sweep_scratch_floats(L, ny, nx)
+    scratch_floats = (lib.mh_sweep_scratch_floats if mode == "mh"
+                      else lib.gibbs_sweep_scratch_floats)
+    n_scratch = scratch_floats(C, L, ny, nx)
     if k.scratch is None or k.scratch.numel() < n_scratch:
         k.scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    k0, k1 = philox.key_words(k.key)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib, (C, L, f, ny, nx, S, lw)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    import ctypes
+
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(dev):
+    import ctypes
+
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
+                   u: Optional[torch.Tensor], accept_out: torch.Tensor,
+                   dchi_out: torch.Tensor,
+                   u_out: Optional[torch.Tensor] = None) -> None:
+    """Launch ``csrc/mh_sweep.cu`` for one sweep of the whole batch."""
+    lib, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
+    dev = k.resid.device
     with torch.cuda.device(dev):
         err = lib.mh_sweep_launch(
-            ptr(k.resid), ptr(k.w), ptr(k.quad), ptr(k.clean),
-            ptr(k.log_scale), ptr(k.valid), ptr(k.spec), ptr(k.imgs),
-            ptr(k.lsf), ptr(u), ptr(accept_out), ptr(dchi_out), ptr(u_out),
-            ptr(k.scratch), L, f, ny, nx, S, int(k.lsf.shape[1]), k0, k1,
-            sweep & philox.M32, adapt, k.target, ctypes.c_void_p(stream),
+            _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.clean),
+            _ptr(k.log_scale), _ptr(k.valid), _ptr(k.spec), _ptr(k.imgs),
+            _ptr(k.lsf), _ptr(k.key_words), _ptr(u), _ptr(accept_out),
+            _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch), *dims,
+            sweep & philox.M32, adapt, k.target, _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"mh_sweep_launch failed: CUDA error {err}")
     mh_segment.launches += 1
 
 
+def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
+                      u: Optional[torch.Tensor], live_out: torch.Tensor,
+                      dchi_out: torch.Tensor,
+                      u_out: Optional[torch.Tensor] = None) -> None:
+    """Launch ``csrc/gibbs_sweep.cu`` for one sweep of the whole batch."""
+    lib, dims = _kernel_args(k, "gibbs", u, live_out, dchi_out, u_out)
+    dev = k.resid.device
+    with torch.cuda.device(dev):
+        err = lib.gibbs_sweep_launch(
+            _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.quad_lo),
+            _ptr(k.qvox), _ptr(k.clean), _ptr(k.valid), _ptr(k.spec),
+            _ptr(k.imgs), _ptr(k.lsf), _ptr(k.key_words), _ptr(u),
+            _ptr(live_out), _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch),
+            *dims,
+            sweep & philox.M32, _stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"gibbs_sweep_launch failed: CUDA error {err}")
+    gibbs_segment.launches += 1
+
+
 # ---------------------------------------------------------------------------
 # Segments
 # ---------------------------------------------------------------------------
 
+def _chain_keys(keys: torch.Tensor) -> List[int]:
+    """64-bit Philox keys of int64 (two's complement) key tensors."""
+    return [int(key) & 0xFFFFFFFFFFFFFFFF for key in keys.reshape(-1).tolist()]
+
+
 def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                  uniforms: Optional[torch.Tensor], record_uniforms: bool,
-                 use_kernel: bool) -> Segment:
+                 use_kernel: bool, mode: str) -> Segment:
     p, cfg = problem, problem.config
+    single = state.clean.dim() == 3
+    states = ch.stack_chains([state]) if single else state
+    if uniforms is not None and single:
+        uniforms = uniforms[:, None]
     dev = p.device
     f, ny, nx, L = p.f, p.ny, p.nx, p.L
+    C = states.clean.shape[0]
     n_colors, nij = p.n_colors, ny * nx
+    per = (L + 1,) if mode == "mh" else (2, L)
     if uniforms is not None and tuple(uniforms.shape) != (
-        n_sweeps, n_colors, nij, L + 1
+        n_sweeps, C, n_colors, nij, *per
     ):
+        lead = f"[{n_sweeps}, " + ("" if single else f"{C}, ")
         raise ValueError(
-            f"uniforms must be [{n_sweeps}, {n_colors}, {nij}, {L + 1}], got "
-            f"{tuple(uniforms.shape)}"
+            f"uniforms must be {lead}{n_colors}, {nij}, "
+            f"{', '.join(map(str, per))}], got {tuple(uniforms.shape)}"
         )
-    # the kernel is float32-only (_sweep_cuda checks); the plain version
-    # runs in the problem's dtype, float64 included
+    sweep0 = int(states.sweep.reshape(-1)[0])
+    if not bool((states.sweep == sweep0).all()):
+        raise ValueError(
+            "chains in a batch advance in lockstep: their sweep counters "
+            f"differ ({states.sweep.tolist()})"
+        )
+    if mode == "gibbs" and p.qvox is None:
+        raise ValueError("a gibbs segment needs problem.qvox "
+                         "(make_problem with sampler='gibbs')")
+    # the kernels are float32-only (_check_cuda); the plain versions run in
+    # the problem's dtype, float64 included
     dt, f32 = p.data_pad.dtype, torch.float32
     k = _SweepState(
-        resid=_lambda_last(state.resid.to(dt)),
+        resid=_lambda_last(states.resid.to(dt)),
         w=_lambda_last(p.w_pad),
         quad=_lambda_last(p.quad),
-        clean=_lambda_last(state.clean.to(dt)),
-        log_scale=state.log_scale.to(dt).clone(),
+        qvox=_lambda_last(p.qvox) if mode == "gibbs" else None,
+        quad_lo=(_lambda_last(p.quad_lo)
+                 if mode == "gibbs" and p.quad_lo is not None else None),
+        clean=_lambda_last(states.clean.to(dt)),
+        log_scale=states.log_scale.to(dt).clone(),
         valid=p.valid.to(dt).contiguous(),
         spec=p.fsf_spec.contiguous(),
         imgs=p.fsf_imgs.contiguous(),
         lsf=p.lsf.contiguous(),
-        f=f, ny=ny, nx=nx, key=int(state.key), target=float(cfg.target_acceptance),
+        f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
+        target=float(cfg.target_acceptance),
     )
-    sweep0 = int(state.sweep)
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
     adapt = sm.adapt_schedule(ids, cfg).tolist()
     keep = sm.keep_schedule(ids, cfg).tolist()
@@ -239,36 +407,46 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     Yc, Xc = p.Yc, p.Xc
     mon = p.monitor_idx
     mon_t = ((mon % (Yc * Xc)) * L + mon // (Yc * Xc)).to(dev)
-    sum_clean = _lambda_last(state.sum_clean.to(dt))
+    sum_clean = _lambda_last(states.sum_clean.to(dt))
     sum_sq = (
-        _lambda_last(state.sum_sq.to(dt)) if cfg.track_variance
-        else state.sum_sq.clone()
+        _lambda_last(states.sum_sq.to(dt)) if cfg.track_variance
+        else states.sum_sq.clone()
     )
-    chi2, chi2c = state.chi2.clone(), state.chi2_comp.clone()
-    n_kept = float(state.n_kept)
+    chi2, chi2c = states.chi2.clone(), states.chi2_comp.clone()
+    n_kept = states.n_kept.clone()
 
-    accept = torch.empty((n_sweeps, n_colors, nij), dtype=dt, device=dev)
-    dchi = torch.empty((n_sweeps, n_colors, nij), dtype=dt, device=dev)
+    accept = torch.empty((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
+    dchi = torch.empty((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
     u_rec = (
-        torch.empty((n_sweeps, n_colors, nij, L + 1), dtype=dt, device=dev)
+        torch.empty((n_sweeps, C, n_colors, nij, *per), dtype=dt, device=dev)
         if record_uniforms else None
     )
+    draws = philox.sweep_uniforms if mode == "mh" else philox.gibbs_sweep_uniforms
     chi2_t, flux_t, mon_tr = [], [], []
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
-        if use_kernel:
-            _sweep_cuda(k, sweep0 + s, adapt[s], u, accept[s], dchi[s],
-                        None if u_rec is None else u_rec[s])
+        u_out = None if u_rec is None else u_rec[s]
+        if use_kernel and mode == "mh":
+            _mh_sweep_cuda(k, sweep0 + s, adapt[s], u, accept[s], dchi[s], u_out)
+        elif use_kernel:
+            _gibbs_sweep_cuda(k, sweep0 + s, u, accept[s], dchi[s], u_out)
         else:
             if u is None:
-                u = philox.sweep_uniforms(k.key, sweep0 + s, n_colors, nij, L,
-                                          device=dev).to(dt)
-            if u_rec is not None:
-                u_rec[s] = u
-            _sweep_torch(k, adapt[s], u, accept[s], dchi[s])
-        # accepted Δχ² summed in a fixed order, then the Kahan update
-        dchi_sweep = (dchi[s].double() * accept[s].double()).sum().to(f32)
-        y = dchi_sweep - chi2c
+                u = torch.stack([
+                    draws(key, sweep0 + s, n_colors, nij, L, device=dev)
+                    for key in k.keys
+                ]).to(dt)
+            if u_out is not None:
+                u_out.copy_(u)
+            if mode == "mh":
+                _mh_sweep_torch(k, adapt[s], u, accept[s], dchi[s])
+            else:
+                _gibbs_sweep_torch(k, u, accept[s], dchi[s])
+        # committed Δχ² summed in a fixed order, then the Kahan update
+        committed = dchi[s].double()
+        if mode == "mh":
+            committed = committed * accept[s].double()
+        y = committed.sum(dim=(1, 2)).to(f32) - chi2c
         t = chi2 + y
         chi2c = (t - chi2) - y
         chi2 = t
@@ -276,38 +454,65 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
             sum_clean += k.clean
             if cfg.track_variance:
                 sum_sq += k.clean * k.clean
-            n_kept += 1.0
+            n_kept = n_kept + 1.0
         chi2_t.append(chi2)
-        flux_t.append(torch.sum(k.clean * validf, dtype=f32))
-        mon_tr.append(k.clean.reshape(-1)[mon_t])
+        flux_t.append(torch.sum(k.clean * validf, dim=(1, 2, 3), dtype=f32))
+        mon_tr.append(k.clean.reshape(C, -1)[:, mon_t])
 
     n_valid = float(p.valid.sum())
-    acc_sweep = accept.sum(dim=(1, 2))
+    acc_sweep = accept.sum(dim=(2, 3)).T                        # [C, n_sweeps]
+    n_acc = acc_sweep.sum(dim=1).to(f32)
+    if mode == "gibbs":
+        # proposals == exact draws == accepted voxels
+        n_prop = n_acc
+        acc_trace = torch.ones_like(acc_sweep)
+    else:
+        n_prop = torch.full_like(n_acc, float(n_sweeps) * n_valid)
+        acc_trace = acc_sweep / max(n_valid, 1.0)
+
+    def traces(parts, empty_shape):
+        return (torch.stack(parts, dim=1) if parts
+                else torch.empty(empty_shape, dtype=f32, device=dev))
+
     new_state = sm.SamplerState(
         clean=_lambda_first(k.clean),
         resid=_lambda_first(k.resid),
-        key=state.key.clone(),
+        key=states.key.clone(),
         chi2=chi2,
         chi2_comp=chi2c,
         log_scale=k.log_scale,
-        n_accept=state.n_accept + acc_sweep.sum(),
-        n_propose=state.n_propose + float(n_sweeps) * n_valid,
+        n_accept=states.n_accept + n_acc,
+        n_propose=states.n_propose + n_prop,
         sum_clean=_lambda_first(sum_clean),
         sum_sq=_lambda_first(sum_sq) if cfg.track_variance else sum_sq,
-        n_kept=torch.tensor(n_kept, dtype=f32, device=dev),
-        sweep=state.sweep + n_sweeps,
+        n_kept=n_kept,
+        sweep=states.sweep + n_sweeps,
     )
     result = sm.ChainResult(
         state=new_state,
-        chi2_trace=torch.stack(chi2_t) if chi2_t else chi2[None][:0],
-        accept_trace=acc_sweep / max(n_valid, 1.0),
-        flux_trace=torch.stack(flux_t) if flux_t else chi2[None][:0],
-        monitor_trace=(
-            torch.stack(mon_tr) if mon_tr
-            else torch.empty((0, mon.numel()), dtype=dt, device=dev)
-        ),
+        chi2_trace=traces(chi2_t, (C, 0)),
+        accept_trace=acc_trace,
+        flux_trace=traces(flux_t, (C, 0)),
+        monitor_trace=traces(mon_tr, (C, 0, mon.numel())).to(dt),
     )
+    if single:
+        result = ch.select_chains(result, 0)
+        accept, dchi = accept[:, 0], dchi[:, 0]
+        u_rec = None if u_rec is None else u_rec[:, 0]
     return Segment(result=result, accept=accept, dchi=dchi, uniforms=u_rec)
+
+
+def _use_kernel(problem: sm.Problem, state: sm.SamplerState, name: str) -> bool:
+    """False for tensors on the CPU (the plain version), True on one CUDA
+    device (the kernel); anything else raises."""
+    if problem.device.type == "cpu" and state.resid.device.type == "cpu":
+        return False
+    if problem.device.type != "cuda" or state.resid.device != problem.device:
+        raise ValueError(
+            f"{name}: problem on {problem.device}, state on "
+            f"{state.resid.device}; the kernel needs both on one CUDA device"
+        )
+    return True
 
 
 def mh_segment_reference(problem: sm.Problem, state: sm.SamplerState,
@@ -317,10 +522,58 @@ def mh_segment_reference(problem: sm.Problem, state: sm.SamplerState,
     """``n_sweeps`` MH sweeps in plain torch (the kernel's plain version).
 
     Runs on whatever device the problem lives on.  ``uniforms``
-    ``[n_sweeps, n_colors, nij, L+1]`` replaces the Philox draws.
+    ``[n_sweeps, (C,) n_colors, nij, L+1]`` replaces the Philox draws.
     """
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        use_kernel=False)
+                        use_kernel=False, mode="mh")
+
+
+def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
+               uniforms: Optional[torch.Tensor] = None,
+               record_uniforms: bool = False) -> Segment:
+    """``n_sweeps`` MH sweeps; each one launch of ``csrc/mh_sweep.cu`` for
+    the whole batch of chains.
+
+    On a CUDA device every sweep goes through the kernel (a failed build
+    or launch raises).  Only for tensors on the CPU does it run the plain
+    torch version.  ``mh_segment.launches`` counts kernel launches.
+    """
+    use = _use_kernel(problem, state, "mh_segment")
+    return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
+                        use_kernel=use, mode="mh")
+
+
+mh_segment.launches = 0
+
+
+def gibbs_segment_reference(problem: sm.Problem, state: sm.SamplerState,
+                            n_sweeps: int,
+                            uniforms: Optional[torch.Tensor] = None,
+                            record_uniforms: bool = False) -> Segment:
+    """``n_sweeps`` exact-Gibbs sweeps in plain torch (the kernel's plain
+    version).  Runs on whatever device the problem lives on.  ``uniforms``
+    ``[n_sweeps, (C,) n_colors, nij, 2, L]`` replaces the Philox draws.
+    """
+    return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
+                        use_kernel=False, mode="gibbs")
+
+
+def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
+                  uniforms: Optional[torch.Tensor] = None,
+                  record_uniforms: bool = False) -> Segment:
+    """``n_sweeps`` exact-Gibbs sweeps; each one launch of
+    ``csrc/gibbs_sweep.cu`` for the whole batch of chains.
+
+    On a CUDA device every sweep goes through the kernel (a failed build
+    or launch raises).  Only for tensors on the CPU does it run the plain
+    torch version.  ``gibbs_segment.launches`` counts kernel launches.
+    """
+    use = _use_kernel(problem, state, "gibbs_segment")
+    return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
+                        use_kernel=use, mode="gibbs")
+
+
+gibbs_segment.launches = 0
 
 
 #: injected accept decisions closer than this to their threshold
@@ -331,7 +584,7 @@ TIE_MARGIN = 1e-3
 def untie_uniforms(problem: sm.Problem, state: sm.SamplerState,
                    n_sweeps: int, uniforms: torch.Tensor,
                    margin: float = TIE_MARGIN, tries: int = 8):
-    """Injected uniforms with no accept decision within ``margin`` of its
+    """Injected MH uniforms with no accept decision within ``margin`` of its
     threshold, and the plain segment they give: ``(uniforms, Segment)``.
 
     Two float32 evaluations of Δχ² (another summation order, another
@@ -356,27 +609,3 @@ def untie_uniforms(problem: sm.Problem, state: sm.SamplerState,
         u = u.clone()
         u[..., L] = torch.where(near, new, u[..., L])
     raise RuntimeError(f"near-ties left after {tries} passes")
-
-
-def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
-               uniforms: Optional[torch.Tensor] = None,
-               record_uniforms: bool = False) -> Segment:
-    """``n_sweeps`` MH sweeps; each one launch of ``csrc/mh_sweep.cu``.
-
-    On a CUDA device every sweep goes through the kernel (a failed build
-    or launch raises).  Only for tensors on the CPU does it run the plain
-    torch version.  ``mh_segment.launches`` counts kernel launches.
-    """
-    if problem.device.type == "cpu" and state.resid.device.type == "cpu":
-        return mh_segment_reference(problem, state, n_sweeps, uniforms,
-                                    record_uniforms)
-    if problem.device.type != "cuda" or state.resid.device != problem.device:
-        raise ValueError(
-            f"mh_segment: problem on {problem.device}, state on "
-            f"{state.resid.device}; the kernel needs both on one CUDA device"
-        )
-    return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        use_kernel=True)
-
-
-mh_segment.launches = 0

@@ -10,8 +10,9 @@ Counterpart of ``deconv3d_tpu/run.py`` for the single-device path:
 ``max_iterations`` counts full sweeps (all spaxels), not single spaxel
 visits.  The run lives on ``device`` (default: the first CUDA device when
 there is one, else the CPU); on a CUDA device every sweep goes through the
-hand-written MH kernel.  Meshes, ``run_until``, ``map_estimate`` and
-``resume`` are not ported yet and raise.
+hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``), one launch
+per sweep for all ``n_chains`` chains.  Meshes, ``run_until``,
+``map_estimate`` and ``resume`` are not ported yet and raise.
 """
 
 from __future__ import annotations

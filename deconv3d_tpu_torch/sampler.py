@@ -1,8 +1,8 @@
 """MH-within-Gibbs sampler core on torch — color-decomposed sweeps.
 
-PyTorch counterpart of ``deconv3d_tpu/sampler.py`` for the default path
-(``sampler='mh'``, one chain per kernel launch).  The scheme is the JAX
-package's:
+PyTorch counterpart of ``deconv3d_tpu/sampler.py`` for ``sampler='mh'``
+and ``sampler='gibbs'``, with any number of chains per kernel launch.  The
+scheme is the JAX package's:
 
   * The FSF footprint is ``f×f`` (odd).  Spaxels whose (y, x) offsets are
     both multiples of ``f`` have disjoint likelihood patches, so their
@@ -12,14 +12,18 @@ package's:
   * A spaxel-spectrum perturbation δ changes the model by the separable
     outer product g[μ]·F[μ,dy,dx] with g = LSF(δ), so Δχ² needs only the
     residual patch and the precomputed ``quad = Σ F² w``.
+  * ``'mh'`` proposes a Cauchy jump of each spaxel's whole spectrum;
+    ``'gibbs'`` draws every voxel from its exact Gaussian conditional
+    (precision ``qvox``), the wavelengths of one spaxel in ``lw`` phases
+    (voxels ``lw`` apart have disjoint LSF footprints).
 
 Both engines build the *kernel-engine problem* of the JAX package: weights
 rounded to bfloat16 values before ``quad`` and χ², and the FSF replaced by
 its low-rank reconstruction Σ_s spec_s ⊗ img_s.  The engine follows the
 device: on a CUDA device every sweep runs the hand-written kernel
-(``csrc/mh_sweep.cu``, engine ``'cuda'``), on the CPU its plain torch
-version (``ops/sweep.py``, engine ``'torch'``).  Both sample the same
-posterior.
+(``csrc/mh_sweep.cu`` or ``csrc/gibbs_sweep.cu``, engine ``'cuda'``), on
+the CPU its plain torch version (``ops/sweep.py``, engine ``'torch'``).
+Both sample the same posterior.
 
 State layout (public, λ-major as in the JAX package):
     clean  [L, Yc, Xc]   Yc = ceil(Y/f)·f   (zero-padded clean cube)
@@ -40,9 +44,8 @@ from .instruments import Instrument
 
 #: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
 _NOT_PORTED = {
-    "sampler": "Queue 1 item 9 (gibbs, positivity), 10 (gibbs_block), "
-               "14 (direct)",
-    "positivity": "Queue 1 item 9 (gibbs/positivity)",
+    "sampler": "Queue 1 item 10 (gibbs_block), 14 (direct)",
+    "positivity": "Queue 1 item 9 (positivity)",
     "coarse_every": "Queue 1 item 13 (coarse passes)",
     "prior_precision": "Queue 1 item 14 (direct sampler, MAP)",
     "chi2_rebaseline_every": "Queue 1 item 11 (full field)",
@@ -166,6 +169,10 @@ class Problem:
     monitor_idx: torch.Tensor       # [K] flat indices into clean
     fsf_spec: torch.Tensor          # [S, L]
     fsf_imgs: torch.Tensor          # [S, f, f]
+    qvox: Optional[torch.Tensor] = None   # [L, Yc, Xc] voxel precision (gibbs)
+    # [L, Yc, Xc] float64 quad − quad, the rounding's remainder (gibbs;
+    # None counts as zero)
+    quad_lo: Optional[torch.Tensor] = None
     config: RunConfig = RunConfig()
 
     @property
@@ -238,7 +245,7 @@ def _quad_conv(w_pad: torch.Tensor, fsf: torch.Tensor) -> torch.Tensor:
 
 
 def _check_config(config: RunConfig) -> None:
-    if config.sampler != "mh":
+    if config.sampler not in ("mh", "gibbs"):
         raise not_ported("sampler", config.sampler)
     if config.positivity:
         raise not_ported("positivity", True)
@@ -315,7 +322,19 @@ def make_problem(
     data_pad[:, h : h + Y, h : h + X] = cube.data.to(dtype)
 
     fsf = torch.as_tensor(fsf_np, dtype=dtype, device=device)
-    quad = _quad_conv(w_pad, torch.as_tensor(fsf_np, device=device))
+    fsf_spec = torch.as_tensor(spec_np, dtype=dtype, device=device)
+    fsf_imgs = torch.as_tensor(imgs_np, dtype=dtype, device=device)
+    # quad of the FSF the sweeps apply (Σ_s spec_s ⊗ img_s of the
+    # working-precision factors), summed in float64: Δχ² = Σ g²·quad − 2g·lin
+    # is exact only for that quad.  Any fixed error in it (another F, a
+    # float32 sum over the f² footprint, or the float32 rounding itself,
+    # which is the same for every spaxel of uniform weight) biases every
+    # exact-Gibbs Δχ² the same way sweep after sweep, and the running χ²
+    # drifts linearly from the from-scratch one.  Gibbs therefore also
+    # keeps the rounding's remainder, quad_lo = quad₆₄ − quad.
+    quad64 = _quad_conv(w_pad.double(), torch.einsum(
+        "sl,sab->lab", fsf_spec.double(), fsf_imgs.double()))
+    quad = quad64.to(dtype)
 
     mask_np = cube.mask.cpu().numpy()
     valid = np.zeros((Yc, Xc), dtype=bool)
@@ -337,17 +356,29 @@ def make_problem(
             np.int64
         )
 
+    lsf = torch.as_tensor(lsf_np, dtype=dtype, device=device)
+    qvox = quad_lo = None
+    if config.sampler == "gibbs":
+        # conditional precision of one voxel: Σ_μ M[μ,λ]² quad[μ], from the
+        # bf16-valued-weight quad as the kernel engines build it
+        from .ops.banded import precision_diag
+
+        qvox = precision_diag(lsf, quad)
+        quad_lo = (quad64 - quad.double()).to(dtype)
+
     return Problem(
         L=L, Y=Y, X=X, f=f, ny=ny, nx=nx,
         fsf=fsf,
-        lsf=torch.as_tensor(lsf_np, dtype=dtype, device=device),
+        lsf=lsf,
         data_pad=data_pad,
         w_pad=w_pad,
         quad=quad,
         valid=torch.as_tensor(valid, device=device),
         monitor_idx=torch.as_tensor(monitor, device=device),
-        fsf_spec=torch.as_tensor(spec_np, dtype=dtype, device=device),
-        fsf_imgs=torch.as_tensor(imgs_np, dtype=dtype, device=device),
+        fsf_spec=fsf_spec,
+        fsf_imgs=fsf_imgs,
+        qvox=qvox,
+        quad_lo=quad_lo,
         config=config,
     )
 
@@ -417,16 +448,21 @@ def init_state(problem: Problem, cube: Optional[Cube] = None,
 def run_sweeps(
     problem: Problem, state: SamplerState, n_sweeps: int
 ) -> ChainResult:
-    """Run ``n_sweeps`` full MH sweeps (the hot path).
+    """Run ``n_sweeps`` full sweeps of ``config.sampler`` (the hot path).
 
-    On a CUDA device every sweep is one launch of the CUDA kernel; on the
-    CPU its plain torch version runs (``ops.sweep.mh_segment``).  Burn-in
-    sweeps adapt the per-spaxel jump scale and stay out of the posterior
+    ``state`` is one chain's, or a chain-stacked batch (leading chain axis
+    on every field, chains at one sweep count) that advances in lockstep.
+    On a CUDA device every sweep is one kernel launch for the whole batch;
+    on the CPU the kernel's plain torch version runs
+    (``ops.sweep.mh_segment`` / ``gibbs_segment``).  Burn-in sweeps adapt
+    the per-spaxel MH jump scale and stay out of the posterior
     accumulators.
     """
     from .ops import sweep as sw
 
-    return sw.mh_segment(problem, state, n_sweeps).result
+    gibbs = problem.config.sampler == "gibbs"
+    segment = sw.gibbs_segment if gibbs else sw.mh_segment
+    return segment(problem, state, n_sweeps).result
 
 
 # ---------------------------------------------------------------------------

@@ -140,7 +140,7 @@ def test_adapt_and_keep_schedules_match():
 @pytest.mark.parametrize(
     "knob, value",
     [
-        ("sampler", "gibbs"), ("sampler", "gibbs_block"), ("sampler", "direct"),
+        ("sampler", "gibbs_block"), ("sampler", "direct"),
         ("positivity", True), ("coarse_every", 8), ("prior_precision", 1e-3),
         ("chi2_rebaseline_every", 8), ("tile", (1, 1)), ("lambda_chunk", 4),
     ],

@@ -183,7 +183,9 @@ def test_run_refuses_what_is_not_ported(rng):
     cube, inst = _make_toy(rng, dtype=np.float32)
     kw = dict(fsf_size=5, lsf_width=5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d3.Run(cube, inst, sampler="gibbs", **kw)
+        d3.Run(cube, inst, sampler="gibbs_block", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        d3.Run(cube, inst, sampler="gibbs", positivity=True, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         d3.Run(cube, inst, mesh=object(), **kw)
     run = d3.Run(cube, inst, **kw)
@@ -202,7 +204,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, deconv3d_tpu_torch, deconv3d_tpu_torch.run, "
         "deconv3d_tpu_torch.ops.sweep, deconv3d_tpu_torch.interop, "
-        "deconv3d_tpu_torch._build\n"
+        "deconv3d_tpu_torch._build, deconv3d_tpu_torch.chains, "
+        "deconv3d_tpu_torch.ops.banded, deconv3d_tpu_torch.ops.philox\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv3d_tpu' or m.startswith('deconv3d_tpu.')]\n"
         "assert not bad, bad\n"
@@ -261,5 +264,89 @@ def test_kernel_matches_plain_on_card():
     ref = plain.result.state.resid
     torch.testing.assert_close(kern.result.state.resid, ref, rtol=0,
                                atol=1e-4 * float(ref.abs().max()))
+    torch.testing.assert_close(kern.result.state.chi2,
+                               plain.result.state.chi2, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_gibbs_and_batched_kernels_match_plain_on_card():
+    """The gibbs kernel (one chain) and the MH kernel on a batch of 3
+    chains against their plain versions on the card, same injected
+    uniforms, at the toy size (full size: chip_smoke.py).  Gibbs draws have
+    no accept decision to flip, so they are held to a tolerance: libm's
+    logf/cosf/rsqrtf and the sums' order differ from torch's in the last
+    ulps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernels have no CPU mode")
+    from deconv3d_tpu_torch import chains as ch
+
+    cube, inst = _make_toy(np.random.default_rng(42), dtype=np.float32)
+    gen = np.random.default_rng(9)
+    p = sm.make_problem(cube.to("cuda"), inst,
+                        _cfg(dtype=np.float32, seed=4, sampler="gibbs"))
+    s0 = sm.init_state(p)
+    u = gen.random((3, p.n_colors, p.ny * p.nx, 2, p.L), dtype=np.float32)
+    u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
+    plain = sw.gibbs_segment_reference(p, s0, 3, u)
+    n0 = sw.gibbs_segment.launches
+    kern = sw.gibbs_segment(p, s0, 3, u)
+    assert sw.gibbs_segment.launches - n0 == 3
+    assert torch.equal(plain.accept, kern.accept)
+    for name in ("resid", "clean"):
+        ref = getattr(plain.result.state, name)
+        torch.testing.assert_close(getattr(kern.result.state, name), ref,
+                                   rtol=0, atol=1e-4 * float(ref.abs().max()))
+    torch.testing.assert_close(kern.result.state.chi2,
+                               plain.result.state.chi2, rtol=1e-5, atol=0)
+
+    p = sm.make_problem(cube.to("cuda"), inst, _cfg(dtype=np.float32, seed=4))
+    states = ch.init_chain_states(p, 3)
+    u = gen.random((3, 3, p.n_colors, p.ny * p.nx, p.L + 1), dtype=np.float32)
+    u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
+    u, plain = sw.untie_uniforms(p, states, 3, u)
+    n0 = sw.mh_segment.launches
+    kern = sw.mh_segment(p, states, 3, u)
+    assert sw.mh_segment.launches - n0 == 3, "one launch per sweep for 3 chains"
+    assert float(plain.accept.sum()) > 0, "nothing accepted; test is vacuous"
+    assert torch.equal(plain.accept, kern.accept)
+    ref = plain.result.state.resid
+    torch.testing.assert_close(kern.result.state.resid, ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    alone = sw.mh_segment(p, ch.select_chains(states, 2), 3, u[:, 2])
+    assert torch.equal(alone.accept, kern.accept[:, 2])
+    assert torch.equal(alone.result.state.resid, kern.result.state.resid[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["mh", "gibbs"])
+def test_kernels_loop_warps_over_patch_rows_on_card(sampler):
+    """An FSF of f = 21 rows, more than a block's 18 warps: each warp takes
+    rows dy and dy + 18 (sweep_common.cuh).  Both kernels on a batch of 2
+    chains against their plain versions, same injected uniforms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernels have no CPU mode")
+    from deconv3d_tpu_torch import chains as ch
+
+    cube, inst = _make_toy(np.random.default_rng(42), dtype=np.float32)
+    p = sm.make_problem(cube.to("cuda"), inst, _cfg(
+        dtype=np.float32, seed=4, fsf_size=21, sampler=sampler))
+    assert p.f == 21
+    states = ch.init_chain_states(p, 2)
+    per = (p.L + 1,) if sampler == "mh" else (2, p.L)
+    u = np.random.default_rng(9).random(
+        (2, 2, p.n_colors, p.ny * p.nx, *per), dtype=np.float32)
+    u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
+    if sampler == "mh":
+        u, plain = sw.untie_uniforms(p, states, 2, u)
+        kern = sw.mh_segment(p, states, 2, u)
+    else:
+        plain = sw.gibbs_segment_reference(p, states, 2, u)
+        kern = sw.gibbs_segment(p, states, 2, u)
+    assert float(plain.accept.sum()) > 0, "nothing drawn; test is vacuous"
+    assert torch.equal(plain.accept, kern.accept)
+    for name in ("resid", "clean"):
+        ref = getattr(plain.result.state, name)
+        torch.testing.assert_close(getattr(kern.result.state, name), ref,
+                                   rtol=0, atol=1e-4 * float(ref.abs().max()))
     torch.testing.assert_close(kern.result.state.chi2,
                                plain.result.state.chi2, rtol=1e-5, atol=0)

@@ -66,7 +66,8 @@ def _to_port(jp, js):
                           "direct_precond_tau")
     })
     tp = interop.problem_from_numpy(
-        {k: np.asarray(v) for k, v in d.items() if k != "config"}, tcfg
+        {k: None if v is None else np.asarray(v)
+         for k, v in d.items() if k != "config"}, tcfg
     )
     ts = interop.state_from_numpy(
         {f.name: np.asarray(getattr(js, f.name))
