@@ -35,15 +35,39 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    31 equal the same chains run alone through the kernel; R̂ finite;
    aggregate chain-sweeps/s and per-chain sweeps/s.
 8. full_lambda — 60×60×3681 (the full MUSE spectral range, banded LSF)
-   through ``Run``: 20 MH sweeps and 10 gibbs sweeps, with the χ² check.
+   through ``Run``: 20 MH sweeps and 10 gibbs sweeps, with the χ² check,
+   on the whole-cube kernels (``engine='cuda'``, pinned) and on the tiled
+   kernel the auto rule picks at this size.
+9. tiled_kernel — the tiled kernel (``csrc/tiled_sweep.cu``) against its
+   plain version on 68×68×600 (f=17, 4×4 spaxel blocks) cut into 8 tiles
+   of (1, 2) blocks: MH 2 sweeps with the same untied injected uniforms
+   (every decision; residual, clean, log-scales, χ²), gibbs 1 sweep
+   (voxel counts; residual, clean, Δχ²); the in-kernel Philox bits; ms per
+   sweep of both, launches per sweep, the kernel's share of device time.
+   Then the same comparison and Philox bits on 34×68×3681 in 4 tiles of
+   (1, 2): the full field's per-step shapes (L=3681, banded LSF, the gibbs
+   phase loop's shared memory above 48 KB).
+10. tiled_vs_whole — one tile, (ny, nx), against the whole-cube kernels on
+   30×30×600: 2 MH and 2 gibbs sweeps from one state with the Philox
+   draws (the engines differ only in the order of their visits); the
+   states must be bit-equal.
+11. full_field — a 300×300×3681 MUSE field made on the card, through
+   ``Run``: gibbs with the defaults (the tiled kernel, χ² rebaseline every
+   8 sweeps) for 16 sweeps — every sweep one tiled launch, the rebaseline
+   at sweeps 8 and 16 with the running χ² within 1e-5 of the from-scratch
+   one just before each reset and at the end, acceptance exactly 1 — then
+   MH with ``coarse_every=0`` for 8 sweeps; set-up seconds, sweeps/s, the
+   planned tile, peak memory of set-up, run and ``full_chi2``, and one
+   sweep of the whole-cube kernel on the same state beside it.
 
 All phases run under PyTorch's default TF32 flags, which must hold after
-them.
-
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-line, and as the last line ``{"ok": true, "device": {...}}``.
+them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
+whole-cube and tiled kernels, launches from the main paths' runs), the
+``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,7 +80,8 @@ import torch
 
 import deconv3d_tpu_torch as d3
 from deconv3d_tpu_torch import _build, chains as ch, sampler as sm
-from deconv3d_tpu_torch.ops import philox, sweep as sw
+from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
+from deconv3d_tpu_torch.tile_sweep import field_cube
 
 
 def emit(phase: str, **fields) -> None:
@@ -277,18 +302,25 @@ def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2):
 
 def reset_launches():
     sw.mh_segment.launches = sw.gibbs_segment.launches = 0
+    tl.tiled_mh.launches = tl.tiled_gibbs.launches = 0
 
 
-def phase_profile(problem, state, sampler, n=100):
-    """``torch.profiler`` over ``n`` post-burn-in sweeps of the wrapper:
-    device time of the kernel and of the torch ops around it, and the
-    card's idle share of the wall time (the profiler's own overhead
-    included, so an upper bound)."""
+def tiled_counter(sampler):
+    return tl.tiled_gibbs if sampler == "gibbs" else tl.tiled_mh
+
+
+def phase_profile(problem, state, sampler, n=100, seg=None,
+                  kernel_name=None):
+    """``torch.profiler`` over ``n`` post-burn-in sweeps of the wrapper
+    (default: the whole-cube segment of ``sampler``): device time of the
+    kernel and of the torch ops around it, and the card's idle share of the
+    wall time (the profiler's own overhead included, so an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     st = copy_state(state)
     st.sweep.fill_(problem.config.resolved_burn_in())
-    seg = segment_of(sampler)
+    seg = seg or segment_of(sampler)
+    kernel_name = kernel_name or f"{sampler}_sweep_kernel"
     seg(problem, st, 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -300,10 +332,10 @@ def phase_profile(problem, state, sampler, n=100):
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
-    kern = [e for e in on_card if f"{sampler}_sweep_kernel" in e.name]
+    kern = [e for e in on_card if kernel_name in e.name]
     kernel_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    emit("profile", sampler=sampler, shape=[problem.L, problem.Y, problem.X],
-         sweeps=n,
+    emit("profile", sampler=sampler, kernel=kernel_name,
+         shape=[problem.L, problem.Y, problem.X], sweeps=n,
          wall_ms=wall_ms, device_ms=device_ms, kernel_ms=kernel_ms,
          kernel_launches=len(kern),
          kernel_share_of_device=kernel_ms / max(device_ms, 1e-9),
@@ -311,6 +343,7 @@ def phase_profile(problem, state, sampler, n=100):
          idle_share=1.0 - device_ms / wall_ms)
     check(len(kern) == n and kernel_ms > 0,
           "the profiler did not see one kernel launch per sweep")
+    return kernel_ms / max(device_ms, 1e-9)
 
 
 def chi2_consistency(run, chain=0) -> float:
@@ -423,27 +456,274 @@ def phase_chains(sampler, single_rate, n_chains=32, n=64):
 
 
 def phase_full_lambda(sampler, n):
+    """60×60×3681 through ``Run``: the whole-cube kernel (pinned: the auto
+    rule takes the tiled one at this size) and the tiled kernel (auto)."""
     cube = bench_cube(L=3681, Y=60, X=60)
-    run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2, seed=0,
-                 sampler=sampler)
-    check(run.problem.config.engine == "cuda", "Run did not pick the kernel")
-    seg = segment_of(sampler)
-    reset_launches()
-    t0 = time.perf_counter()
-    run.run()
+    for engine in ("cuda", "auto"):
+        run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2,
+                     seed=0, sampler=sampler, engine=engine)
+        want = "cuda" if engine == "cuda" else "cuda_tiled"
+        check(run.problem.config.engine == want,
+              f"engine {engine!r} resolved to {run.problem.config.engine}")
+        seg = segment_of(sampler) if want == "cuda" else tiled_counter(sampler)
+        reset_launches()
+        t0 = time.perf_counter()
+        run.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = seg.launches
+        consistency = chi2_consistency(run)
+        emit("full_lambda", sampler=sampler, shape=list(cube.shape),
+             engine=want, tile=run.problem.config.tile,
+             f=run.problem.f, lsf_width=int(run.problem.lsf.shape[1]),
+             launches=launches, chi2_consistency=consistency,
+             sweeps_per_sec=n / dt, acceptance=run.acceptance_rate)
+        check(launches == n, "kernel did not run every sweep")
+        check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+
+
+def compare(plain, kern, sampler):
+    """Errors of a kernel segment against its plain version (same inputs)
+    and the checks of PERF.md §2: MH decisions equal, resid and clean
+    within 1e-4 of their scale, log-scales 1e-6, χ² rtol 1e-5; gibbs voxel
+    counts equal and per-spaxel Δχ² within 1e-4 of its scale."""
+    ps, ks = plain.result.state, kern.result.state
+    out = {
+        "resid_max_abs_err": float((ps.resid - ks.resid).abs().max()),
+        "resid_tol": 1e-4 * float(ps.resid.abs().max()),
+        "clean_max_abs_err": float((ps.clean - ks.clean).abs().max()),
+        "clean_tol": 1e-4 * float(ps.clean.abs().max()),
+        "chi2_rel_err": float(((ps.chi2 - ks.chi2).abs() / ps.chi2).max()),
+        "dchi_max_abs_err": float((plain.dchi - kern.dchi).abs().max()),
+        "dchi_tol": 1e-4 * float(plain.dchi.abs().max()),
+        "decisions_or_counts_equal": bool(torch.equal(plain.accept,
+                                                      kern.accept)),
+        "decisions_or_voxels": int(plain.accept.numel() if sampler == "mh"
+                                   else plain.accept.sum()),
+    }
+    check(out["decisions_or_counts_equal"],
+          "accept decisions / voxel counts differ")
+    check(out["resid_max_abs_err"] <= out["resid_tol"], "residual differs")
+    check(out["clean_max_abs_err"] <= out["clean_tol"], "clean cube differs")
+    check(out["chi2_rel_err"] <= 1e-5, "chi2 differs")
+    if sampler == "mh":
+        out["log_scale_max_abs_err"] = float(
+            (ps.log_scale - ks.log_scale).abs().max())
+        check(out["log_scale_max_abs_err"] <= 1e-6, "log-scales differ")
+    else:
+        check(out["dchi_max_abs_err"] <= out["dchi_tol"],
+              "per-spaxel dchi2 differs")
+        check(int(kern.accept.sum()) > 0, "no voxel drawn; check is vacuous")
+    return out
+
+
+def tiled_compare(cube, tile, sampler, n_sweeps, seed):
+    """The tiled kernel against its plain version on ``cube`` cut into
+    tiles of ``tile`` spaxel blocks: ``n_sweeps`` from one state with the
+    same injected uniforms (MH: untied), every decision or voxel count;
+    then the in-kernel Philox bits.  Returns the problem, the state, the
+    errors, and the ms per sweep of the compared kernel and plain runs."""
+    problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+        seed=0, sampler=sampler, tile=tile))
+    check(problem.config.engine == "cuda_tiled"
+          and problem.config.tile == tile, "engine/tile not resolved")
+    state = sm.init_state(problem)
+    L, n_colors, nij = problem.L, problem.n_colors, problem.ny * problem.nx
+    per = (L + 1,) if sampler == "mh" else (2, L)
+    rng = np.random.default_rng(seed)
+    u = rng.random((n_sweeps, n_colors, nij, *per), dtype=np.float32)
+    u = torch.as_tensor(np.clip(u, 2.0**-24, 1.0 - 2.0**-24)).cuda()
+    if sampler == "mh":
+        u, plain = sw.untie_uniforms(problem, state, n_sweeps, u,
+                                     reference=tl.tiled_segment_reference)
+        plain_ms = None         # the untie passes ran it more than once
+    else:
+        plain, plain_ms = timed(lambda: tl.tiled_segment_reference(
+            problem, state, n_sweeps, u))
+        plain_ms /= n_sweeps
+    counter = tiled_counter(sampler)
+    n0 = counter.launches
+    kern, kernel_ms = timed(lambda: tl.tiled_segment(
+        problem, copy_state(state), n_sweeps, u))
+    check(counter.launches - n0 == n_sweeps, "one launch per sweep")
+    errs = compare(plain, kern, sampler)
+    emit("tiled_kernel_vs_plain", sampler=sampler,
+         shape=[L, problem.Y, problem.X], f=problem.f, tile=tile,
+         lsf_width=int(problem.lsf.shape[1]),
+         n_tiles=(problem.ny // tile[0]) * (problem.nx // tile[1]),
+         sweeps=n_sweeps, **errs)
+
+    # in-kernel Philox draws against ops/philox.py, bit for bit
+    sweep = 7
+    st = copy_state(state)
+    st.sweep.fill_(sweep)
+    seg = tl.tiled_segment(problem, st, 1, record_uniforms=True)
+    draws = (philox.sweep_uniforms if sampler == "mh"
+             else philox.gibbs_sweep_uniforms)
+    want = draws(int(st.key), sweep, n_colors, nij, L, device="cuda")
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = seg.launches
+    equal = bool(torch.equal(seg.uniforms[0], want))
+    emit("tiled_philox_bits", sampler=sampler, shape=[L, problem.Y, problem.X],
+         sweep=sweep, draws=int(want.numel()), equal=equal)
+    check(equal, "in-kernel Philox draws differ from ops/philox.py")
+    return problem, state, errs, kernel_ms / n_sweeps, plain_ms
+
+
+def phase_tiled_kernel(tile=(1, 2)):
+    """The tiled kernel against its plain version, MH 2 sweeps and gibbs 1,
+    in two MUSE geometries (f=17) with tiles of (1, 2) spaxel blocks:
+    68×68×600 in 8 tiles — then ms per sweep of both versions, launches
+    per sweep and a profile — and 34×68×3681 in 4 tiles, the full field's
+    per-step shapes (116 λ-chunks per spaxel, the banded LSF, the gibbs
+    phase loop's >48 KB of shared memory)."""
+    out = {}
+    small = bench_cube(L=600, Y=68, X=68)
+    for sampler, n_sweeps, seed in (("mh", 2, 4), ("gibbs", 1, 5)):
+        problem, state, errs, _, plain_ms = tiled_compare(
+            small, tile, sampler, n_sweeps, seed)
+        counter = tiled_counter(sampler)
+        n0 = counter.launches
+        n_time = 20 if sampler == "mh" else 10
+        ms = time_sweeps(lambda n: tl.tiled_segment(problem, state, n),
+                         n_time)
+        per_sweep = (counter.launches - n0) / (n_time + 1)
+        if sampler == "mh":
+            plain_ms = time_sweeps(
+                lambda n: tl.tiled_segment_reference(problem, state, n), 1)
+        share = phase_profile(problem, state, sampler, n=n_time,
+                              seg=tl.tiled_segment,
+                              kernel_name=f"tiled_{sampler}_kernel")
+        emit("tiled_sweep_time", sampler=sampler,
+             shape=[problem.L, problem.Y, problem.X], tile=tile, kernel_ms=ms,
+             plain_ms=plain_ms, launches_per_sweep=per_sweep,
+             kernel_share_of_device=share)
+        check(per_sweep == 1, "expected one kernel launch per sweep")
+        out[sampler] = {"max_abs_err": errs["resid_max_abs_err"], "ms": ms,
+                        "plain_ms": plain_ms}
+    del small
+    large = field_cube(L=3681, Y=34, X=68)
+    for sampler, n_sweeps, seed in (("mh", 2, 6), ("gibbs", 1, 7)):
+        t0 = time.perf_counter()
+        _, _, errs, kernel_ms, plain_ms = tiled_compare(
+            large, tile, sampler, n_sweeps, seed)
+        emit("tiled_kernel_full_lambda", sampler=sampler,
+             shape=list(large.shape), tile=tile, kernel_ms_per_sweep=kernel_ms,
+             plain_ms_per_sweep=plain_ms, seconds=time.perf_counter() - t0)
+        out[sampler]["max_abs_err_34x68x3681"] = errs["resid_max_abs_err"]
+    return out
+
+
+def phase_tiled_vs_whole(n_sweeps=2):
+    """One tile, (ny, nx), is the whole-cube kernel's sweep: K2 against K1
+    on 30×30×600 from one state with the Philox draws."""
+    cube = bench_cube()
+    for sampler in ("mh", "gibbs"):
+        whole = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+            seed=0, sampler=sampler))
+        check(whole.config.engine == "cuda", "bench geometry left K1")
+        state = sm.init_state(whole)
+        k1 = segment_of(sampler)(whole, copy_state(state), n_sweeps)
+        n0 = tiled_counter(sampler).launches
+        k2 = tl.tiled_segment(whole, copy_state(state), n_sweeps,
+                              tile=(whole.ny, whole.nx))
+        torch.cuda.synchronize()
+        check(tiled_counter(sampler).launches - n0 == n_sweeps,
+              "the tiled kernel did not run")
+        errs = compare(k1, k2, sampler)
+        bit_equal = all(torch.equal(getattr(k1.result.state, name),
+                                    getattr(k2.result.state, name))
+                        for name in ("resid", "clean", "log_scale", "chi2"))
+        emit("tiled_vs_whole", sampler=sampler, shape=list(cube.shape),
+             tile=[whole.ny, whole.nx], sweeps=n_sweeps,
+             states_bit_equal=bit_equal, **errs)
+        check(bit_equal, "one tile is not the whole-cube kernel bit for bit")
+
+
+def phase_full_field(sampler, n, cube):
+    """``Run`` on a 300×300×3681 MUSE field: every sweep through the tiled
+    kernel; for gibbs the χ² rebaseline at absolute sweeps 8 and 16, with
+    the running χ² against the from-scratch one just before each reset.
+    Then one sweep of the whole-cube kernel on the same problem and state,
+    for the engines' times side by side."""
+    resets = []
+    rebaseline = sm.rebaseline_chi2
+
+    def recording_rebaseline(problem, state):
+        one = ch.select_chains(state, 0) if state.clean.dim() == 4 else state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        full = float(sm.full_chi2(problem, one))
+        resets.append({"sweep": int(one.sweep),
+                       "chi2_consistency_before":
+                           abs(float(one.chi2) - full) / full,
+                       "bytes_live": live,
+                       "full_chi2_peak_bytes":
+                           torch.cuda.max_memory_allocated()})
+        return rebaseline(problem, state)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kw = {"coarse_every": 0} if sampler == "mh" else {}
+    run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2, seed=0,
+                 sampler=sampler, **kw)
+    run.states                                  # init_state
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    cfg = run.problem.config
+    every = 8 if sampler == "gibbs" else 0
+    check(cfg.engine == "cuda_tiled", f"full field resolved to {cfg.engine}")
+    check(cfg.chi2_rebaseline_every == every,
+          f"chi2_rebaseline_every resolved to {cfg.chi2_rebaseline_every}")
+    counter = tiled_counter(sampler)
+    sm.rebaseline_chi2 = recording_rebaseline
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run.run(n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counter.launches
+    finally:
+        sm.rebaseline_chi2 = rebaseline
+    run_peak = torch.cuda.max_memory_allocated()
     consistency = chi2_consistency(run)
-    emit("full_lambda", sampler=sampler, shape=list(cube.shape),
-         f=run.problem.f, lsf_width=int(run.problem.lsf.shape[1]),
-         launches=launches, chi2_consistency=consistency,
-         sweeps_per_sec=n / dt, acceptance=run.acceptance_rate)
-    check(launches == n, "kernel did not run every sweep")
+    diag = run.diagnostics()
+    # the whole-cube kernel, one sweep of the same problem and state
+    whole = dataclasses.replace(run.problem, config=dataclasses.replace(
+        cfg, engine="cuda", tile=None, chi2_rebaseline_every=0))
+    state = ch.select_chains(run.states, 0)
+    segment_of(sampler)(whole, state, 1)
+    k1_ms = timed(lambda: segment_of(sampler)(whole, state, 1))[1]
+    emit("full_field", sampler=sampler, shape=list(cube.shape),
+         f=run.problem.f, engine=cfg.engine, tile=cfg.tile,
+         n_tiles=(run.problem.ny // cfg.tile[0]) * (run.problem.nx // cfg.tile[1]),
+         chi2_rebaseline_every=cfg.chi2_rebaseline_every, sweeps=n,
+         launches=launches, setup_s=setup_s, sweeps_per_sec=n / dt,
+         ms_per_sweep=dt / n * 1e3, whole_cube_kernel_ms_per_sweep=k1_ms,
+         rebaselines=resets, chi2_consistency_end=consistency,
+         acceptance=diag["acceptance_rate"], setup_peak_bytes=setup_peak,
+         run_peak_bytes=run_peak, chi2=diag["chi2"])
+    check(launches == n, f"tiled kernel launched {launches} times for {n}")
     check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+    check(all(np.isfinite(diag[k]) for k in ("chi2", "acceptance_rate")),
+          "diagnostics not finite")
+    if sampler == "gibbs":
+        check([r["sweep"] for r in resets] == [8, 16],
+              f"rebaselines at {[r['sweep'] for r in resets]}, not 8 and 16")
+        check(all(r["chi2_consistency_before"] <= 1e-5 for r in resets),
+              "running chi2 drifted before a rebaseline")
+        check(diag["acceptance_rate"] == 1.0, "gibbs acceptance is not 1")
+    else:
+        check(not resets, "MH rebaselined")
+    return launches
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -476,11 +756,18 @@ def main() -> int:
         batched[sampler] = phase_chains(sampler, rate[sampler])
     phase_full_lambda("mh", 20)
     phase_full_lambda("gibbs", 10)
+    tiled = phase_tiled_kernel()
+    phase_tiled_vs_whole()
+    cube = field_cube()
+    field = {sampler: phase_full_field(sampler, n, cube)
+             for sampler, n in (("gibbs", 16), ("mh", 8))}
+    del cube
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
+    emit("wall", seconds=time.perf_counter() - t_start)
 
-    print(json.dumps({"kernels": [{
+    whole = [{
         "name": f"{sampler}_sweep",
         "route": "cuda",
         "source": f"deconv3d_tpu_torch/csrc/{sampler}_sweep.cu",
@@ -489,6 +776,16 @@ def main() -> int:
         "launches": launches[sampler],
         "launches_n_chains_32": batched[sampler],
         **kernel[sampler],
+    } for sampler in ("mh", "gibbs")]
+    modes = {"mh": ":309-327", "gibbs": ":328-381"}
+    print(json.dumps({"kernels": whole + [{
+        "name": f"tiled_{sampler}",
+        "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/tiled_sweep.cu",
+        "replaces": "deconv3d_tpu/ops/pallas_tiled.py:154"
+                    f" (mode {sampler}, {modes[sampler]})",
+        "launches": field[sampler],
+        **tiled[sampler],
     } for sampler in ("mh", "gibbs")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

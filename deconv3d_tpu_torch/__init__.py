@@ -5,7 +5,9 @@ The PyTorch port of ``deconv3d_tpu``: Metropolis-Hastings-within-Gibbs
 sampling of clean MUSE cubes under a separable FSF ⊛ LSF instrument model,
 with incremental local-patch likelihood deltas and convergence diagnostics.
 On a CUDA device every sweep runs through a hand-written Hopper kernel
-(``csrc/mh_sweep.cu``); on the CPU through its plain torch version.
+(``csrc/mh_sweep.cu``, ``csrc/gibbs_sweep.cu``, or on fields too large
+for the card's L2 the tiled ``csrc/tiled_sweep.cu``); on the CPU through
+its plain torch version.
 
     from deconv3d_tpu_torch import Run, MUSE, Cube
     run = Run(cube, MUSE(), max_iterations=10_000)

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "mh_sweep_scratch_floats": ([_I] * 4, ctypes.c_longlong),
     "gibbs_sweep_launch": ([_P] * 16 + [_I] * 7 + [_U, _P], _I),
     "gibbs_sweep_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+    "tiled_mh_launch": ([_P] * 15 + [_I] * 9 + [_U, _F, _F, _P], _I),
+    "tiled_gibbs_launch": ([_P] * 16 + [_I] * 9 + [_U, _P], _I),
 }
 
 

@@ -1,6 +1,6 @@
-// Pieces shared by the MH and exact-Gibbs sweep kernels (mh_sweep.cu,
-// gibbs_sweep.cu): the patch contraction and commit of one (chain, spaxel,
-// 32-wavelength chunk) task, and the cooperative launch.
+// Pieces shared by the sweep kernels (mh_sweep.cu, gibbs_sweep.cu,
+// tiled_sweep.cu): the step geometry, the patch contraction and commit of
+// one (chain, spaxel, 32-wavelength chunk) task, and the cooperative launch.
 //
 // Layout (lambda-contiguous; the wrapper transposes at the segment
 // boundary): residual [C, Hp, Wp, L], weights [Hp, Wp, L], clean
@@ -23,6 +23,33 @@ constexpr int kChunk = 32;          // wavelengths per task (one per lane)
 constexpr int kMaxWarps = 18;
 constexpr int kMaxThreads = 32 * kMaxWarps;
 constexpr float kPi = 3.14159265358979323846f;
+
+// One step of a sweep: the spaxels of color (cy, cx) in block rows
+// [by0, by0 + nyt) and block columns [bx0, bx0 + nxt) -- the whole field
+// for the whole-cube kernels, one tile for the tiled one.  Local spaxel i
+// of the step is global spaxel row ij(i); every per-spaxel array, output
+// and random number is indexed by the global row, so a spaxel's visit
+// computes the same bits under any tiling.
+struct Step {
+  int c, cy, cx, by0, bx0, nyt, nxt;
+  __device__ Step(int c_, int f, int by0_, int bx0_, int nyt_, int nxt_)
+      : c(c_), cy(c_ / f), cx(c_ % f), by0(by0_), bx0(bx0_), nyt(nyt_),
+        nxt(nxt_) {}
+  __device__ int spaxels() const { return nyt * nxt; }
+  __device__ int ij(int i, int nx) const {
+    return (by0 + i / nxt) * nx + bx0 + i % nxt;
+  }
+};
+
+// Geometry checks shared by every launch (0 = fine).
+inline int check_dims(int C, int L, int f, int ny, int nx, int S, int lw,
+                      int nyt, int nxt) {
+  if (C < 1 || S < 1 || S > kMaxRank || L < 1 || f < 1 || ny < 1 || nx < 1 ||
+      lw < 1 || lw % 2 == 0 || ny * nx >= (1 << 24) || nyt < 1 || nxt < 1 ||
+      ny % nyt != 0 || nx % nxt != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -27,20 +27,47 @@ _PROBLEM_TENSORS = (
 _OPTIONAL = ("qvox", "quad_lo")
 
 
+def untiled_layout(qt: np.ndarray, ny: int, nx: int, f: int, tile,
+                   L: int) -> np.ndarray:
+    """Cube layout ``[L, ny·f, nx·f]`` of an array in the JAX tiled
+    kernel's per-(color, tile) layout ``[f²·n_tiles, 1, ny_t·nx_t·Lp]``
+    (λ padded to Lp): the inverse of ``tiled_quad_layout``."""
+    ny_t, nx_t = tile
+    n_ty, n_tx = ny // ny_t, nx // nx_t
+    Lp = qt.size // (f * f * ny * nx)
+    q = np.asarray(qt).reshape(f, f, n_ty, n_tx, ny_t, nx_t, Lp)
+    # [Lp, n_ty, ny_t, f, n_tx, nx_t, f]: block row, row in block, ...
+    return q.transpose(6, 2, 4, 0, 3, 5, 1).reshape(Lp, ny * f, nx * f)[:L]
+
+
 def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
                        device="cpu") -> sm.Problem:
-    """Port Problem from a mapping of field name → NumPy array / int."""
+    """Port Problem from a mapping of field name → NumPy array / int.
+
+    A JAX tiled problem (``engine='pallas_tiled'``) carries ``quad`` and
+    ``qvox`` only as ``quad_tiled`` / ``qvox_tiled``, in the layout of
+    ``config.tile``: they come back in the cube layout
+    (:func:`untiled_layout`).  Its bfloat16 ``w_pad`` holds the same
+    values as the port's float32 one."""
     kw = {n: int(d[n]) for n in _PROBLEM_INTS}
+    d = dict(d)
+    for n in ("quad", "qvox"):
+        if d.get(n) is None and d.get(f"{n}_tiled") is not None:
+            if config.tile is None:
+                raise ValueError(f"{n}_tiled needs config.tile")
+            d[n] = untiled_layout(np.asarray(d[f"{n}_tiled"]), kw["ny"],
+                                  kw["nx"], kw["f"], config.tile, kw["L"])
     for n in _PROBLEM_TENSORS:
         if n in _OPTIONAL and d.get(n) is None:
             kw[n] = None
             continue
         arr = np.asarray(d[n])
-        dtype = (
-            torch.bool if arr.dtype == bool
-            else torch.int64 if np.issubdtype(arr.dtype, np.integer)
-            else torch.float32
-        )
+        if arr.dtype == bool:
+            dtype = torch.bool
+        elif np.issubdtype(arr.dtype, np.integer):
+            dtype = torch.int64
+        else:                        # float32, float64, bfloat16 values
+            arr, dtype = arr.astype(np.float32), torch.float32
         kw[n] = torch.tensor(arr, dtype=dtype, device=device)
     return sm.Problem(config=config, **kw)
 

@@ -6,8 +6,9 @@ Counterpart of ``deconv3d_tpu/ops/pallas_sweep.py`` (modes ``'mh'`` and
 ``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu`` when the problem lives on a
 CUDA device — one launch per sweep for the whole batch of chains — and take
 :func:`mh_segment_reference` / :func:`gibbs_segment_reference`, the same
-sweep in plain torch, only for tensors on the CPU.  All four share
-everything around the sweep:
+sweep in plain torch, only for tensors on the CPU.  All four — and the
+tiled segments of ``ops/tiled.py``, which visit the same spaxels
+tile-major — share everything around the sweep:
 
   * the λ-contiguous segment layout (``[C, Hp, Wp, L]`` residual, shared
     ``[Hp, Wp, L]`` weights, ``[C, Yc, Xc, L]`` clean, ``[Yc, Xc, L]`` quad
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -76,12 +77,29 @@ class _SweepState:
     nx: int
     keys: List[int]          # per-chain 64-bit Philox keys
     target: float
+    # (nyt, nxt) block rows / columns of a tile for the tiled scan; None =
+    # the whole-cube scan (one step per color over the whole field)
+    tile: Optional[Tuple[int, int]] = None
     key_words: Optional[torch.Tensor] = None   # [C, 2] int32, kernel only
     scratch: Optional[torch.Tensor] = None     # kernel workspace, reused
 
     @property
     def C(self) -> int:
         return self.resid.shape[0]
+
+    @property
+    def nyt(self) -> int:
+        return self.ny if self.tile is None else self.tile[0]
+
+    @property
+    def nxt(self) -> int:
+        return self.nx if self.tile is None else self.tile[1]
+
+    def origins(self):
+        """(by0, bx0) block origins of the steps' regions in raster order:
+        the tiles, or the whole field once."""
+        return [(by0, bx0) for by0 in range(0, self.ny, self.nyt)
+                for bx0 in range(0, self.nx, self.nxt)]
 
 
 def _lambda_last(t: torch.Tensor) -> torch.Tensor:
@@ -128,14 +146,31 @@ def _lsf_band_T(v: torch.Tensor, lsf: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _color_lin(k: _SweepState, cy: int, cx: int):
-    """The color's residual patches ``[C, ny, f, nx, f, L]`` (a view) and
-    ``lin[C, ny, nx, L] = Σ_s spec_s · Σ_ab img_s · (resid·w)`` over them."""
-    f, ny, nx = k.f, k.ny, k.nx
+def _at(k: _SweepState, t: torch.Tensor, cy: int, cx: int, by0: int,
+        bx0: int) -> torch.Tensor:
+    """View of a ``[C', Yc, Xc, ...]`` tensor at the step's spaxels: color
+    (cy, cx), block rows / columns from (by0, bx0) → ``[C', nyt, nxt, ...]``."""
+    return _cells(t, k.ny, k.f, k.nx)[
+        :, by0 : by0 + k.nyt, cy, bx0 : bx0 + k.nxt, cx]
+
+
+def _at_rows(k: _SweepState, t: torch.Tensor, by0: int,
+             bx0: int) -> torch.Tensor:
+    """View of a ``[C', nij, ...]`` tensor (spaxel rows) at the step's
+    spaxels → ``[C', nyt, nxt, ...]``."""
+    return t.view(t.shape[0], k.ny, k.nx, *t.shape[2:])[
+        :, by0 : by0 + k.nyt, bx0 : bx0 + k.nxt]
+
+
+def _color_lin(k: _SweepState, cy: int, cx: int, by0: int, bx0: int):
+    """The step's residual patches ``[C, nyt, f, nxt, f, L]`` (a view) and
+    ``lin[C, nyt, nxt, L] = Σ_s spec_s · Σ_ab img_s · (resid·w)`` over them."""
+    f, nyt, nxt = k.f, k.nyt, k.nxt
     L = k.spec.shape[1]
-    BY, BX = ny * f, nx * f
-    rblk = k.resid[:, cy : cy + BY, cx : cx + BX].view(k.C, ny, f, nx, f, L)
-    wblk = k.w[cy : cy + BY, cx : cx + BX].view(ny, f, nx, f, L)
+    y0, x0 = cy + by0 * f, cx + bx0 * f
+    rblk = k.resid[:, y0 : y0 + nyt * f, x0 : x0 + nxt * f].view(
+        k.C, nyt, f, nxt, f, L)
+    wblk = k.w[y0 : y0 + nyt * f, x0 : x0 + nxt * f].view(nyt, f, nxt, f, L)
     pooled = torch.einsum("sab,ciajbl->csijl", k.imgs, rblk * wblk)
     lin = (k.spec[None, :, None, None, :] * pooled).sum(dim=1)
     return rblk, lin
@@ -153,78 +188,83 @@ def _commit(k: _SweepState, rblk: torch.Tensor, gacc: torch.Tensor) -> None:
 
 def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
                     accept_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
-    """One MH sweep over all f² colors with the uniforms ``u``
-    ``[C, n_colors, nij, L+1]``; updates ``k`` in place."""
-    f, ny, nx, C = k.f, k.ny, k.nx, k.C
+    """One MH sweep with the uniforms ``u`` ``[C, n_colors, nij, L+1]``;
+    updates ``k`` in place.  Each step updates one color's spaxels in one
+    region (``_SweepState.origins``): the colors in order for each region
+    in raster order."""
+    f = k.f
     L = k.spec.shape[1]
     pi = torch.tensor(math.pi, dtype=k.resid.dtype)
-    for c in range(f * f):
-        cy, cx = divmod(c, f)
-        rblk, lin = _color_lin(k, cy, cx)
-        v = _cells(k.valid[None], ny, f, nx)[0, :, cy, :, cx]     # [ny,nx]
-        ls = _cells(k.log_scale, ny, f, nx)[:, :, cy, :, cx]      # view
-        q = _cells(k.quad[None], ny, f, nx)[0, :, cy, :, cx]      # [ny,nx,L]
-        uc = u[:, c].view(C, ny, nx, L + 1)
-        draw = torch.clamp(torch.tan(pi * (uc[..., :L] - 0.5)), -1e3, 1e3)
-        jumps = torch.exp(ls)[..., None] * draw * v[..., None]
-        g = _lsf_band(jumps, k.lsf)
-        dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)            # [C,ny,nx]
-        accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
-        _commit(k, rblk, g * accf[..., None])
-        _cells(k.clean, ny, f, nx)[:, :, cy, :, cx] += jumps * accf[..., None]
-        ls += adapt * (accf - k.target) * v
-        accept_out[:, c] = accf.reshape(C, -1)
-        dchi_out[:, c] = dchi.reshape(C, -1)
+    for by0, bx0 in k.origins():
+        for c in range(f * f):
+            cy, cx = divmod(c, f)
+            rblk, lin = _color_lin(k, cy, cx, by0, bx0)
+            v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
+            ls = _at(k, k.log_scale, cy, cx, by0, bx0)            # view
+            q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
+            uc = _at_rows(k, u[:, c], by0, bx0)
+            draw = torch.clamp(torch.tan(pi * (uc[..., :L] - 0.5)), -1e3, 1e3)
+            jumps = torch.exp(ls)[..., None] * draw * v[..., None]
+            g = _lsf_band(jumps, k.lsf)
+            dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)        # [C,nyt,nxt]
+            accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
+            _commit(k, rblk, g * accf[..., None])
+            _at(k, k.clean, cy, cx, by0, bx0)[...] += jumps * accf[..., None]
+            ls += adapt * (accf - k.target) * v
+            _at_rows(k, accept_out[:, c], by0, bx0)[...] = accf
+            _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
 
 
 def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
                        live_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
-    """One exact-Gibbs sweep over all f² colors with the Box-Muller pairs
-    ``u`` ``[C, n_colors, nij, 2, L]``; updates ``k`` in place.
+    """One exact-Gibbs sweep with the Box-Muller pairs ``u`` ``[C, n_colors,
+    nij, 2, L]``, in the step order of :func:`_mh_sweep_torch`; updates
+    ``k`` in place.
 
-    Per color: lin once from the residual, then the ``lw`` λ-phases, each
+    Per step: lin once from the residual, then the ``lw`` λ-phases, each
     drawing the voxels λ ≡ phase (mod lw) from N(linT/qvox, 1/qvox) and
     updating lin ← lin − g·quad (exact: same-color patches are disjoint),
-    then one residual commit of the summed g.  Δχ² of the color is that of
-    the summed g against the color's first lin, equal to the phases' sum;
+    then one residual commit of the summed g.  Δχ² of the step is that of
+    the summed g against the step's first lin, equal to the phases' sum;
     its g²·quad_lo part is summed on its own, below the float32 ulp of
     g²·quad where it would round away.
     """
-    f, ny, nx, C = k.f, k.ny, k.nx, k.C
+    f = k.f
     L, lw = k.lsf.shape
     dt = k.resid.dtype
     two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
     phase = torch.arange(L, device=k.resid.device) % lw
-    for c in range(f * f):
-        cy, cx = divmod(c, f)
-        rblk, lin0 = _color_lin(k, cy, cx)
-        v = _cells(k.valid[None], ny, f, nx)[0, :, cy, :, cx]     # [ny,nx]
-        q = _cells(k.quad[None], ny, f, nx)[0, :, cy, :, cx]      # [ny,nx,L]
-        qv = _cells(k.qvox[None], ny, f, nx)[0, :, cy, :, cx]
-        uc = u[:, c].view(C, ny, nx, 2, L)
-        normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) * torch.cos(
-            two_pi * uc[..., 1, :])
-        qs = torch.clamp(qv, min=1e-30)
-        live_all = v[..., None] * (qv > 0).to(dt)                 # [ny,nx,L]
-        lin = lin0
-        gacc = torch.zeros_like(lin)
-        emitted = torch.zeros_like(lin)
-        for ph in range(lw):
-            sel = live_all * (phase == ph).to(dt)
-            jumps = sel * (_lsf_band_T(lin, k.lsf) / qs
-                           + normal * torch.rsqrt(qs))
-            g = _lsf_band(jumps, k.lsf)
-            lin = lin - g * q
-            gacc = gacc + g
-            emitted = emitted + jumps
-        dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)  # [C,ny,nx]
-        if k.quad_lo is not None:
-            qlo = _cells(k.quad_lo[None], ny, f, nx)[0, :, cy, :, cx]
-            dchi = dchi + (gacc * gacc * qlo).sum(dim=-1)
-        _commit(k, rblk, gacc)
-        _cells(k.clean, ny, f, nx)[:, :, cy, :, cx] += emitted
-        live_out[:, c] = live_all.sum(dim=-1).reshape(1, -1)
-        dchi_out[:, c] = dchi.reshape(C, -1)
+    for by0, bx0 in k.origins():
+        for c in range(f * f):
+            cy, cx = divmod(c, f)
+            rblk, lin0 = _color_lin(k, cy, cx, by0, bx0)
+            v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
+            q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
+            qv = _at(k, k.qvox[None], cy, cx, by0, bx0)[0]
+            uc = _at_rows(k, u[:, c], by0, bx0)                   # [C,..,2,L]
+            normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) * torch.cos(
+                two_pi * uc[..., 1, :])
+            qs = torch.clamp(qv, min=1e-30)
+            live_all = v[..., None] * (qv > 0).to(dt)             # [.., L]
+            lin = lin0
+            gacc = torch.zeros_like(lin)
+            emitted = torch.zeros_like(lin)
+            for ph in range(lw):
+                sel = live_all * (phase == ph).to(dt)
+                jumps = sel * (_lsf_band_T(lin, k.lsf) / qs
+                               + normal * torch.rsqrt(qs))
+                g = _lsf_band(jumps, k.lsf)
+                lin = lin - g * q
+                gacc = gacc + g
+                emitted = emitted + jumps
+            dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)
+            if k.quad_lo is not None:
+                qlo = _at(k, k.quad_lo[None], cy, cx, by0, bx0)[0]
+                dchi = dchi + (gacc * gacc * qlo).sum(dim=-1)
+            _commit(k, rblk, gacc)
+            _at(k, k.clean, cy, cx, by0, bx0)[...] += emitted
+            _at_rows(k, live_out[:, c], by0, bx0)[...] = live_all.sum(dim=-1)
+            _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +283,8 @@ def _check_cuda(name: str, t: torch.Tensor, device, shape, dtype=torch.float32):
 
 
 def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
-    """Checked tensors of one launch, the scratch, and the geometry ints."""
+    """Checked tensors of one launch, the scratch, and the geometry ints
+    (the tile's block rows and columns after ``lw`` for the tiled kernel)."""
     from .._build import load_library
 
     dev = k.resid.device
@@ -282,10 +323,11 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     lib = load_library()
     scratch_floats = (lib.mh_sweep_scratch_floats if mode == "mh"
                       else lib.gibbs_sweep_scratch_floats)
-    n_scratch = scratch_floats(C, L, ny, nx)
+    n_scratch = scratch_floats(C, L, k.nyt, k.nxt)      # one step's
     if k.scratch is None or k.scratch.numel() < n_scratch:
         k.scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    return lib, (C, L, f, ny, nx, S, lw)
+    tile = () if k.tile is None else (k.nyt, k.nxt)
+    return lib, (C, L, f, ny, nx, S, lw, *tile)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -302,13 +344,15 @@ def _stream(dev):
 
 def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
                    u: Optional[torch.Tensor], accept_out: torch.Tensor,
-                   dchi_out: torch.Tensor,
-                   u_out: Optional[torch.Tensor] = None) -> None:
-    """Launch ``csrc/mh_sweep.cu`` for one sweep of the whole batch."""
+                   dchi_out: torch.Tensor, u_out: Optional[torch.Tensor],
+                   counter) -> None:
+    """Launch ``csrc/mh_sweep.cu`` (or, with a tile, ``csrc/tiled_sweep.cu``)
+    for one sweep of the whole batch; ``counter.launches`` counts it."""
     lib, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
     dev = k.resid.device
+    launch = lib.mh_sweep_launch if k.tile is None else lib.tiled_mh_launch
     with torch.cuda.device(dev):
-        err = lib.mh_sweep_launch(
+        err = launch(
             _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.clean),
             _ptr(k.log_scale), _ptr(k.valid), _ptr(k.spec), _ptr(k.imgs),
             _ptr(k.lsf), _ptr(k.key_words), _ptr(u), _ptr(accept_out),
@@ -316,19 +360,23 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
             sweep & philox.M32, adapt, k.target, _stream(dev),
         )
     if err != 0:
-        raise RuntimeError(f"mh_sweep_launch failed: CUDA error {err}")
-    mh_segment.launches += 1
+        raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
+    counter.launches += 1
 
 
 def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
                       u: Optional[torch.Tensor], live_out: torch.Tensor,
-                      dchi_out: torch.Tensor,
-                      u_out: Optional[torch.Tensor] = None) -> None:
-    """Launch ``csrc/gibbs_sweep.cu`` for one sweep of the whole batch."""
+                      dchi_out: torch.Tensor, u_out: Optional[torch.Tensor],
+                      counter) -> None:
+    """Launch ``csrc/gibbs_sweep.cu`` (or, with a tile,
+    ``csrc/tiled_sweep.cu``) for one sweep of the whole batch;
+    ``counter.launches`` counts it."""
     lib, dims = _kernel_args(k, "gibbs", u, live_out, dchi_out, u_out)
     dev = k.resid.device
+    launch = (lib.gibbs_sweep_launch if k.tile is None
+              else lib.tiled_gibbs_launch)
     with torch.cuda.device(dev):
-        err = lib.gibbs_sweep_launch(
+        err = launch(
             _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.quad_lo),
             _ptr(k.qvox), _ptr(k.clean), _ptr(k.valid), _ptr(k.spec),
             _ptr(k.imgs), _ptr(k.lsf), _ptr(k.key_words), _ptr(u),
@@ -337,8 +385,8 @@ def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
             sweep & philox.M32, _stream(dev),
         )
     if err != 0:
-        raise RuntimeError(f"gibbs_sweep_launch failed: CUDA error {err}")
-    gibbs_segment.launches += 1
+        raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
+    counter.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +400,11 @@ def _chain_keys(keys: torch.Tensor) -> List[int]:
 
 def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                  uniforms: Optional[torch.Tensor], record_uniforms: bool,
-                 use_kernel: bool, mode: str) -> Segment:
+                 mode: str, counter=None,
+                 tile: Optional[Tuple[int, int]] = None) -> Segment:
+    """The segment of every wrapper: ``counter`` None runs the plain sweep,
+    else the kernel, adding each launch to ``counter.launches``; ``tile``
+    (block rows, columns) runs the tiled scan, None the whole-cube one."""
     p, cfg = problem, problem.config
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
@@ -397,7 +449,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         imgs=p.fsf_imgs.contiguous(),
         lsf=p.lsf.contiguous(),
         f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
-        target=float(cfg.target_acceptance),
+        target=float(cfg.target_acceptance), tile=tile,
     )
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
     adapt = sm.adapt_schedule(ids, cfg).tolist()
@@ -426,10 +478,12 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
         u_out = None if u_rec is None else u_rec[s]
-        if use_kernel and mode == "mh":
-            _mh_sweep_cuda(k, sweep0 + s, adapt[s], u, accept[s], dchi[s], u_out)
-        elif use_kernel:
-            _gibbs_sweep_cuda(k, sweep0 + s, u, accept[s], dchi[s], u_out)
+        if counter is not None and mode == "mh":
+            _mh_sweep_cuda(k, sweep0 + s, adapt[s], u, accept[s], dchi[s],
+                           u_out, counter)
+        elif counter is not None:
+            _gibbs_sweep_cuda(k, sweep0 + s, u, accept[s], dchi[s], u_out,
+                              counter)
         else:
             if u is None:
                 u = torch.stack([
@@ -525,7 +579,7 @@ def mh_segment_reference(problem: sm.Problem, state: sm.SamplerState,
     ``[n_sweeps, (C,) n_colors, nij, L+1]`` replaces the Philox draws.
     """
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        use_kernel=False, mode="mh")
+                        mode="mh")
 
 
 def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
@@ -540,7 +594,7 @@ def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     """
     use = _use_kernel(problem, state, "mh_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        use_kernel=use, mode="mh")
+                        mode="mh", counter=mh_segment if use else None)
 
 
 mh_segment.launches = 0
@@ -555,7 +609,7 @@ def gibbs_segment_reference(problem: sm.Problem, state: sm.SamplerState,
     ``[n_sweeps, (C,) n_colors, nij, 2, L]`` replaces the Philox draws.
     """
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        use_kernel=False, mode="gibbs")
+                        mode="gibbs")
 
 
 def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
@@ -570,7 +624,7 @@ def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     """
     use = _use_kernel(problem, state, "gibbs_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        use_kernel=use, mode="gibbs")
+                        mode="gibbs", counter=gibbs_segment if use else None)
 
 
 gibbs_segment.launches = 0
@@ -583,7 +637,8 @@ TIE_MARGIN = 1e-3
 
 def untie_uniforms(problem: sm.Problem, state: sm.SamplerState,
                    n_sweeps: int, uniforms: torch.Tensor,
-                   margin: float = TIE_MARGIN, tries: int = 8):
+                   margin: float = TIE_MARGIN, tries: int = 8,
+                   reference=None):
     """Injected MH uniforms with no accept decision within ``margin`` of its
     threshold, and the plain segment they give: ``(uniforms, Segment)``.
 
@@ -591,13 +646,15 @@ def untie_uniforms(problem: sm.Problem, state: sm.SamplerState,
     implementation) can disagree on a decision that close, and one flip
     forks the rest of the trajectory.  Each such accept uniform is set
     0.05 inside its own side of the threshold — or, where that side does
-    not exist in (0, 1), made a clear accept — and the plain segment is
-    run again until no near-tie is left.
+    not exist in (0, 1), made a clear accept — and the plain segment
+    (``reference``, default :func:`mh_segment_reference`; the tiled scan
+    passes its own) is run again until no near-tie is left.
     """
     L = problem.L
     u = uniforms
+    reference = reference or mh_segment_reference
     for _ in range(tries):
-        seg = mh_segment_reference(problem, state, n_sweeps, u)
+        seg = reference(problem, state, n_sweeps, u)
         dchi = seg.dchi.double()
         near = (torch.log(u[..., L].double()) + 0.5 * dchi).abs() < margin
         if not bool(near.any()):

@@ -9,9 +9,12 @@ Counterpart of ``deconv3d_tpu/run.py`` for the single-device path:
 
 ``max_iterations`` counts full sweeps (all spaxels), not single spaxel
 visits.  The run lives on ``device`` (default: the first CUDA device when
-there is one, else the CPU); on a CUDA device every sweep goes through the
+there is one, else the CPU); on a CUDA device every sweep goes through a
 hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``), one launch
-per sweep for all ``n_chains`` chains.  Meshes, ``run_until``,
+per sweep for all ``n_chains`` chains: the whole-cube kernel, or on a
+field too large for the card's L2 (a full MUSE field) the tiled one
+(``engine``, ``tile``: ``sampler.resolve_engine``; the resolved engine is
+``config.engine`` and in ``diagnostics()``).  Meshes, ``run_until``,
 ``map_estimate`` and ``resume`` are not ported yet and raise.
 """
 
@@ -71,6 +74,8 @@ class Run:
         track_variance: bool = True,
         coarse_every: Optional[int] = None,
         coarse_mode: str = "global",
+        tile: Optional[tuple] = None,
+        chi2_rebaseline_every: Optional[int] = None,
         device=None,
     ):
         if mesh is not None:
@@ -127,6 +132,8 @@ class Run:
             track_variance=track_variance,
             coarse_every=coarse_every or None,
             coarse_mode=coarse_mode,
+            tile=None if tile is None else tuple(tile),
+            chi2_rebaseline_every=chi2_rebaseline_every,
         )
         self.problem = sm.make_problem(cube, self.instrument, self.config,
                                        device=self.device)
@@ -307,6 +314,7 @@ class Run:
             "acceptance_rate": self.acceptance_rate,
             "sweeps": self.sweeps_done,
             "n_chains": self.n_chains,
+            "engine": self.config.engine,
         }
         if self.n_chains >= 2 and self._traces["chi2"]:
             burn = self.config.resolved_burn_in()

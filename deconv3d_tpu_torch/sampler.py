@@ -17,13 +17,17 @@ scheme is the JAX package's:
     (precision ``qvox``), the wavelengths of one spaxel in ``lw`` phases
     (voxels ``lw`` apart have disjoint LSF footprints).
 
-Both engines build the *kernel-engine problem* of the JAX package: weights
+Every engine builds the *kernel-engine problem* of the JAX package: weights
 rounded to bfloat16 values before ``quad`` and χ², and the FSF replaced by
 its low-rank reconstruction Σ_s spec_s ⊗ img_s.  The engine follows the
-device: on a CUDA device every sweep runs the hand-written kernel
-(``csrc/mh_sweep.cu`` or ``csrc/gibbs_sweep.cu``, engine ``'cuda'``), on
-the CPU its plain torch version (``ops/sweep.py``, engine ``'torch'``).
-Both sample the same posterior.
+device: on a CUDA device every sweep runs a hand-written kernel, on the
+CPU its plain torch version.  Two scans of the spaxels, each an engine
+per device: the whole-cube one (colors over the whole field; ``'cuda'``,
+``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu``, and ``'torch'``,
+``ops/sweep.py``) and the tiled one for fields too large for the L2
+(tiles in raster order, all colors per tile; ``'cuda_tiled'``,
+``csrc/tiled_sweep.cu``, and ``'torch_tiled'``, ``ops/tiled.py``).  All
+sample the same posterior.
 
 State layout (public, λ-major as in the JAX package):
     clean  [L, Yc, Xc]   Yc = ceil(Y/f)·f   (zero-padded clean cube)
@@ -48,9 +52,7 @@ _NOT_PORTED = {
     "positivity": "Queue 1 item 9 (positivity)",
     "coarse_every": "Queue 1 item 13 (coarse passes)",
     "prior_precision": "Queue 1 item 14 (direct sampler, MAP)",
-    "chi2_rebaseline_every": "Queue 1 item 11 (full field)",
-    "tile": "Queue 1 item 11 (full field, tiled kernel)",
-    "lambda_chunk": "Queue 1 item 11 (full field)",
+    "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
     "mesh": "Queue 1 item 16 (torch.distributed)",
 }
 
@@ -76,9 +78,17 @@ class RunConfig:
     ``NotImplementedError`` for any value that would switch one of them
     on (the ``direct_*`` and ``coarse_scale``/``coarse_mode`` knobs only act
     through ``sampler='direct'`` and ``coarse_every``).
-    ``engine``: ``'auto'`` takes the device's engine — ``'cuda'`` (the
-    hand-written kernel) on a CUDA device, ``'torch'`` (its plain torch
-    version) otherwise; naming the other device's engine raises.
+    ``engine``: ``'cuda'`` / ``'cuda_tiled'`` (the hand-written kernels)
+    run on a CUDA device, ``'torch'`` / ``'torch_tiled'`` (their plain torch
+    versions) elsewhere; naming the other device's engine raises.
+    ``'auto'`` (:func:`resolve_engine`) takes the device's tiled engine
+    when ``tile`` is given, or on a CUDA device when one chain's residual
+    and weights exceed the tile budget of the card's L2
+    (``ops/tiled.py``); else the whole-cube engine.  ``tile`` = (ny_t,
+    nx_t) spaxel blocks per tile (None: planned).
+    ``chi2_rebaseline_every``: None → 8 for gibbs on a tiled engine with
+    more than 2**28 B of clean cube, else 0 (off); an int works on every
+    engine (:func:`rebaseline_interleave`).
     """
 
     max_iterations: int = 1000
@@ -99,7 +109,7 @@ class RunConfig:
     lsf_width: Optional[int] = None
     seed: int = 0
     dtype: np.dtype = np.float32
-    engine: str = "auto"                   # 'auto' | 'cuda' | 'torch'
+    engine: str = "auto"                   # 'auto' | one of ENGINES
     tile: Optional[Tuple[int, int]] = None
     coarse_every: Optional[int] = None
     coarse_scale: float = 2.4
@@ -235,13 +245,35 @@ class ChainResult:
 # Problem construction
 # ---------------------------------------------------------------------------
 
+#: λ-planes per float64 ``quad`` conv: its float64 copy of the weights
+#: holds one chunk, not the cube (2.9 GB for a full MUSE field)
+_QUAD_CHUNK = 512
+
+
 def _quad_conv(w_pad: torch.Tensor, fsf: torch.Tensor) -> torch.Tensor:
-    """Depthwise VALID correlation of w with F² → [L, Yc, Xc]."""
-    fsf2 = (fsf.to(torch.float64) ** 2).to(w_pad.dtype)
+    """Depthwise VALID correlation of w with F², in float64 → [L, Yc, Xc],
+    :data:`_QUAD_CHUNK` planes at a time."""
+    L, chunk = w_pad.shape[0], _QUAD_CHUNK
+    out = None
     with cv.no_tf32():
-        return torch.nn.functional.conv2d(
-            w_pad[None], fsf2[:, None], groups=w_pad.shape[0]
-        )[0]
+        for lo in range(0, L, chunk):
+            w = w_pad[lo : lo + chunk].to(torch.float64)
+            fsf2 = fsf[lo : lo + chunk].to(torch.float64) ** 2
+            q = torch.nn.functional.conv2d(w[None], fsf2[:, None],
+                                           groups=w.shape[0])[0]
+            if out is None:
+                out = torch.empty((L, *q.shape[1:]), dtype=torch.float64,
+                                  device=w_pad.device)
+            out[lo : lo + q.shape[0]] = q
+    return out
+
+
+#: the sweep engines: (whole-cube, tiled) on a CUDA device and elsewhere
+ENGINES = ("cuda", "cuda_tiled", "torch", "torch_tiled")
+
+#: clean-cube bytes above which the auto rule switches the χ² rebaseline on
+#: (the JAX package's big-field gate)
+REBASELINE_AUTO_BYTES = 2**28
 
 
 def _check_config(config: RunConfig) -> None:
@@ -253,16 +285,87 @@ def _check_config(config: RunConfig) -> None:
         raise not_ported("coarse_every", config.coarse_every)
     if config.prior_precision == "auto" or config.prior_precision:
         raise not_ported("prior_precision", config.prior_precision)
-    if config.chi2_rebaseline_every:
-        raise not_ported("chi2_rebaseline_every", config.chi2_rebaseline_every)
-    if config.tile is not None:
-        raise not_ported("tile", config.tile)
     if config.lambda_chunk:
         raise not_ported("lambda_chunk", config.lambda_chunk)
-    if config.engine not in ("auto", "cuda", "torch"):
+    if config.engine not in ("auto", *ENGINES):
         raise ValueError(
-            f"engine must be 'auto', 'cuda' or 'torch', got {config.engine!r}"
+            f"engine must be 'auto' or one of {ENGINES}, got {config.engine!r}"
         )
+    every = config.chi2_rebaseline_every
+    if every is not None and every < 0:
+        raise ValueError(
+            f"chi2_rebaseline_every must be >= 0 (0 = off), got {every}")
+
+
+def _device_engines(device: torch.device, engine: str) -> Tuple[str, str]:
+    """The device's (whole-cube, tiled) engines; ``engine`` naming another
+    device's raises."""
+    pair = (("cuda", "cuda_tiled") if device.type == "cuda"
+            else ("torch", "torch_tiled"))
+    if engine not in ("auto", *pair):
+        raise RuntimeError(
+            f"engine={engine!r} cannot run on {device}: on a CUDA device "
+            "every sweep runs a CUDA kernel (engines 'cuda', 'cuda_tiled'), "
+            "elsewhere its plain torch version ('torch', 'torch_tiled')"
+        )
+    return pair
+
+
+def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
+                   L: int, budget: Optional[int] = None
+                   ) -> Tuple[str, Optional[Tuple[int, int]]]:
+    """(engine, tile) of ``config`` on ``device`` for an f×f footprint over
+    ny × nx spaxel blocks of L wavelengths.
+
+    ``'auto'``: the tiled engine when ``config.tile`` is given, or on a CUDA
+    device when one chain's padded residual and weights (float32) exceed
+    ``budget`` (default :func:`ops.tiled.l2_budget_bytes` of the device)
+    and a tile fits it — the JAX package's step from the on-chip
+    whole-cube kernel down to the tiled one (``deconv3d_tpu/sampler.py:
+    466-536``), with the L2 in place of VMEM; else the whole-cube engine.
+    A tiled engine without ``config.tile`` plans one
+    (:func:`ops.tiled.plan_tiles`).
+    """
+    from .ops import tiled
+
+    device = torch.device(device)
+    whole, tiled_engine = _device_engines(device, config.engine)
+    if budget is None:
+        budget = tiled.l2_budget_bytes(device)
+    tile, engine = config.tile, config.engine
+    if engine == "auto":
+        Hp, Wp = f - 1 + ny * f, f - 1 + nx * f
+        big = Hp * Wp * L * 8 > budget
+        if tile is not None or (device.type == "cuda" and big
+                                and tiled.plan_tiles(f, ny, nx, L, budget)):
+            engine = tiled_engine
+        else:
+            engine = whole
+    if engine == whole:
+        if tile is not None:
+            raise ValueError(f"tile={tile!r} needs a tiled engine "
+                             f"('{tiled_engine}' or 'auto'), not {engine!r}")
+        return engine, None
+    if tile is None:
+        tile = tiled.plan_tiles(f, ny, nx, L, budget)
+        if tile is None:
+            raise ValueError(
+                f"no tile of the {ny}x{nx} spaxel-block grid (f={f}, L={L}) "
+                f"fits the {budget} B window budget: use engine '{whole}'"
+            )
+    ny_t, nx_t = (int(t) for t in tile)
+    if ny_t < 1 or nx_t < 1 or ny % ny_t or nx % nx_t:
+        raise ValueError(f"tile={tuple(tile)!r} does not divide the {ny}x{nx} "
+                         "spaxel-block grid")
+    return engine, (ny_t, nx_t)
+
+
+def auto_rebaseline_every(engine: str, sampler: str, clean_bytes: int) -> int:
+    """``chi2_rebaseline_every`` for None: 8 for gibbs on a tiled engine
+    with more than :data:`REBASELINE_AUTO_BYTES` of clean cube (the JAX
+    package's rule, ``deconv3d_tpu/sampler.py:537-552``), else 0."""
+    return 8 if (engine.endswith("_tiled") and sampler == "gibbs"
+                 and clean_bytes > REBASELINE_AUTO_BYTES) else 0
 
 
 def make_problem(
@@ -271,20 +374,14 @@ def make_problem(
 ) -> Problem:
     """Rasterise kernels, build padded weights and per-spaxel quad terms.
 
-    ``device`` defaults to the cube's.  The engine is the device's:
-    ``'cuda'`` on a CUDA device, ``'torch'`` otherwise; a ``config.engine``
-    other than ``'auto'`` or that one raises.
+    ``device`` defaults to the cube's.  The engine and tile resolve by
+    :func:`resolve_engine`, ``chi2_rebaseline_every=None`` by
+    :func:`auto_rebaseline_every`; naming another device's engine raises
+    before any tensor moves.
     """
     _check_config(config)
     device = torch.device(device) if device is not None else cube.device
-    engine = "cuda" if device.type == "cuda" else "torch"
-    if config.engine not in ("auto", engine):
-        raise RuntimeError(
-            f"engine={config.engine!r} cannot run on {device}: on a CUDA "
-            f"device every sweep runs the CUDA kernel (engine 'cuda'), "
-            f"elsewhere its plain torch version (engine 'torch')"
-        )
-    config = dataclasses.replace(config, engine=engine)
+    _device_engines(device, config.engine)
     cube = cube.to(device).sanitized()
     dtype = torch_dtype(config.dtype)
     L, Y, X = cube.shape
@@ -307,6 +404,13 @@ def make_problem(
     Yc, Xc = ny * f, nx * f
     Hp, Wp = f - 1 + Yc, f - 1 + Xc
     h = f // 2
+    engine, tile = resolve_engine(config, device, f, ny, nx, L)
+    every = config.chi2_rebaseline_every
+    if every is None:
+        every = auto_rebaseline_every(engine, config.sampler,
+                                      L * Yc * Xc * dtype.itemsize)
+    config = dataclasses.replace(config, engine=engine, tile=tile,
+                                 chi2_rebaseline_every=int(every))
 
     var = cube.variance.to(dtype)
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -332,7 +436,7 @@ def make_problem(
     # exact-Gibbs Δχ² the same way sweep after sweep, and the running χ²
     # drifts linearly from the from-scratch one.  Gibbs therefore also
     # keeps the rounding's remainder, quad_lo = quad₆₄ − quad.
-    quad64 = _quad_conv(w_pad.double(), torch.einsum(
+    quad64 = _quad_conv(w_pad, torch.einsum(
         "sl,sab->lab", fsf_spec.double(), fsf_imgs.double()))
     quad = quad64.to(dtype)
 
@@ -454,15 +558,78 @@ def run_sweeps(
     on every field, chains at one sweep count) that advances in lockstep.
     On a CUDA device every sweep is one kernel launch for the whole batch;
     on the CPU the kernel's plain torch version runs
-    (``ops.sweep.mh_segment`` / ``gibbs_segment``).  Burn-in sweeps adapt
-    the per-spaxel MH jump scale and stay out of the posterior
-    accumulators.
+    (``ops.sweep.mh_segment`` / ``gibbs_segment``, or on a tiled engine
+    ``ops.tiled.tiled_segment``).  Burn-in sweeps adapt the per-spaxel MH
+    jump scale and stay out of the posterior accumulators.
+
+    With ``chi2_rebaseline_every`` set (auto for full-field gibbs) the
+    running χ² is reset from :func:`full_chi2` at multiples of the
+    absolute sweep counter (:func:`rebaseline_interleave`); the chain
+    itself is untouched.
     """
+    if problem.config.chi2_rebaseline_every:
+        return rebaseline_interleave(
+            problem, state, n_sweeps,
+            lambda s, k: _engine_run_sweeps(problem, s, k))
+    return _engine_run_sweeps(problem, state, n_sweeps)
+
+
+def _engine_run_sweeps(problem: Problem, state: SamplerState,
+                       n_sweeps: int) -> ChainResult:
+    if problem.config.engine.endswith("_tiled"):
+        from .ops import tiled
+
+        return tiled.tiled_segment(problem, state, n_sweeps).result
     from .ops import sweep as sw
 
     gibbs = problem.config.sampler == "gibbs"
     segment = sw.gibbs_segment if gibbs else sw.mh_segment
     return segment(problem, state, n_sweeps).result
+
+
+def rebaseline_chi2(problem: Problem, state: SamplerState) -> SamplerState:
+    """``state`` with χ² reset to :func:`full_chi2` (every chain of a
+    chain-stacked state) and its Kahan compensation to 0.  Nothing else
+    changes: clean, residual, key, log-scales and accumulators are the
+    same tensors, so the sampled chain is bit-identical."""
+    if state.clean.dim() == 4:
+        chi2 = torch.stack([
+            full_chi2(problem, dataclasses.replace(state, clean=clean))
+            for clean in state.clean
+        ])
+    else:
+        chi2 = full_chi2(problem, state)
+    return dataclasses.replace(state, chi2=chi2.to(torch.float32),
+                               chi2_comp=torch.zeros_like(state.chi2_comp))
+
+
+def rebaseline_interleave(problem: Problem, state: SamplerState,
+                          n_sweeps: int, inner) -> ChainResult:
+    """``inner(state, k)`` segments split where the absolute sweep counter
+    reaches a multiple of ``chi2_rebaseline_every``, with
+    :func:`rebaseline_chi2` there: any segmentation of a run (``Run.run``
+    segments, a resume) rebaselines at the same sweeps."""
+    every = int(problem.config.chi2_rebaseline_every)
+    if n_sweeps <= 0:
+        return inner(state, n_sweeps)
+    # only the traces of finished parts are kept: a full field's state is
+    # 5.6 GB per chain, and no part but the last needs its own
+    traces, cur, left = [], state, n_sweeps
+    while left > 0:
+        done = int(cur.sweep.reshape(-1)[0])
+        k = min(left, every - done % every)
+        r = inner(cur, k)
+        cur = r.state
+        if int(cur.sweep.reshape(-1)[0]) % every == 0:
+            cur = rebaseline_chi2(problem, cur)
+        traces.append((r.chi2_trace, r.accept_trace, r.flux_trace,
+                       r.monitor_trace))
+        left -= k
+    dim = 0 if state.clean.dim() == 3 else 1     # the traces' sweep axis
+    chi2_t, acc_t, flux_t, mon_t = (torch.cat(parts, dim=dim)
+                                    for parts in zip(*traces))
+    return ChainResult(state=cur, chi2_trace=chi2_t, accept_trace=acc_t,
+                       flux_trace=flux_t, monitor_trace=mon_t)
 
 
 # ---------------------------------------------------------------------------

@@ -142,7 +142,7 @@ def test_adapt_and_keep_schedules_match():
     [
         ("sampler", "gibbs_block"), ("sampler", "direct"),
         ("positivity", True), ("coarse_every", 8), ("prior_precision", 1e-3),
-        ("chi2_rebaseline_every", 8), ("tile", (1, 1)), ("lambda_chunk", 4),
+        ("lambda_chunk", 4),
     ],
 )
 def test_unported_knobs_raise(rng, knob, value):

@@ -204,6 +204,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, deconv3d_tpu_torch, deconv3d_tpu_torch.run, "
         "deconv3d_tpu_torch.ops.sweep, deconv3d_tpu_torch.interop, "
+        "deconv3d_tpu_torch.ops.tiled, deconv3d_tpu_torch.tile_sweep, "
         "deconv3d_tpu_torch._build, deconv3d_tpu_torch.chains, "
         "deconv3d_tpu_torch.ops.banded, deconv3d_tpu_torch.ops.philox\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -342,6 +343,52 @@ def test_kernels_loop_warps_over_patch_rows_on_card(sampler):
     else:
         plain = sw.gibbs_segment_reference(p, states, 2, u)
         kern = sw.gibbs_segment(p, states, 2, u)
+    assert float(plain.accept.sum()) > 0, "nothing drawn; test is vacuous"
+    assert torch.equal(plain.accept, kern.accept)
+    for name in ("resid", "clean"):
+        ref = getattr(plain.result.state, name)
+        torch.testing.assert_close(getattr(kern.result.state, name), ref,
+                                   rtol=0, atol=1e-4 * float(ref.abs().max()))
+    torch.testing.assert_close(kern.result.state.chi2,
+                               plain.result.state.chi2, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["mh", "gibbs"])
+@pytest.mark.parametrize("fsf_size, size, L", [(5, 20, 16), (21, 42, 16),
+                                                (5, 20, 3200)])
+def test_tiled_kernel_matches_plain_on_card(sampler, fsf_size, size, L):
+    """The tiled kernel (``csrc/tiled_sweep.cu``) on a batch of 2 chains
+    against its plain version, same injected uniforms, tiles of (1, 2)
+    spaxel blocks: 8 tiles at f = 5, 2 at f = 21 (more patch rows than a
+    block's warps), and 8 at L = 3200 (100 λ-chunks per spaxel; the gibbs
+    phase loop's 4L floats take more than 48 KB of shared memory).
+    Tolerances as the whole-cube kernels'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the tiled kernel has no CPU mode")
+    from deconv3d_tpu_torch import chains as ch
+    from deconv3d_tpu_torch.ops import tiled as tl
+
+    cube, inst = _make_toy(np.random.default_rng(42), L=L, Y=size, X=size,
+                           dtype=np.float32)
+    p = sm.make_problem(cube.to("cuda"), inst, _cfg(
+        dtype=np.float32, seed=4, fsf_size=fsf_size, sampler=sampler,
+        tile=(1, 2)))
+    assert p.config.engine == "cuda_tiled" and p.f == fsf_size
+    states = ch.init_chain_states(p, 2)
+    per = (p.L + 1,) if sampler == "mh" else (2, p.L)
+    u = np.random.default_rng(9).random(
+        (2, 2, p.n_colors, p.ny * p.nx, *per), dtype=np.float32)
+    u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
+    if sampler == "mh":
+        u, plain = sw.untie_uniforms(p, states, 2, u,
+                                     reference=tl.tiled_segment_reference)
+    else:
+        plain = tl.tiled_segment_reference(p, states, 2, u)
+    counter = tl.tiled_mh if sampler == "mh" else tl.tiled_gibbs
+    n0 = counter.launches
+    kern = tl.tiled_segment(p, states, 2, u)
+    assert counter.launches - n0 == 2, "one launch per sweep for 2 chains"
     assert float(plain.accept.sum()) > 0, "nothing drawn; test is vacuous"
     assert torch.equal(plain.accept, kern.accept)
     for name in ("resid", "clean"):
