@@ -7,8 +7,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device  — the card's name and power limit; no CUDA device is a failure.
 2. build   — compile ``deconv3d_tpu_torch/csrc/*.cu`` with nvcc, one
    compiler per source, all at once (seconds).
-3. kernel  — the MH sweep kernel against its plain torch version on the
-   card, on the MUSE 30×30×600 bench geometry (f=17): 4 sweeps from one
+3. kernel  — classic K1's MH kernel (``csrc/mh_sweep.cu``, pinned: the
+   main path now runs the resident kernel) against its plain torch version
+   on the card, on the MUSE 30×30×600 bench geometry (f=17): 4 sweeps from one
    state with the same injected uniforms, comparing residual, clean cube,
    log-scales, χ² and every accept decision; then the in-kernel Philox
    draws against ``ops/philox.py``, bit for bit; then the time per sweep
@@ -17,23 +18,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    Then a batch of 32 chains through the kernel against the plain version
    of the same batch (2 sweeps, same injected uniforms, every chain), and
    the ms per batched sweep of both.
-4. gibbs_kernel — the exact-Gibbs kernel against its plain version on the
-   same geometry: 2 sweeps from one state with the same injected (u1, u2),
+4. gibbs_kernel — classic K1's exact-Gibbs kernel (pinned) against its
+   plain version on the same geometry: 2 sweeps from one state with the
+   same injected (u1, u2),
    comparing residual, clean cube, χ², every per-(color, spaxel) Δχ² and
    voxel count; the stream-2/3 Philox draws bit for bit; ms per sweep of
    both, launches per sweep and a profile; then a 32-chain batch against
    its plain version, as for MH.
+4b. resident — the resident kernel (``csrc/resident_sweep.cu``), mh and
+   gibbs, at 30×30×600: against the plain sweep on the kernel phases'
+   injected uniforms (same checks) and its in-kernel Philox bits; against
+   classic K1 on the Philox draws, 4 sweeps from one state, resid, clean,
+   log-scales, χ², accept decisions / voxel counts and every per-(color,
+   spaxel) Δχ² bit-equal; ms per sweep of both in turns (resident,
+   classic, classic, resident); a profile; µs per grid barrier of its grid
+   (``resident_barrier_launch``).
 5. main    — ``Run(cube, MUSE(), max_iterations=400, burn_in=200).run()``
-   → ``diagnostics()`` → ``save()`` on the bench cube; the kernel must
-   have run every sweep; running χ² against from-scratch χ² ≤ 1e-5;
+   → ``diagnostics()`` → ``save()`` on the bench cube; the resident kernel
+   must have run every sweep (classic K1 none); running χ² against
+   from-scratch χ² ≤ 1e-5;
    post-burn-in acceptance in [0.15, 0.35]; MH sweeps/s over the last 200.
 6. gibbs_main — the same with ``sampler='gibbs'``: acceptance exactly 1.0,
-   every sweep through the gibbs kernel, χ² consistency ≤ 1e-5 (also
+   every sweep through the resident kernel, χ² consistency ≤ 1e-5 (also
    printed after the first 200 sweeps), gibbs sweeps/s over the last 200.
 7. chains  — ``Run(n_chains=32)`` for mh and for gibbs, 64 sweeps after a
-   64-sweep warm-up: one launch per sweep for the whole batch; chains 0 and
-   31 equal the same chains run alone through the kernel; R̂ finite;
-   aggregate chain-sweeps/s and per-chain sweeps/s.
+   64-sweep warm-up: one classic K1 launch per sweep for the whole batch
+   (the resident plan does not fit it; resident launches 0); chains 0 and
+   31 equal the same chains run alone (batch: classic K1; alone: the
+   resident kernel); R̂ finite;
+   aggregate chain-sweeps/s and per-chain sweeps/s; then classic K1's ms
+   per batched sweep on the run's state.
 8. full_lambda — 60×60×3681 (the full MUSE spectral range, banded LSF)
    through ``Run``: 20 MH sweeps and 10 gibbs sweeps, with the χ² check,
    on the whole-cube kernels (``engine='cuda'``, pinned) and on the tiled
@@ -58,11 +72,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    one just before each reset and at the end, acceptance exactly 1 — then
    MH with ``coarse_every=0`` for 8 sweeps; set-up seconds, sweeps/s, the
    planned tile, peak memory of set-up, run and ``full_chi2``, and one
-   sweep of the whole-cube kernel on the same state beside it.
+   sweep each of the tiled and the whole-cube kernel on the run's state
+   (CUDA events).
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
-whole-cube and tiled kernels, launches from the main paths' runs), the
+resident, classic K1 and tiled kernels, each with its launches, ms per
+sweep and bound (:func:`sweep_bound`) on its own path — ``main`` /
+``gibbs_main``, ``chains``, ``full_field`` — and its error and plain ms
+from its comparison phase, at the shape it names), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -128,6 +146,12 @@ def time_sweeps(fn, n):
     return timed(lambda: fn(n))[1] / n
 
 
+def classic_of(sampler):
+    """The whole-cube segment of ``sampler`` pinned to classic K1."""
+    seg = segment_of(sampler)
+    return lambda *args, **kw: seg(*args, _classic=True, **kw)
+
+
 def phase_kernel(n_sweeps=4):
     cube = bench_cube()
     problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(seed=0))
@@ -138,7 +162,8 @@ def phase_kernel(n_sweeps=4):
     u = rng.random((n_sweeps, n_colors, nij, L + 1), dtype=np.float32)
     u = torch.as_tensor(np.clip(u, 2.0**-24, 1.0 - 2.0**-24)).cuda()
     u, plain = sw.untie_uniforms(problem, state, n_sweeps, u)
-    kern = sw.mh_segment(problem, copy_state(state), n_sweeps, u)
+    kern = sw.mh_segment(problem, copy_state(state), n_sweeps, u,
+                         _classic=True)
     torch.cuda.synchronize()
     ps, ks = plain.result.state, kern.result.state
 
@@ -168,7 +193,7 @@ def phase_kernel(n_sweeps=4):
     sweep = 7
     st = copy_state(state)
     st.sweep.fill_(sweep)
-    seg = sw.mh_segment(problem, st, 1, record_uniforms=True)
+    seg = sw.mh_segment(problem, st, 1, record_uniforms=True, _classic=True)
     want = philox.sweep_uniforms(int(st.key), sweep, n_colors, nij, L,
                                  device="cuda")
     torch.cuda.synchronize()
@@ -178,16 +203,19 @@ def phase_kernel(n_sweeps=4):
 
     # time per sweep, kernel (Philox draws) and plain, from one state
     n0 = sw.mh_segment.launches
-    ms = time_sweeps(lambda n: sw.mh_segment(problem, state, n), 50)
+    ms = time_sweeps(lambda n: sw.mh_segment(problem, state, n,
+                                             _classic=True), 50)
     launches_per_sweep = (sw.mh_segment.launches - n0) / 51
     plain_ms = time_sweeps(
-        lambda n: sw.mh_segment_reference(problem, state, n), 5)
+        lambda n: sw.mh_segment_reference(problem, state, n), 2)
     emit("sweep_time", shape=[L, problem.Y, problem.X], kernel_ms=ms,
          plain_ms=plain_ms, launches_per_sweep=launches_per_sweep)
     check(launches_per_sweep == 1, "expected one kernel launch per sweep")
-    phase_profile(problem, state, "mh")
-    return {"max_abs_err": resid_err, "ms": ms, "plain_ms": plain_ms,
-            **phase_batch_vs_plain(problem, "mh")}
+    phase_profile(problem, state, "mh", seg=classic_of("mh"))
+    out = {"max_abs_err": resid_err, "ms": ms, "plain_ms": plain_ms,
+           "bound": sweep_bound(problem, 1, kern.accept),
+           "n_chains_32": phase_batch_vs_plain(problem, "mh")}
+    return out, (problem, state, u, plain, plain_ms)
 
 
 def phase_gibbs_kernel(n_sweeps=2):
@@ -202,7 +230,8 @@ def phase_gibbs_kernel(n_sweeps=2):
     u = torch.as_tensor(np.clip(u, 2.0**-24, 1.0 - 2.0**-24)).cuda()
     plain = sw.gibbs_segment_reference(problem, state, n_sweeps, u)
     n0 = sw.gibbs_segment.launches
-    kern = sw.gibbs_segment(problem, copy_state(state), n_sweeps, u)
+    kern = sw.gibbs_segment(problem, copy_state(state), n_sweeps, u,
+                            _classic=True)
     torch.cuda.synchronize()
     check(sw.gibbs_segment.launches - n0 == n_sweeps, "one launch per sweep")
     ps, ks = plain.result.state, kern.result.state
@@ -234,7 +263,8 @@ def phase_gibbs_kernel(n_sweeps=2):
     sweep = 7
     st = copy_state(state)
     st.sweep.fill_(sweep)
-    seg = sw.gibbs_segment(problem, st, 1, record_uniforms=True)
+    seg = sw.gibbs_segment(problem, st, 1, record_uniforms=True,
+                           _classic=True)
     want = philox.gibbs_sweep_uniforms(int(st.key), sweep, n_colors, nij, L,
                                        device="cuda")
     torch.cuda.synchronize()
@@ -244,22 +274,78 @@ def phase_gibbs_kernel(n_sweeps=2):
     check(equal, "in-kernel stream-2/3 draws differ from ops/philox.py")
 
     n0 = sw.gibbs_segment.launches
-    ms = time_sweeps(lambda n: sw.gibbs_segment(problem, state, n), 50)
+    ms = time_sweeps(lambda n: sw.gibbs_segment(problem, state, n,
+                                                _classic=True), 50)
     launches_per_sweep = (sw.gibbs_segment.launches - n0) / 51
     plain_ms = time_sweeps(
-        lambda n: sw.gibbs_segment_reference(problem, state, n), 2)
+        lambda n: sw.gibbs_segment_reference(problem, state, n), 1)
     emit("gibbs_sweep_time", shape=[L, problem.Y, problem.X], kernel_ms=ms,
          plain_ms=plain_ms, launches_per_sweep=launches_per_sweep)
     check(launches_per_sweep == 1, "expected one kernel launch per sweep")
-    phase_profile(problem, state, "gibbs")
-    return {"max_abs_err": resid_err, "ms": ms, "plain_ms": plain_ms,
-            **phase_batch_vs_plain(problem, "gibbs")}
+    phase_profile(problem, state, "gibbs", seg=classic_of("gibbs"))
+    out = {"max_abs_err": resid_err, "ms": ms, "plain_ms": plain_ms,
+           "bound": sweep_bound(problem, 1, kern.accept),
+           "n_chains_32": phase_batch_vs_plain(problem, "gibbs")}
+    return out, (problem, state, u, plain, plain_ms)
+
+
+#: NVIDIA H100 SXM peaks (data sheet, 700 W): float32 outside the tensor
+#: cores, and HBM3 bandwidth
+F32_FLOP_PER_S = 67e12
+HBM_BYTE_PER_S = 3.35e12
+
+
+def sweep_bound(problem, C, accept):
+    """The least time one sweep of ``C`` chains could take on the card:
+    max(flops / float32 peak, bytes / HBM bandwidth), with what bounds it.
+
+    Flops (a multiply or add 1, an fma 2; transcendentals not counted) of
+    what this run's data needs: per valid spaxel visit the patch
+    contraction (f² L (1 + 2S): resid·w and S fmas) and lin (2S per λ); MH
+    the jump's band and Δχ² share (2 lw + 6 per λ) and, per ACCEPTED visit
+    (``accept``: the run's decisions), the commit (f² L (2S + 1)) and
+    clean += jump; gibbs per λ the transpose band (2 lw), the draw (3), lw
+    phase updates (4 each), the Δχ² terms (9) and clean += jump, and the
+    commit of every live visit.  Bytes: each input read once, each output
+    written once, of what the visits touch: resid read and written whole
+    (the committed patches cover it); weights read; per valid spaxel quad,
+    and for gibbs qvox and quad_lo, read; clean read and written at the
+    committed visits' spaxels only (MH: the accepted ones, gibbs: every
+    live visit); LSF, FSF and per-spaxel outputs.  ``accept`` is ignored
+    for gibbs."""
+    f, L = problem.f, problem.L
+    S, lw = int(problem.fsf_spec.shape[0]), int(problem.lsf.shape[1])
+    valid = float(problem.valid.sum())
+    visits = C * valid
+    patch = f * f * L
+    flops = visits * (patch * (1 + 2 * S) + L * 2 * S)
+    gibbs = problem.config.sampler == "gibbs"
+    if gibbs:
+        committed = visits
+        flops += visits * (L * (2 * lw + 3 + 4 * lw + 9 + 1)
+                           + patch * (2 * S + 1))
+    else:
+        committed = visits * float(accept.float().mean())
+        flops += visits * L * (2 * lw + 6) + committed * (
+            patch * (2 * S + 1) + L)
+    Hp, Wp = problem.w_pad.shape[1:]
+    spectrum = L * 4
+    nbytes = (2 * C * Hp * Wp * spectrum + Hp * Wp * spectrum
+              + valid * spectrum * (3 if gibbs else 1)
+              + 2 * committed * spectrum
+              + L * lw * 4 + S * (L + f * f) * 4
+              + 2 * C * problem.n_colors * problem.ny * problem.nx * 4)
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2):
-    """A batch of chains through the kernel (one launch per sweep) against
-    the plain version of the same batch, same injected uniforms, every
-    chain; the ms per batched sweep of both (first calls at this C)."""
+    """A batch of chains through classic K1 (pinned; one launch per sweep)
+    against the plain version of the same batch, same injected uniforms, every
+    chain; the ms per batched sweep of both (first calls at this C).
+    Returns the batch's resid error and the plain ms per batched sweep."""
     states = ch.init_chain_states(problem, n_chains)
     L, n_colors, nij = problem.L, problem.n_colors, problem.ny * problem.nx
     per = (L + 1,) if sampler == "mh" else (2, L)
@@ -274,7 +360,8 @@ def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2):
     plain, plain_ms = timed(lambda: ref(problem, states, n_sweeps, u))
     seg = segment_of(sampler)
     n0 = seg.launches
-    kern, ms = timed(lambda: seg(problem, states, n_sweeps, u))
+    kern, ms = timed(lambda: classic_of(sampler)(problem, states, n_sweeps,
+                                                 u))
     launches = seg.launches - n0
     ps, ks = plain.result.state, kern.result.state
     resid_err = float((ps.resid - ks.resid).abs().max())
@@ -295,13 +382,107 @@ def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2):
     check(resid_err <= resid_tol, "batched residual differs")
     check(clean_err <= clean_tol, "batched clean cube differs")
     check(chi2_rel <= 1e-5, "batched chi2 differs")
-    return {f"max_abs_err_n_chains_{n_chains}": resid_err,
-            f"ms_n_chains_{n_chains}": ms / n_sweeps,
-            f"plain_ms_n_chains_{n_chains}": plain_ms / n_sweeps}
+    return {"max_abs_err": resid_err, "plain_ms": plain_ms / n_sweeps}
+
+
+def barrier_us(problem, sampler, n=2890):
+    """µs per grid barrier of the resident grid at ``problem``'s plan:
+    ``n`` barriers of ``resident_barrier_kernel`` on the same blocks,
+    threads and shared memory, against none."""
+    import ctypes
+
+    from deconv3d_tpu_torch.ops import resident as rs
+
+    lib = _build.load_library()
+    S, lw = int(problem.fsf_spec.shape[0]), int(problem.lsf.shape[1])
+    lam_b, blocks = rs.plan_slabs(1, problem.f, problem.ny, problem.nx,
+                                  problem.L, S, lw, sampler,
+                                  *rs.device_limits("cuda"))
+    smem = lib.resident_smem_bytes(int(sampler == "gibbs"), 1, problem.f,
+                                   problem.ny, problem.nx, problem.L, S, lw,
+                                   lam_b)
+    threads = 32 * min(problem.f, 18)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run(k):
+        err = lib.resident_barrier_launch(blocks, threads, smem, k, stream)
+        check(err == 0, f"resident_barrier_launch failed: CUDA error {err}")
+
+    run(n)
+    times = {k: min(timed(lambda: run(k))[1] for _ in range(5))
+             for k in (0, n)}
+    return (times[n] - times[0]) / n * 1e3, blocks, threads, smem
+
+
+def phase_resident(sampler, ctx, classic_ms, n_sweeps=4):
+    """The resident kernel at 30×30×600: against the plain sweep on the
+    kernel phase's injected uniforms (same tolerances as classic K1) and
+    its in-kernel Philox bits; against classic K1 on the Philox draws,
+    ``n_sweeps`` from one state, every output bit-equal; ms per sweep of
+    both in turns (resident, classic, classic, resident); a profile; the
+    µs per grid barrier of its grid."""
+    problem, state, u, plain, plain_ms = ctx
+    seg, classic = segment_of(sampler), classic_of(sampler)
+    n0 = seg.resident_launches
+    kern = seg(problem, copy_state(state), u.shape[0], u)
+    torch.cuda.synchronize()
+    check(seg.resident_launches - n0 == u.shape[0],
+          "the resident kernel did not run every sweep")
+    errs = compare(plain, kern, sampler)
+    emit("resident_vs_plain", sampler=sampler,
+         shape=[problem.L, problem.Y, problem.X], sweeps=int(u.shape[0]),
+         **errs)
+
+    sweep = 7
+    st = copy_state(state)
+    st.sweep.fill_(sweep)
+    rec = seg(problem, st, 1, record_uniforms=True)
+    draws = (philox.sweep_uniforms if sampler == "mh"
+             else philox.gibbs_sweep_uniforms)
+    want = draws(int(st.key), sweep, problem.n_colors,
+                 problem.ny * problem.nx, problem.L, device="cuda")
+    torch.cuda.synchronize()
+    philox_equal = bool(torch.equal(rec.uniforms[0], want))
+    check(philox_equal, "resident in-kernel Philox draws differ")
+
+    res = seg(problem, copy_state(state), n_sweeps)
+    cla = classic(problem, copy_state(state), n_sweeps)
+    torch.cuda.synchronize()
+    rs_, cs_ = res.result.state, cla.result.state
+    equal = {name: bool(torch.equal(getattr(rs_, name), getattr(cs_, name)))
+             for name in ("resid", "clean", "log_scale", "chi2", "n_accept")}
+    equal["accept_or_live"] = bool(torch.equal(res.accept, cla.accept))
+    equal["dchi"] = bool(torch.equal(res.dchi, cla.dchi))
+
+    n_time = 50
+    ms_r1 = time_sweeps(lambda n: seg(problem, state, n), n_time)
+    ms_c1 = time_sweeps(lambda n: classic(problem, state, n), n_time)
+    ms_c2 = time_sweeps(lambda n: classic(problem, state, n), n_time)
+    ms_r2 = time_sweeps(lambda n: seg(problem, state, n), n_time)
+    share = phase_profile(problem, state, sampler, seg=seg,
+                          kernel_name=f"resident_{sampler}_kernel")
+    us, blocks, threads, smem = barrier_us(problem, sampler)
+    ms = (ms_r1 + ms_r2) / 2
+    emit("resident", sampler=sampler,
+         shape=[problem.L, problem.Y, problem.X], blocks=blocks,
+         threads=threads, smem_bytes=smem, philox_bits_equal=philox_equal,
+         vs_classic_sweeps=n_sweeps, bit_equal_to_classic=equal,
+         ms_resident_classic_classic_resident=[ms_r1, ms_c1, ms_c2, ms_r2],
+         resident_ms=ms, classic_ms=(ms_c1 + ms_c2) / 2,
+         classic_ms_kernel_phase=classic_ms,
+         speedup=(ms_c1 + ms_c2) / (ms_r1 + ms_r2),
+         kernel_share_of_device=share, barrier_us=us,
+         barrier_floor_ms=problem.n_colors * us / 1e3)
+    check(all(equal.values()),
+          f"resident differs from classic K1: {[k for k, v in equal.items() if not v]}")
+    return {"max_abs_err": errs["resid_max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "classic_ms": (ms_c1 + ms_c2) / 2,
+            "barrier_us": us}
 
 
 def reset_launches():
-    sw.mh_segment.launches = sw.gibbs_segment.launches = 0
+    for seg in (sw.mh_segment, sw.gibbs_segment):
+        seg.launches = seg.resident_launches = 0
     tl.tiled_mh.launches = tl.tiled_gibbs.launches = 0
 
 
@@ -374,6 +555,7 @@ def phase_main(tmp, sampler="mh"):
     diag = run.diagnostics()
     out = os.path.join(tmp, f"smoke_{sampler}")
     run.save(out)
+    resident_launches = seg.resident_launches
     files = [f"{out}_{s}" for s in ("clean.fits", "std.fits",
                                     "convolved.fits", "traces.npz",
                                     "stats.json")]
@@ -381,13 +563,16 @@ def phase_main(tmp, sampler="mh"):
     consistency = chi2_consistency(run)
     acc_post = float(np.mean(run.trace("accept")[0, 200:]))
     emit("main" if sampler == "mh" else "gibbs_main", shape=list(cube.shape),
-         sampler=sampler, sweeps=diag["sweeps"], launches=launches,
+         sampler=sampler, sweeps=diag["sweeps"],
+         resident_launches=resident_launches, classic_launches=launches,
          chi2=diag["chi2"], chi2_consistency=consistency,
          chi2_consistency_after_200=consistency_200,
          acceptance=diag["acceptance_rate"], acceptance_post_burn_in=acc_post,
          **{f"{sampler}_sweeps_per_sec_last_200": 200 / dt},
          proposals_per_sec=200 * run.problem.n_valid / dt)
-    check(launches == 400, f"kernel launched {launches} times, expected 400")
+    check(resident_launches == 400 and launches == 0,
+          f"resident kernel launched {resident_launches} times and classic "
+          f"K1 {launches}, expected 400 and 0")
     check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
     if sampler == "mh":
         check(0.15 <= acc_post <= 0.35, "post-burn-in acceptance out of range")
@@ -397,7 +582,9 @@ def phase_main(tmp, sampler="mh"):
     check(all(os.path.isfile(f) for f in files), "save() files missing")
     check(clean.shape == cube.shape
           and bool(torch.isfinite(clean.data).all()), "bad clean cube")
-    return launches, 200 / dt
+    return {"launches": resident_launches, "rate": 200 / dt,
+            "shape": list(cube.shape),
+            "bound": sweep_bound(run.problem, 1, torch.tensor([acc_post]))}
 
 
 def phase_chains(sampler, single_rate, n_chains=32, n=64):
@@ -415,7 +602,7 @@ def phase_chains(sampler, single_rate, n_chains=32, n=64):
     run.run(n)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = seg.launches
+    launches, resident_launches = seg.launches, seg.resident_launches
     diag = run.diagnostics()
     batch = run.states
     exact, chi2_rel, accept_equal = {}, 0.0, True
@@ -432,7 +619,8 @@ def phase_chains(sampler, single_rate, n_chains=32, n=64):
             run.trace("accept")[c, n:], alone.accept_trace[n:].cpu().numpy()))
     consistency = max(chi2_consistency(run, c) for c in (0, n_chains - 1))
     emit("chains", sampler=sampler, n_chains=n_chains, sweeps=2 * n,
-         launches=launches, states_equal=all(exact.values()),
+         launches=launches, resident_launches=resident_launches,
+         states_equal=all(exact.values()),
          not_equal=[k for k, v in exact.items() if not v],
          chi2_rel_vs_alone=chi2_rel, accept_trace_equal=accept_equal,
          rhat_chi2=diag.get("rhat_chi2"),
@@ -441,8 +629,10 @@ def phase_chains(sampler, single_rate, n_chains=32, n=64):
          chain_sweeps_per_sec=n_chains * n / dt, per_chain_sweeps_per_sec=n / dt,
          single_chain_sweeps_per_sec=single_rate,
          aggregate_over_single=n_chains * n / dt / single_rate)
-    check(launches == 2 * n,
-          f"{launches} launches for {2 * n} sweeps of {n_chains} chains")
+    # the resident plan does not fit the batch: classic K1 runs it
+    check(launches == 2 * n and resident_launches == 0,
+          f"classic K1 launched {launches} and the resident kernel "
+          f"{resident_launches} times for {2 * n} sweeps of {n_chains} chains")
     # the sweep's arithmetic does not depend on the batch (the kernels'
     # tasks are per chain), so the states must be bit-equal; χ² may differ
     # by float32 rounding only: the per-sweep Δχ² sum reduces a [C, f², nij]
@@ -452,7 +642,14 @@ def phase_chains(sampler, single_rate, n_chains=32, n=64):
     check(accept_equal, "batched MH decisions differ from chains run alone")
     check(np.isfinite(diag["rhat_chi2"]), "R-hat is not finite")
     check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
-    return launches
+    # classic K1's ms per batched sweep on the run's own state and shapes
+    ms = time_sweeps(lambda k: classic_of(sampler)(run.problem, run.states,
+                                                   k), 8)
+    accept = torch.as_tensor(run.trace("accept")[:, n:])
+    emit("chains_sweep_time", sampler=sampler, n_chains=n_chains,
+         kernel_ms_per_batched_sweep=ms)
+    return {"launches": launches, "ms": ms, "shape": list(cube.shape),
+            "bound": sweep_bound(run.problem, n_chains, accept)}
 
 
 def phase_full_lambda(sampler, n):
@@ -566,7 +763,7 @@ def tiled_compare(cube, tile, sampler, n_sweeps, seed):
     emit("tiled_philox_bits", sampler=sampler, shape=[L, problem.Y, problem.X],
          sweep=sweep, draws=int(want.numel()), equal=equal)
     check(equal, "in-kernel Philox draws differ from ops/philox.py")
-    return problem, state, errs, kernel_ms / n_sweeps, plain_ms
+    return problem, state, errs, kernel_ms / n_sweeps, plain_ms, kern
 
 
 def phase_tiled_kernel(tile=(1, 2)):
@@ -579,7 +776,7 @@ def phase_tiled_kernel(tile=(1, 2)):
     out = {}
     small = bench_cube(L=600, Y=68, X=68)
     for sampler, n_sweeps, seed in (("mh", 2, 4), ("gibbs", 1, 5)):
-        problem, state, errs, _, plain_ms = tiled_compare(
+        problem, state, errs, _, plain_ms, kern = tiled_compare(
             small, tile, sampler, n_sweeps, seed)
         counter = tiled_counter(sampler)
         n0 = counter.launches
@@ -599,12 +796,13 @@ def phase_tiled_kernel(tile=(1, 2)):
              kernel_share_of_device=share)
         check(per_sweep == 1, "expected one kernel launch per sweep")
         out[sampler] = {"max_abs_err": errs["resid_max_abs_err"], "ms": ms,
-                        "plain_ms": plain_ms}
+                        "plain_ms": plain_ms,
+                        "bound": sweep_bound(problem, 1, kern.accept)}
     del small
     large = field_cube(L=3681, Y=34, X=68)
     for sampler, n_sweeps, seed in (("mh", 2, 6), ("gibbs", 1, 7)):
         t0 = time.perf_counter()
-        _, _, errs, kernel_ms, plain_ms = tiled_compare(
+        _, _, errs, kernel_ms, plain_ms, _ = tiled_compare(
             large, tile, sampler, n_sweeps, seed)
         emit("tiled_kernel_full_lambda", sampler=sampler,
              shape=list(large.shape), tile=tile, kernel_ms_per_sweep=kernel_ms,
@@ -692,18 +890,24 @@ def phase_full_field(sampler, n, cube):
     run_peak = torch.cuda.max_memory_allocated()
     consistency = chi2_consistency(run)
     diag = run.diagnostics()
-    # the whole-cube kernel, one sweep of the same problem and state
+    # one sweep each of the tiled and the whole-cube kernel on the run's
+    # problem and state, CUDA events
     whole = dataclasses.replace(run.problem, config=dataclasses.replace(
         cfg, engine="cuda", tile=None, chi2_rebaseline_every=0))
     state = ch.select_chains(run.states, 0)
+    k2_ms = timed(lambda: tl.tiled_segment(run.problem, state, 1))[1]
     segment_of(sampler)(whole, state, 1)
     k1_ms = timed(lambda: segment_of(sampler)(whole, state, 1))[1]
+    bound = sweep_bound(run.problem, 1, torch.tensor(
+        [diag["acceptance_rate"]]))
     emit("full_field", sampler=sampler, shape=list(cube.shape),
          f=run.problem.f, engine=cfg.engine, tile=cfg.tile,
          n_tiles=(run.problem.ny // cfg.tile[0]) * (run.problem.nx // cfg.tile[1]),
          chi2_rebaseline_every=cfg.chi2_rebaseline_every, sweeps=n,
          launches=launches, setup_s=setup_s, sweeps_per_sec=n / dt,
-         ms_per_sweep=dt / n * 1e3, whole_cube_kernel_ms_per_sweep=k1_ms,
+         ms_per_sweep=dt / n * 1e3, tiled_kernel_ms_per_sweep=k2_ms,
+         whole_cube_kernel_ms_per_sweep=k1_ms,
+         bound_ms_per_sweep=bound["bound_ms"],
          rebaselines=resets, chi2_consistency_end=consistency,
          acceptance=diag["acceptance_rate"], setup_peak_bytes=setup_peak,
          run_peak_bytes=run_peak, chi2=diag["chi2"])
@@ -719,7 +923,8 @@ def phase_full_field(sampler, n, cube):
         check(diag["acceptance_rate"] == 1.0, "gibbs acceptance is not 1")
     else:
         check(not resets, "MH rebaselined")
-    return launches
+    return {"launches": launches, "ms": k2_ms, "shape": list(cube.shape),
+            "bound": bound}
 
 
 def main() -> int:
@@ -747,13 +952,18 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit("build", seconds=_build.build_seconds, ptxas=ptxas)
 
-    kernel = {"mh": phase_kernel(), "gibbs": phase_gibbs_kernel()}
-    launches, rate, batched = {}, {}, {}
+    kernel, ctx = {}, {}
+    kernel["mh"], ctx["mh"] = phase_kernel()
+    kernel["gibbs"], ctx["gibbs"] = phase_gibbs_kernel()
+    resident = {sampler: phase_resident(sampler, ctx[sampler],
+                                        kernel[sampler]["ms"])
+                for sampler in ("mh", "gibbs")}
+    del ctx
     with tempfile.TemporaryDirectory() as tmp:
-        for sampler in ("mh", "gibbs"):
-            launches[sampler], rate[sampler] = phase_main(tmp, sampler)
-    for sampler in ("mh", "gibbs"):
-        batched[sampler] = phase_chains(sampler, rate[sampler])
+        main_path = {sampler: phase_main(tmp, sampler)
+                     for sampler in ("mh", "gibbs")}
+    batched = {sampler: phase_chains(sampler, main_path[sampler]["rate"])
+               for sampler in ("mh", "gibbs")}
     phase_full_lambda("mh", 20)
     phase_full_lambda("gibbs", 10)
     tiled = phase_tiled_kernel()
@@ -767,26 +977,68 @@ def main() -> int:
           "the port changed the process's TF32 flags")
     emit("wall", seconds=time.perf_counter() - t_start)
 
-    whole = [{
+    def bound(b):
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "bound_flops": b["flops"], "bound_bytes": b["bytes"]}
+
+    def other_shape(d):
+        """A comparison phase's numbers, kept under the key of its shape."""
+        return {"max_abs_err": d["max_abs_err"], "ms": d["ms"],
+                "plain_ms": d["plain_ms"], **bound(d["bound"])}
+
+    # every entry's launches, ms and bound_ms come from the one path that
+    # launches it (its ms between CUDA events on that path's state);
+    # max_abs_err and plain_ms from the comparison at the shape named
+    k1 = "deconv3d_tpu/ops/pallas_sweep.py:102"
+    gibbs_lines = " (mode gibbs, :243-314)"
+    modes = {"mh": ":309-327", "gibbs": ":328-381"}
+    lines = [{
+        "name": f"resident_{sampler}_kernel",
+        "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/resident_sweep.cu",
+        "replaces": k1 + (gibbs_lines if sampler == "gibbs" else ""),
+        "launches": main_path[sampler]["launches"],
+        "launches_path": "main" if sampler == "mh" else "gibbs_main",
+        "shape": main_path[sampler]["shape"], "n_chains": 1,
+        "max_abs_err": resident[sampler]["max_abs_err"],
+        "ms": resident[sampler]["ms"],
+        "plain_ms": resident[sampler]["plain_ms"],
+        **bound(main_path[sampler]["bound"]), "library_ms": None,
+        "classic_ms": resident[sampler]["classic_ms"],
+        "barrier_us": resident[sampler]["barrier_us"],
+    } for sampler in ("mh", "gibbs")] + [{
         "name": f"{sampler}_sweep",
         "route": "cuda",
         "source": f"deconv3d_tpu_torch/csrc/{sampler}_sweep.cu",
-        "replaces": "deconv3d_tpu/ops/pallas_sweep.py:102"
-                    + (" (mode gibbs, :243-314)" if sampler == "gibbs" else ""),
-        "launches": launches[sampler],
-        "launches_n_chains_32": batched[sampler],
-        **kernel[sampler],
-    } for sampler in ("mh", "gibbs")]
-    modes = {"mh": ":309-327", "gibbs": ":328-381"}
-    print(json.dumps({"kernels": whole + [{
+        "replaces": k1 + (gibbs_lines if sampler == "gibbs" else ""),
+        "launches": batched[sampler]["launches"],
+        "launches_path": "chains (Run(n_chains=32))",
+        "shape": batched[sampler]["shape"], "n_chains": 32,
+        "max_abs_err": kernel[sampler]["n_chains_32"]["max_abs_err"],
+        "ms": batched[sampler]["ms"],
+        "plain_ms": kernel[sampler]["n_chains_32"]["plain_ms"],
+        **bound(batched[sampler]["bound"]), "library_ms": None,
+        "n_chains_1_600x30x30": other_shape(kernel[sampler]),
+    } for sampler in ("mh", "gibbs")] + [{
         "name": f"tiled_{sampler}",
         "route": "cuda",
         "source": "deconv3d_tpu_torch/csrc/tiled_sweep.cu",
         "replaces": "deconv3d_tpu/ops/pallas_tiled.py:154"
                     f" (mode {sampler}, {modes[sampler]})",
-        "launches": field[sampler],
-        **tiled[sampler],
-    } for sampler in ("mh", "gibbs")]}))
+        "launches": field[sampler]["launches"],
+        "launches_path": "full_field",
+        "shape": field[sampler]["shape"], "n_chains": 1,
+        "max_abs_err": tiled[sampler]["max_abs_err"],
+        "ms": field[sampler]["ms"],
+        "plain_ms": tiled[sampler]["plain_ms"],
+        "max_abs_err_and_plain_ms_at": [600, 68, 68],
+        **bound(field[sampler]["bound"]), "library_ms": None,
+        "at_600x68x68": other_shape(tiled[sampler]),
+        "max_abs_err_3681x34x68": tiled[sampler]["max_abs_err_34x68x3681"],
+    } for sampler in ("mh", "gibbs")]
+    check(all(line["launches"] > 0 for line in lines),
+          "a kernel was launched no time on its path")
+    print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

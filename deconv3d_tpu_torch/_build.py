@@ -64,7 +64,64 @@ _SIGNATURES = {
     "gibbs_sweep_scratch_floats": ([_I] * 4, ctypes.c_longlong),
     "tiled_mh_launch": ([_P] * 15 + [_I] * 9 + [_U, _F, _F, _P], _I),
     "tiled_gibbs_launch": ([_P] * 16 + [_I] * 9 + [_U, _P], _I),
+    "resident_mh_launch": ([_P] * 15 + [_I] * 8 + [_U, _F, _F, _P], _I),
+    "resident_mh_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+    "resident_gibbs_launch": ([_P] * 16 + [_I] * 8 + [_U, _P], _I),
+    "resident_gibbs_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+    "resident_smem_bytes": ([_I] * 9, ctypes.c_longlong),
+    "resident_barrier_launch": ([_I, _I, ctypes.c_longlong, _I, _P], _I),
+    "resident_phase_clocks": ([_P], _I),
 }
+
+
+def _build_and_load(sources, flags, tag=""):
+    """Compile each of ``sources`` (one ``nvcc`` each, all at once) with
+    ``flags`` unless a library of the same content is built already, and
+    load them: (namespace of their exported C functions, build seconds,
+    compiler output)."""
+    headers = hashlib.sha256(" ".join(flags).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        headers.update(hdr.name.encode())
+        headers.update(hdr.read_bytes())
+    outs = {}
+    for src in sources:
+        digest = headers.copy()
+        digest.update(src.read_bytes())
+        outs[src] = BUILD_DIR / f"lib{src.stem}{tag}_{digest.hexdigest()[:16]}.so"
+    todo = {src: out for src, out in outs.items() if not out.is_file()}
+    seconds, log_all = 0.0, ""
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for src, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp), str(src)]
+            procs[src] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for src, (cmd, tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            log_all += log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, todo[src])
+        seconds = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    ns = types.SimpleNamespace()
+    for out in outs.values():
+        lib = ctypes.CDLL(str(out))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+                setattr(ns, name, fn)
+    return ns, seconds, log_all
 
 
 def load_library():
@@ -72,50 +129,16 @@ def load_library():
     namespace holding every exported C function of every source."""
     global _lib, build_seconds, build_log
     with _lock:
-        if _lib is not None:
-            return _lib
-        headers = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for hdr in sorted(CSRC.glob("*.cuh")):
-            headers.update(hdr.name.encode())
-            headers.update(hdr.read_bytes())
-        outs = {}
-        for src in sorted(CSRC.glob("*.cu")):
-            digest = headers.copy()
-            digest.update(src.read_bytes())
-            outs[src] = BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
-        todo = {src: out for src, out in outs.items() if not out.is_file()}
-        build_seconds, build_log = 0.0, ""
-        if todo:
-            nvcc = find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            procs = {}
-            for src, out in todo.items():
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                       str(src)]
-                procs[src] = (cmd, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            failed = []
-            for src, (cmd, tmp, proc) in procs.items():
-                log = proc.communicate()[0]
-                build_log += log
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed ({proc.returncode}):\n"
-                                  f"{' '.join(cmd)}\n{log}")
-                else:
-                    os.replace(tmp, todo[src])
-            build_seconds = time.perf_counter() - t0
-            if failed:
-                raise RuntimeError("\n".join(failed))
-        ns = types.SimpleNamespace()
-        for out in outs.values():
-            lib = ctypes.CDLL(str(out))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                if hasattr(lib, name):
-                    fn = getattr(lib, name)
-                    fn.argtypes, fn.restype = argtypes, restype
-                    setattr(ns, name, fn)
-        _lib = ns
-        return ns
+        if _lib is None:
+            _lib, build_seconds, build_log = _build_and_load(
+                sorted(CSRC.glob("*.cu")), NVCC_FLAGS)
+        return _lib
+
+
+def load_variant(stem: str, *defines: str):
+    """``csrc/<stem>.cu`` built on its own with ``-D`` ``defines`` (a
+    measurement build, e.g. ``resident_sweep`` with
+    ``RESIDENT_PHASE_CLOCKS``): the namespace of its C functions."""
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    return _build_and_load([CSRC / f"{stem}.cu"], flags, tag)[0]

@@ -24,6 +24,29 @@
 
 namespace deconv3d {
 
+// The per-element arithmetic of a gibbs visit (explicit roundings; shared
+// with the resident kernel, resident_sweep.cu).
+__device__ __forceinline__ float box_muller(float u1, float u2) {
+  return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))),
+                   cosf(__fmul_rn(2.0f * kPi, u2)));
+}
+// a live voxel's draw from N(linT / q, 1 / q), qs = max(q, 1e-30)
+__device__ __forceinline__ float gibbs_jump(float linT, float qs, float n) {
+  return __fmaf_rn(n, rsqrtf(qs), __fdiv_rn(linT, qs));
+}
+// lin at mu after the phase's g (= lsf * jump): lin - g quad
+__device__ __forceinline__ float lin_after(float lin, float g, float q) {
+  return __fmaf_rn(-g, q, lin);
+}
+// the color's dchi2 at one wavelength, and its quad_lo part
+__device__ __forceinline__ float gibbs_dchi_term(float ga, float q, float lin0) {
+  return __fsub_rn(__fmul_rn(__fmul_rn(ga, ga), q),
+                   __fmul_rn(__fmul_rn(2.0f, ga), lin0));
+}
+__device__ __forceinline__ float gibbs_dlo_term(float ga, float qlo) {
+  return __fmul_rn(__fmul_rn(ga, ga), qlo);
+}
+
 struct GibbsArgs {
   float* resid;            // [C, Hp, Wp, L]
   const float* w;          // [Hp, Wp, L]
@@ -145,7 +168,7 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
         a.uniforms_out[out * 2 * L + l] = u1;
         a.uniforms_out[out * 2 * L + L + l] = u2;
       }
-      sh.nj[l] = sqrtf(-2.0f * logf(u1)) * cosf(2.0f * kPi * u2);
+      sh.nj[l] = box_muller(u1, u2);
     }
     __syncthreads();
     if (a.valid[sp] == 0.0f) {                // frozen spaxel: no draws
@@ -162,10 +185,10 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
           float linT = 0.0f;
           for (int d = 0; d < lw; ++d) {
             const int mu = l + half - d;
-            if (mu >= 0 && mu < L) linT += a.lsf[mu * lw + d] * sh.lin[mu];
+            if (mu >= 0 && mu < L)
+              linT = band_term(linT, a.lsf[mu * lw + d], sh.lin[mu]);
           }
-          const float qs = fmaxf(q, 1.0e-30f);
-          jump = linT / qs + sh.nj[l] * rsqrtf(qs);
+          jump = gibbs_jump(linT, fmaxf(q, 1.0e-30f), sh.nj[l]);
           live += 1.0f;
         }
         sh.nj[l] = jump;
@@ -178,9 +201,9 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
         if (r < 0) r += lw;
         const int l = lo + r;                 // the phase voxel near mu
         if (l >= 0 && l < L) {
-          const float g = a.lsf[mu * lw + (l - lo)] * sh.nj[l];
-          sh.lin[mu] -= g * sh.quad[mu];
-          sh.gacc[mu] += g;
+          const float g = __fmul_rn(a.lsf[mu * lw + (l - lo)], sh.nj[l]);
+          sh.lin[mu] = lin_after(sh.lin[mu], g, sh.quad[mu]);
+          sh.gacc[mu] = __fadd_rn(sh.gacc[mu], g);
         }
       }
       __syncthreads();
@@ -193,9 +216,9 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
     float* clean = a.clean + (static_cast<size_t>(ch) * Yc * Xc + sp) * L;
     for (int l = threadIdx.x; l < L; l += nt) {
       const float ga = sh.gacc[l];
-      dchi += ga * ga * sh.quad[l] - 2.0f * ga * lin0[l];
-      if (qlo) dlo += ga * ga * qlo[l];
-      clean[l] += sh.nj[l];
+      dchi = __fadd_rn(dchi, gibbs_dchi_term(ga, sh.quad[l], lin0[l]));
+      if (qlo) dlo = __fadd_rn(dlo, gibbs_dlo_term(ga, qlo[l]));
+      clean[l] = __fadd_rn(clean[l], sh.nj[l]);
       g_buf[static_cast<size_t>(cs) * L + l] = ga;
     }
     // block sums in a fixed order: lanes, then warps

@@ -23,6 +23,26 @@ namespace deconv3d {
 
 constexpr float kCauchyClip = 1.0e3f;
 
+// The per-element arithmetic of an MH visit (explicit roundings; shared
+// with the resident kernel, resident_sweep.cu).
+// jump = exp(log_scale) * clip(tan(pi (u - 1/2)), +-1e3) * valid
+__device__ __forceinline__ float mh_jump(float u, float scale, float v) {
+  const float tn = fminf(fmaxf(tanf(__fmul_rn(kPi, __fsub_rn(u, 0.5f))),
+                               -kCauchyClip), kCauchyClip);
+  return __fmul_rn(__fmul_rn(scale, tn), v);
+}
+// this wavelength's share of dchi2: g^2 quad - 2 g lin
+__device__ __forceinline__ float mh_share(float g, float q, float lin) {
+  return __fsub_rn(__fmul_rn(__fmul_rn(g, g), q),
+                   __fmul_rn(__fmul_rn(2.0f, g), lin));
+}
+// Robbins-Monro: log_scale + adapt (accept - target) valid
+__device__ __forceinline__ float log_scale_step(float ls, float adapt,
+                                                float accf, float target,
+                                                float v) {
+  return __fadd_rn(ls, __fmul_rn(__fmul_rn(adapt, __fsub_rn(accf, target)), v));
+}
+
 struct MhArgs {
   float* resid;            // [C, Hp, Wp, L]
   const float* w;          // [Hp, Wp, L]
@@ -119,9 +139,7 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
                             : jump_uniform(k0, k1, a.sweep, c, ij, m);
         if (a.uniforms_out && k >= half && k < half + kChunk)
           a.uniforms_out[ubase + m] = u;
-        const float tn = fminf(fmaxf(tanf(kPi * (u - 0.5f)), -kCauchyClip),
-                               kCauchyClip);
-        jump = scale * tn * v;
+        jump = mh_jump(u, scale, v);
       }
       sh.jump[k] = jump;
     }
@@ -130,9 +148,9 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
       float part = 0.0f, g = 0.0f;
       if (on) {
         const float lin = partials_to_lin(sh.pool, a.spec, l, L, S);
-        for (int d = 0; d < lw; ++d) g += a.lsf[l * lw + d] * sh.jump[lane + d];
-        const float q = a.quad[static_cast<size_t>(sp) * L + l];
-        part = g * g * q - 2.0f * g * lin;
+        for (int d = 0; d < lw; ++d)
+          g = band_term(g, a.lsf[l * lw + d], sh.jump[lane + d]);
+        part = mh_share(g, a.quad[static_cast<size_t>(sp) * L + l], lin);
       }
       part = warp_sum(part);
       g_buf[static_cast<size_t>(t) * kChunk + lane] = g;
@@ -169,13 +187,14 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
       const float accf = acc ? 1.0f : 0.0f;
       a.accept_out[out] = accf;
       a.dchi_out[out] = dchi;
-      a.log_scale[static_cast<size_t>(ch) * Yc * Xc + sp] +=
-          a.adapt * (accf - a.target) * v;
+      float* ls = a.log_scale + static_cast<size_t>(ch) * Yc * Xc + sp;
+      *ls = log_scale_step(*ls, a.adapt, accf, a.target, v);
     }
     if (acc && l < L) {
-      if (warp == 0)
-        a.clean[(static_cast<size_t>(ch) * Yc * Xc + sp) * L + l] +=
-            jump_buf[static_cast<size_t>(t) * kChunk + lane];
+      if (warp == 0) {
+        float* cl = a.clean + (static_cast<size_t>(ch) * Yc * Xc + sp) * L + l;
+        *cl = __fadd_rn(*cl, jump_buf[static_cast<size_t>(t) * kChunk + lane]);
+      }
       patch_commit(a.resid + static_cast<size_t>(ch) * Hp * Wp * L, sh.img,
                    a.spec, g_buf[static_cast<size_t>(t) * kChunk + lane],
                    (static_cast<size_t>(ys) * Wp + xs) * L + l, l, Wp, L,

@@ -64,6 +64,30 @@ __device__ __forceinline__ void load_images(float* img_s, const float* imgs,
   __syncthreads();
 }
 
+// The per-element arithmetic of a sweep, every rounding explicit (the
+// compiler contracts nothing), shared by every kernel: the classic, tiled
+// and resident kernels compute the same bits wherever they sum in the same
+// order.
+__device__ __forceinline__ float pool_term(float acc, float img, float rw) {
+  return __fmaf_rn(img, rw, acc);               // rw = resid * w
+}
+__device__ __forceinline__ float lin_term(float lin, float spec, float p) {
+  return __fmaf_rn(spec, p, lin);               // p = sum of the partials
+}
+__device__ __forceinline__ float band_term(float acc, float m, float x) {
+  return __fmaf_rn(m, x, acc);                  // one LSF band product
+}
+// resid -= sum_s gs[s] * img_s at patch pixel `px` (gs[s] = spec[s, l] * g)
+__device__ __forceinline__ float commit_term(float resid, const float* gs,
+                                             const float* img_s, int px,
+                                             int ff, int S) {
+  float delta = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kMaxRank; ++s)
+    if (s < S) delta = __fmaf_rn(gs[s], img_s[s * ff + px], delta);
+  return __fsub_rn(resid, delta);
+}
+
 // This warp's share of the patch contraction at wavelength l:
 //   pool_s[(warp * S + s) * kChunk + lane] =
 //     sum_{dy = warp, warp+nw, ...} sum_dx img_s[s, dy, dx] * (resid * w)[dy, dx]
@@ -87,10 +111,10 @@ __device__ __forceinline__ void patch_partials(const float* resid,
 #pragma unroll 8
       for (int dx = 0; dx < f; ++dx) {
         const size_t off = row + static_cast<size_t>(dx) * L;
-        const float rw = resid[off] * w[off];
+        const float rw = __fmul_rn(resid[off], w[off]);
 #pragma unroll
         for (int s = 0; s < kMaxRank; ++s)
-          if (s < S) pooled[s] += img_s[(s * f + dy) * f + dx] * rw;
+          if (s < S) pooled[s] = pool_term(pooled[s], img_s[(s * f + dy) * f + dx], rw);
       }
     }
   }
@@ -110,8 +134,9 @@ __device__ __forceinline__ float partials_to_lin(const float* pool_s,
   for (int s = 0; s < kMaxRank; ++s) {
     if (s < S) {
       float p = 0.0f;
-      for (int r = 0; r < nw; ++r) p += pool_s[(r * S + s) * kChunk + lane];
-      lin += spec[s * L + l] * p;
+      for (int r = 0; r < nw; ++r)
+        p = __fadd_rn(p, pool_s[(r * S + s) * kChunk + lane]);
+      lin = lin_term(lin, spec[s * L + l], p);
     }
   }
   return lin;
@@ -126,16 +151,14 @@ __device__ __forceinline__ void patch_commit(float* resid, const float* img_s,
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   float gs[kMaxRank];
 #pragma unroll
-  for (int s = 0; s < kMaxRank; ++s) gs[s] = s < S ? spec[s * L + l] * g : 0.0f;
+  for (int s = 0; s < kMaxRank; ++s)
+    gs[s] = s < S ? __fmul_rn(spec[s * L + l], g) : 0.0f;
   for (int dy = warp; dy < f; dy += nw) {
     const size_t row = row0 + static_cast<size_t>(dy) * Wp * L;
 #pragma unroll 8
     for (int dx = 0; dx < f; ++dx) {
-      float delta = 0.0f;
-#pragma unroll
-      for (int s = 0; s < kMaxRank; ++s)
-        if (s < S) delta += gs[s] * img_s[(s * f + dy) * f + dx];
-      resid[row + static_cast<size_t>(dx) * L] -= delta;
+      float* r = resid + row + static_cast<size_t>(dx) * L;
+      *r = commit_term(*r, gs, img_s, dy * f + dx, f * f, S);
     }
   }
 }

@@ -2,9 +2,11 @@
 
 Counterpart of ``deconv3d_tpu/ops/pallas_sweep.py`` (modes ``'mh'`` and
 ``'gibbs'``, any chain batch C).  :func:`mh_segment` and
-:func:`gibbs_segment` run each sweep through the hand-written kernels
-``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu`` when the problem lives on a
-CUDA device — one launch per sweep for the whole batch of chains — and take
+:func:`gibbs_segment` run each sweep through a hand-written kernel when the
+problem lives on a CUDA device — one launch per sweep for the whole batch
+of chains: the resident kernel ``csrc/resident_sweep.cu`` where the state
+fits the card's shared memory (``ops/resident.py``), classic K1
+``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu`` elsewhere — and take
 :func:`mh_segment_reference` / :func:`gibbs_segment_reference`, the same
 sweep in plain torch, only for tensors on the CPU.  All four — and the
 tiled segments of ``ops/tiled.py``, which visit the same spaxels
@@ -43,7 +45,7 @@ import torch
 
 from .. import chains as ch
 from .. import sampler as sm
-from . import philox
+from . import philox, resident
 
 
 @dataclasses.dataclass
@@ -82,6 +84,10 @@ class _SweepState:
     tile: Optional[Tuple[int, int]] = None
     key_words: Optional[torch.Tensor] = None   # [C, 2] int32, kernel only
     scratch: Optional[torch.Tensor] = None     # kernel workspace, reused
+    # the kernel every sweep launches ('resident', 'classic' or 'tiled';
+    # ops/resident.py sweep_kernel) and the resident kernel's (λ_b, blocks)
+    kernel: str = "classic"
+    plan: Optional[Tuple[int, int]] = None
 
     @property
     def C(self) -> int:
@@ -215,6 +221,31 @@ def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
             _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
 
 
+def gibbs_phases(lin0: torch.Tensor, q: torch.Tensor, qv: torch.Tensor,
+                 normal: torch.Tensor, live: torch.Tensor, lsf: torch.Tensor,
+                 lam0: int = 0):
+    """The ``lw`` λ-phases of one gibbs step over the wavelengths
+    ``lam0 .. lam0 + n − 1`` (the last axis of every tensor; ``lsf`` holds
+    their rows): phase ph draws the live voxels λ ≡ ph (mod lw) from
+    N(linT/qvox, 1/qvox) and updates lin ← lin − g·quad.  Wavelengths
+    outside the range count as absent, as outside the spectrum.  Returns
+    (gacc, emitted): the summed g and the drawn jumps."""
+    n, lw = lsf.shape
+    phase = (lam0 + torch.arange(n, device=lin0.device)) % lw
+    qs = torch.clamp(qv, min=1e-30)
+    lin = lin0
+    gacc = torch.zeros_like(lin)
+    emitted = torch.zeros_like(lin)
+    for ph in range(lw):
+        sel = live * (phase == ph).to(lin0.dtype)
+        jumps = sel * (_lsf_band_T(lin, lsf) / qs + normal * torch.rsqrt(qs))
+        g = _lsf_band(jumps, lsf)
+        lin = lin - g * q
+        gacc = gacc + g
+        emitted = emitted + jumps
+    return gacc, emitted
+
+
 def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
                        live_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
     """One exact-Gibbs sweep with the Box-Muller pairs ``u`` ``[C, n_colors,
@@ -230,10 +261,8 @@ def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
     g²·quad where it would round away.
     """
     f = k.f
-    L, lw = k.lsf.shape
     dt = k.resid.dtype
     two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
-    phase = torch.arange(L, device=k.resid.device) % lw
     for by0, bx0 in k.origins():
         for c in range(f * f):
             cy, cx = divmod(c, f)
@@ -244,19 +273,8 @@ def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
             uc = _at_rows(k, u[:, c], by0, bx0)                   # [C,..,2,L]
             normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) * torch.cos(
                 two_pi * uc[..., 1, :])
-            qs = torch.clamp(qv, min=1e-30)
             live_all = v[..., None] * (qv > 0).to(dt)             # [.., L]
-            lin = lin0
-            gacc = torch.zeros_like(lin)
-            emitted = torch.zeros_like(lin)
-            for ph in range(lw):
-                sel = live_all * (phase == ph).to(dt)
-                jumps = sel * (_lsf_band_T(lin, k.lsf) / qs
-                               + normal * torch.rsqrt(qs))
-                g = _lsf_band(jumps, k.lsf)
-                lin = lin - g * q
-                gacc = gacc + g
-                emitted = emitted + jumps
+            gacc, emitted = gibbs_phases(lin0, q, qv, normal, live_all, k.lsf)
             dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)
             if k.quad_lo is not None:
                 qlo = _at(k, k.quad_lo[None], cy, cx, by0, bx0)[0]
@@ -284,7 +302,8 @@ def _check_cuda(name: str, t: torch.Tensor, device, shape, dtype=torch.float32):
 
 def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     """Checked tensors of one launch, the scratch, and the geometry ints
-    (the tile's block rows and columns after ``lw`` for the tiled kernel)."""
+    (after ``lw``: the tile's block rows and columns for the tiled kernel,
+    λ_b for the resident one)."""
     from .._build import load_library
 
     dev = k.resid.device
@@ -321,13 +340,27 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
             [[w - (1 << 32) if w >= 1 << 31 else w for w in pair]
              for pair in words], dtype=torch.int32, device=dev)
     lib = load_library()
-    scratch_floats = (lib.mh_sweep_scratch_floats if mode == "mh"
-                      else lib.gibbs_sweep_scratch_floats)
-    n_scratch = scratch_floats(C, L, k.nyt, k.nxt)      # one step's
+    if k.kernel == "resident":
+        n_scratch = getattr(lib, f"resident_{mode}_scratch_floats")(
+            C, L, f, ny, nx)
+        extra = (k.plan[0],)
+    else:
+        scratch_floats = (lib.mh_sweep_scratch_floats if mode == "mh"
+                          else lib.gibbs_sweep_scratch_floats)
+        n_scratch = scratch_floats(C, L, k.nyt, k.nxt)      # one step's
+        extra = () if k.tile is None else (k.nyt, k.nxt)
     if k.scratch is None or k.scratch.numel() < n_scratch:
         k.scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    tile = () if k.tile is None else (k.nyt, k.nxt)
-    return lib, (C, L, f, ny, nx, S, lw, *tile)
+    return lib, (C, L, f, ny, nx, S, lw, *extra)
+
+
+def _launch_of(lib, k: _SweepState, mode: str):
+    """The C launcher of this sweep's kernel and the name of its counter."""
+    if k.kernel == "resident":
+        return getattr(lib, f"resident_{mode}_launch"), "resident_launches"
+    if k.kernel == "classic":
+        return getattr(lib, f"{mode}_sweep_launch"), "launches"
+    return getattr(lib, f"tiled_{mode}_launch"), "launches"
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -346,11 +379,13 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
                    u: Optional[torch.Tensor], accept_out: torch.Tensor,
                    dchi_out: torch.Tensor, u_out: Optional[torch.Tensor],
                    counter) -> None:
-    """Launch ``csrc/mh_sweep.cu`` (or, with a tile, ``csrc/tiled_sweep.cu``)
-    for one sweep of the whole batch; ``counter.launches`` counts it."""
+    """Launch one sweep of the whole batch: ``csrc/resident_sweep.cu`` with
+    a resident plan (counted by ``counter.resident_launches``), else
+    ``csrc/mh_sweep.cu`` or, with a tile, ``csrc/tiled_sweep.cu`` (counted
+    by ``counter.launches``)."""
     lib, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
     dev = k.resid.device
-    launch = lib.mh_sweep_launch if k.tile is None else lib.tiled_mh_launch
+    launch, count = _launch_of(lib, k, "mh")
     with torch.cuda.device(dev):
         err = launch(
             _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.clean),
@@ -361,20 +396,19 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
         )
     if err != 0:
         raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
-    counter.launches += 1
+    setattr(counter, count, getattr(counter, count) + 1)
 
 
 def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
                       u: Optional[torch.Tensor], live_out: torch.Tensor,
                       dchi_out: torch.Tensor, u_out: Optional[torch.Tensor],
                       counter) -> None:
-    """Launch ``csrc/gibbs_sweep.cu`` (or, with a tile,
-    ``csrc/tiled_sweep.cu``) for one sweep of the whole batch;
-    ``counter.launches`` counts it."""
+    """Launch one sweep of the whole batch, as :func:`_mh_sweep_cuda`:
+    ``csrc/resident_sweep.cu``, ``csrc/gibbs_sweep.cu`` or
+    ``csrc/tiled_sweep.cu``."""
     lib, dims = _kernel_args(k, "gibbs", u, live_out, dchi_out, u_out)
     dev = k.resid.device
-    launch = (lib.gibbs_sweep_launch if k.tile is None
-              else lib.tiled_gibbs_launch)
+    launch, count = _launch_of(lib, k, "gibbs")
     with torch.cuda.device(dev):
         err = launch(
             _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.quad_lo),
@@ -386,7 +420,7 @@ def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
         )
     if err != 0:
         raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
-    counter.launches += 1
+    setattr(counter, count, getattr(counter, count) + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -401,10 +435,14 @@ def _chain_keys(keys: torch.Tensor) -> List[int]:
 def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                  uniforms: Optional[torch.Tensor], record_uniforms: bool,
                  mode: str, counter=None,
-                 tile: Optional[Tuple[int, int]] = None) -> Segment:
+                 tile: Optional[Tuple[int, int]] = None,
+                 classic: bool = False) -> Segment:
     """The segment of every wrapper: ``counter`` None runs the plain sweep,
-    else the kernel, adding each launch to ``counter.launches``; ``tile``
-    (block rows, columns) runs the tiled scan, None the whole-cube one."""
+    else the kernel, adding each launch to ``counter.launches`` (or
+    ``counter.resident_launches``); ``tile`` (block rows, columns) runs the
+    tiled scan, None the whole-cube one — on the resident kernel where the
+    state fits the card's shared memory (``ops/resident.py``) unless
+    ``classic`` pins classic K1."""
     p, cfg = problem, problem.config
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
@@ -451,6 +489,12 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
         target=float(cfg.target_acceptance), tile=tile,
     )
+    if counter is not None:
+        if tile is None and not classic:
+            k.plan = resident.plan_slabs(C, f, ny, nx, L, k.spec.shape[0],
+                                         int(k.lsf.shape[1]), mode,
+                                         *resident.device_limits(dev))
+        k.kernel = resident.sweep_kernel(tile, classic, k.plan)
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
     adapt = sm.adapt_schedule(ids, cfg).tolist()
     keep = sm.keep_schedule(ids, cfg).tolist()
@@ -584,20 +628,27 @@ def mh_segment_reference(problem: sm.Problem, state: sm.SamplerState,
 
 def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                uniforms: Optional[torch.Tensor] = None,
-               record_uniforms: bool = False) -> Segment:
-    """``n_sweeps`` MH sweeps; each one launch of ``csrc/mh_sweep.cu`` for
-    the whole batch of chains.
+               record_uniforms: bool = False, *,
+               _classic: bool = False) -> Segment:
+    """``n_sweeps`` MH sweeps; each one launch for the whole batch of
+    chains: of the resident kernel ``csrc/resident_sweep.cu`` where the
+    state fits the card's shared memory (``ops/resident.py``), else of
+    classic K1, ``csrc/mh_sweep.cu``.  Both compute the same bits.
 
-    On a CUDA device every sweep goes through the kernel (a failed build
-    or launch raises).  Only for tensors on the CPU does it run the plain
-    torch version.  ``mh_segment.launches`` counts kernel launches.
+    On a CUDA device every sweep goes through a kernel (a failed build or
+    launch raises; nothing falls back).  Only for tensors on the CPU does
+    it run the plain torch version.  ``mh_segment.launches`` counts classic
+    K1's launches, ``mh_segment.resident_launches`` the resident kernel's;
+    ``_classic`` pins classic K1 (for the comparisons of the two).
     """
     use = _use_kernel(problem, state, "mh_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        mode="mh", counter=mh_segment if use else None)
+                        mode="mh", counter=mh_segment if use else None,
+                        classic=_classic)
 
 
 mh_segment.launches = 0
+mh_segment.resident_launches = 0
 
 
 def gibbs_segment_reference(problem: sm.Problem, state: sm.SamplerState,
@@ -614,20 +665,21 @@ def gibbs_segment_reference(problem: sm.Problem, state: sm.SamplerState,
 
 def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                   uniforms: Optional[torch.Tensor] = None,
-                  record_uniforms: bool = False) -> Segment:
-    """``n_sweeps`` exact-Gibbs sweeps; each one launch of
-    ``csrc/gibbs_sweep.cu`` for the whole batch of chains.
-
-    On a CUDA device every sweep goes through the kernel (a failed build
-    or launch raises).  Only for tensors on the CPU does it run the plain
-    torch version.  ``gibbs_segment.launches`` counts kernel launches.
+                  record_uniforms: bool = False, *,
+                  _classic: bool = False) -> Segment:
+    """``n_sweeps`` exact-Gibbs sweeps; each one launch for the whole batch
+    of chains, of the resident kernel or of classic K1
+    (``csrc/gibbs_sweep.cu``), as :func:`mh_segment` chooses; counters
+    ``gibbs_segment.launches`` and ``gibbs_segment.resident_launches``.
     """
     use = _use_kernel(problem, state, "gibbs_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
-                        mode="gibbs", counter=gibbs_segment if use else None)
+                        mode="gibbs", counter=gibbs_segment if use else None,
+                        classic=_classic)
 
 
 gibbs_segment.launches = 0
+gibbs_segment.resident_launches = 0
 
 
 #: injected accept decisions closer than this to their threshold

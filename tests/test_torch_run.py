@@ -246,7 +246,8 @@ def test_plain_engine_on_a_card_raises(rng):
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card, same
+    """Classic K1's MH kernel (pinned: the toy fits the resident kernel,
+    ``test_torch_resident.py``) against its plain version on the card, same
     injected uniforms, at the toy size (full size: chip_smoke.py).  Runs
     where JAX is absent too: ``pytest --noconftest -m gpu``."""
     if not torch.cuda.is_available():
@@ -259,7 +260,7 @@ def test_kernel_matches_plain_on_card():
     u = gen.random((3, p.n_colors, p.ny * p.nx, p.L + 1), dtype=np.float32)
     u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
     u, plain = sw.untie_uniforms(p, s0, 3, u)
-    kern = sw.mh_segment(p, s0, 3, u)
+    kern = sw.mh_segment(p, s0, 3, u, _classic=True)
     assert float(plain.accept.sum()) > 0, "nothing accepted; test is vacuous"
     assert torch.equal(plain.accept, kern.accept)
     ref = plain.result.state.resid
@@ -271,8 +272,8 @@ def test_kernel_matches_plain_on_card():
 
 @pytest.mark.gpu
 def test_gibbs_and_batched_kernels_match_plain_on_card():
-    """The gibbs kernel (one chain) and the MH kernel on a batch of 3
-    chains against their plain versions on the card, same injected
+    """Classic K1's gibbs kernel (one chain) and MH kernel on a batch of 3
+    chains (pinned) against their plain versions on the card, same injected
     uniforms, at the toy size (full size: chip_smoke.py).  Gibbs draws have
     no accept decision to flip, so they are held to a tolerance: libm's
     logf/cosf/rsqrtf and the sums' order differ from torch's in the last
@@ -290,7 +291,7 @@ def test_gibbs_and_batched_kernels_match_plain_on_card():
     u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
     plain = sw.gibbs_segment_reference(p, s0, 3, u)
     n0 = sw.gibbs_segment.launches
-    kern = sw.gibbs_segment(p, s0, 3, u)
+    kern = sw.gibbs_segment(p, s0, 3, u, _classic=True)
     assert sw.gibbs_segment.launches - n0 == 3
     assert torch.equal(plain.accept, kern.accept)
     for name in ("resid", "clean"):
@@ -306,14 +307,15 @@ def test_gibbs_and_batched_kernels_match_plain_on_card():
     u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
     u, plain = sw.untie_uniforms(p, states, 3, u)
     n0 = sw.mh_segment.launches
-    kern = sw.mh_segment(p, states, 3, u)
+    kern = sw.mh_segment(p, states, 3, u, _classic=True)
     assert sw.mh_segment.launches - n0 == 3, "one launch per sweep for 3 chains"
     assert float(plain.accept.sum()) > 0, "nothing accepted; test is vacuous"
     assert torch.equal(plain.accept, kern.accept)
     ref = plain.result.state.resid
     torch.testing.assert_close(kern.result.state.resid, ref, rtol=0,
                                atol=1e-4 * float(ref.abs().max()))
-    alone = sw.mh_segment(p, ch.select_chains(states, 2), 3, u[:, 2])
+    alone = sw.mh_segment(p, ch.select_chains(states, 2), 3, u[:, 2],
+                          _classic=True)
     assert torch.equal(alone.accept, kern.accept[:, 2])
     assert torch.equal(alone.result.state.resid, kern.result.state.resid[2])
 
@@ -322,8 +324,9 @@ def test_gibbs_and_batched_kernels_match_plain_on_card():
 @pytest.mark.parametrize("sampler", ["mh", "gibbs"])
 def test_kernels_loop_warps_over_patch_rows_on_card(sampler):
     """An FSF of f = 21 rows, more than a block's 18 warps: each warp takes
-    rows dy and dy + 18 (sweep_common.cuh).  Both kernels on a batch of 2
-    chains against their plain versions, same injected uniforms."""
+    rows dy and dy + 18 (sweep_common.cuh).  Both classic K1 kernels
+    (pinned) on a batch of 2 chains against their plain versions, same
+    injected uniforms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the sweep kernels have no CPU mode")
     from deconv3d_tpu_torch import chains as ch
@@ -339,10 +342,10 @@ def test_kernels_loop_warps_over_patch_rows_on_card(sampler):
     u = torch.as_tensor(np.clip(u, 2.0**-24, 1 - 2.0**-24)).cuda()
     if sampler == "mh":
         u, plain = sw.untie_uniforms(p, states, 2, u)
-        kern = sw.mh_segment(p, states, 2, u)
+        kern = sw.mh_segment(p, states, 2, u, _classic=True)
     else:
         plain = sw.gibbs_segment_reference(p, states, 2, u)
-        kern = sw.gibbs_segment(p, states, 2, u)
+        kern = sw.gibbs_segment(p, states, 2, u, _classic=True)
     assert float(plain.accept.sum()) > 0, "nothing drawn; test is vacuous"
     assert torch.equal(plain.accept, kern.accept)
     for name in ("resid", "clean"):
