@@ -49,9 +49,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    aggregate chain-sweeps/s and per-chain sweeps/s; then classic K1's ms
    per batched sweep on the run's state.
 8. full_lambda — 60×60×3681 (the full MUSE spectral range, banded LSF)
-   through ``Run``: 20 MH sweeps and 10 gibbs sweeps, with the χ² check,
-   on the whole-cube kernels (``engine='cuda'``, pinned) and on the tiled
-   kernel the auto rule picks at this size.
+   through ``Run``: 20 MH sweeps and 10 gibbs sweeps (after 2 of warm-up),
+   with the χ² check,
+   on the whole-cube kernels (``engine='cuda'``, which the auto rule takes
+   at this size) and on the tiled kernel pinned in (1, 2) tiles; the auto
+   rule's engine must be the faster of the two in this run (within 5%).
 9. tiled_kernel — the tiled kernel (``csrc/tiled_sweep.cu``) against its
    plain version on 68×68×600 (f=17, 4×4 spaxel blocks) cut into 8 tiles
    of (1, 2) blocks: MH 2 sweeps with the same untied injected uniforms
@@ -59,28 +61,34 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (voxel counts; residual, clean, Δχ²); the in-kernel Philox bits; ms per
    sweep of both, launches per sweep, the kernel's share of device time.
    Then the same comparison and Philox bits on 34×68×3681 in 4 tiles of
-   (1, 2): the full field's per-step shapes (L=3681, banded LSF, the gibbs
-   phase loop's shared memory above 48 KB).
+   (1, 2): the full field's per-step shapes (L=3681, banded LSF).  In both
+   geometries the wavefront schedule against the raster in (1, 1) tiles
+   (two tiles per wave), 2 sweeps on the Philox draws, every output
+   bit-equal.
 10. tiled_vs_whole — one tile, (ny, nx), against the whole-cube kernels on
    30×30×600: 2 MH and 2 gibbs sweeps from one state with the Philox
    draws (the engines differ only in the order of their visits); the
    states must be bit-equal.
 11. full_field — a 300×300×3681 MUSE field made on the card, through
-   ``Run``: gibbs with the defaults (the tiled kernel, χ² rebaseline every
-   8 sweeps) for 16 sweeps — every sweep one tiled launch, the rebaseline
-   at sweeps 8 and 16 with the running χ² within 1e-5 of the from-scratch
-   one just before each reset and at the end, acceptance exactly 1 — then
-   MH with ``coarse_every=0`` for 8 sweeps; set-up seconds, sweeps/s, the
-   planned tile, peak memory of set-up, run and ``full_chi2``, and one
-   sweep each of the tiled and the whole-cube kernel on the run's state
-   (CUDA events).
+   ``Run``: gibbs with the defaults (the tiled kernel in the planned
+   (9, 9) tiles, χ² rebaseline every 8 sweeps) for 16 sweeps — every sweep
+   one tiled launch, the rebaseline at sweeps 8 and 16 with the running χ²
+   within 1e-5 of the from-scratch one just before each reset and at the
+   end, acceptance exactly 1 — then MH with ``coarse_every=0`` for 8
+   sweeps; set-up seconds, sweeps/s, the planned tile, peak memory of
+   set-up, run and ``full_chi2``, and one sweep each of the tiled kernel,
+   of the whole-cube kernel and of the tiled kernel's earlier design
+   (raster of (1, 2) tiles, synchronous loads, one block per spaxel in
+   gibbs phase (b)) on the run's state (CUDA events); the auto rule's
+   engine must be the faster of the first two (within 5%).
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
 resident, classic K1 and tiled kernels, each with its launches, ms per
 sweep and bound (:func:`sweep_bound`) on its own path — ``main`` /
 ``gibbs_main``, ``chains``, ``full_field`` — and its error and plain ms
-from its comparison phase, at the shape it names), the
+from its comparison phase, at the shape it names; the tiled ones with
+their tile, schedule, waves, steps and ``previous_ms``), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -288,6 +296,10 @@ def phase_gibbs_kernel(n_sweeps=2):
            "n_chains_32": phase_batch_vs_plain(problem, "gibbs")}
     return out, (problem, state, u, plain, plain_ms)
 
+
+#: the tiled kernel as it ran before its redesign: a raster of (1, 2)
+#: tiles, synchronous loads, gibbs phase (b) on one block per spaxel
+PREVIOUS_TILED = dict(tile=(1, 2), schedule="raster", stages=0)
 
 #: NVIDIA H100 SXM peaks (data sheet, 700 W): float32 outside the tensor
 #: cores, and HBM3 bandwidth
@@ -652,31 +664,58 @@ def phase_chains(sampler, single_rate, n_chains=32, n=64):
             "bound": sweep_bound(run.problem, n_chains, accept)}
 
 
+#: the engine ``engine='auto'`` picks may be this much slower than the other
+#: one in a run before the smoke fails: two engines level within the run's
+#: noise must not fail it
+AUTO_ENGINE_SLACK = 0.05
+
+
+def check_auto_engine(phase, sampler, auto, ms):
+    """``auto`` is the faster of the two engines timed in ``ms`` (ms per
+    sweep by engine), within :data:`AUTO_ENGINE_SLACK`."""
+    other = next(e for e in ms if e != auto)
+    emit(f"{phase}_auto_engine", sampler=sampler, auto=auto,
+         ms_per_sweep=ms, faster=min(ms, key=ms.get),
+         auto_over_other=ms[auto] / ms[other])
+    check(ms[auto] <= (1 + AUTO_ENGINE_SLACK) * ms[other],
+          f"engine='auto' takes {auto} ({ms[auto]:.1f} ms per sweep), but "
+          f"{other} takes {ms[other]:.1f}")
+
+
 def phase_full_lambda(sampler, n):
-    """60×60×3681 through ``Run``: the whole-cube kernel (pinned: the auto
-    rule takes the tiled one at this size) and the tiled kernel (auto)."""
+    """60×60×3681 through ``Run``: the whole-cube kernel (K1, which the auto
+    rule takes at this size) beside the tiled kernel pinned in (1, 2) tiles
+    (K2), and the auto rule's choice held against the two rates."""
     cube = bench_cube(L=3681, Y=60, X=60)
-    for engine in ("cuda", "auto"):
-        run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2,
-                     seed=0, sampler=sampler, engine=engine)
-        want = "cuda" if engine == "cuda" else "cuda_tiled"
-        check(run.problem.config.engine == want,
+    ms, warm = {}, 2
+    for engine, kw in (("cuda", {}), ("cuda_tiled", {"tile": (1, 2)})):
+        run = d3.Run(cube, d3.MUSE(), max_iterations=n + warm,
+                     burn_in=(n + warm) // 2, seed=0, sampler=sampler,
+                     engine=engine, **kw)
+        check(run.problem.config.engine == engine,
               f"engine {engine!r} resolved to {run.problem.config.engine}")
-        seg = segment_of(sampler) if want == "cuda" else tiled_counter(sampler)
+        seg = segment_of(sampler) if engine == "cuda" else tiled_counter(sampler)
         reset_launches()
+        run.run(warm)           # first launches, the allocator's growth
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run.run()
+        run.run(n)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = seg.launches
         consistency = chi2_consistency(run)
+        ms[engine] = dt / n * 1e3
         emit("full_lambda", sampler=sampler, shape=list(cube.shape),
-             engine=want, tile=run.problem.config.tile,
+             engine=engine, tile=run.problem.config.tile,
              f=run.problem.f, lsf_width=int(run.problem.lsf.shape[1]),
              launches=launches, chi2_consistency=consistency,
              sweeps_per_sec=n / dt, acceptance=run.acceptance_rate)
-        check(launches == n, "kernel did not run every sweep")
+        check(launches == n + warm, "kernel did not run every sweep")
         check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+    p = run.problem
+    auto, _ = sm.resolve_engine(sm.RunConfig(sampler=sampler), p.device, p.f,
+                                p.ny, p.nx, p.L)
+    check_auto_engine("full_lambda", sampler, auto, ms)
 
 
 def compare(plain, kern, sampler):
@@ -766,13 +805,45 @@ def tiled_compare(cube, tile, sampler, n_sweeps, seed):
     return problem, state, errs, kernel_ms / n_sweeps, plain_ms, kern
 
 
+def wave_vs_raster(cube, sampler, tile=(1, 1), n_sweeps=2):
+    """The tiled kernel with the wavefront schedule against the raster
+    schedule on ``cube`` in ``tile`` tiles (several tiles per wave), from
+    one state with the Philox draws: every output bit-equal; the ms per
+    sweep of both."""
+    problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+        seed=0, sampler=sampler, tile=tile))
+    state = sm.init_state(problem)
+    waves = {s: tl.wave_schedule(problem.ny // tile[0], problem.nx // tile[1],
+                                 s) for s in tl.SCHEDULES}
+    seg, ms = {}, {}
+    for schedule in tl.SCHEDULES:
+        seg[schedule], ms[schedule] = timed(lambda: tl.tiled_segment(
+            problem, copy_state(state), n_sweeps, schedule=schedule))
+    a, b = seg["wavefront"], seg["raster"]
+    equal = {name: bool(torch.equal(getattr(a.result.state, name),
+                                    getattr(b.result.state, name)))
+             for name in ("resid", "clean", "log_scale", "chi2", "n_accept")}
+    equal["accept_or_live"] = bool(torch.equal(a.accept, b.accept))
+    equal["dchi"] = bool(torch.equal(a.dchi, b.dchi))
+    emit("tiled_wave_vs_raster", sampler=sampler,
+         shape=[problem.L, problem.Y, problem.X], tile=tile, sweeps=n_sweeps,
+         waves={s: len(w) for s, w in waves.items()},
+         widest_wave=max(map(len, waves["wavefront"])), bit_equal=equal,
+         ms_per_sweep={s: v / n_sweeps for s, v in ms.items()})
+    check(max(map(len, waves["wavefront"])) > 1, "no wave holds two tiles")
+    check(int(a.accept.sum()) > 0, "nothing drawn; the check is vacuous")
+    check(all(equal.values()), "the wavefront schedule differs from the "
+          f"raster: {[k for k, v in equal.items() if not v]}")
+
+
 def phase_tiled_kernel(tile=(1, 2)):
     """The tiled kernel against its plain version, MH 2 sweeps and gibbs 1,
     in two MUSE geometries (f=17) with tiles of (1, 2) spaxel blocks:
     68×68×600 in 8 tiles — then ms per sweep of both versions, launches
     per sweep and a profile — and 34×68×3681 in 4 tiles, the full field's
-    per-step shapes (116 λ-chunks per spaxel, the banded LSF, the gibbs
-    phase loop's >48 KB of shared memory)."""
+    per-step shapes (116 λ-chunks per spaxel, the banded LSF).  In both,
+    the wavefront schedule against the raster in (1, 1) tiles, bit for
+    bit."""
     out = {}
     small = bench_cube(L=600, Y=68, X=68)
     for sampler, n_sweeps, seed in (("mh", 2, 4), ("gibbs", 1, 5)):
@@ -798,6 +869,7 @@ def phase_tiled_kernel(tile=(1, 2)):
         out[sampler] = {"max_abs_err": errs["resid_max_abs_err"], "ms": ms,
                         "plain_ms": plain_ms,
                         "bound": sweep_bound(problem, 1, kern.accept)}
+        wave_vs_raster(small, sampler)
     del small
     large = field_cube(L=3681, Y=34, X=68)
     for sampler, n_sweeps, seed in (("mh", 2, 6), ("gibbs", 1, 7)):
@@ -808,6 +880,7 @@ def phase_tiled_kernel(tile=(1, 2)):
              shape=list(large.shape), tile=tile, kernel_ms_per_sweep=kernel_ms,
              plain_ms_per_sweep=plain_ms, seconds=time.perf_counter() - t0)
         out[sampler]["max_abs_err_34x68x3681"] = errs["resid_max_abs_err"]
+        wave_vs_raster(large, sampler)
     return out
 
 
@@ -838,11 +911,13 @@ def phase_tiled_vs_whole(n_sweeps=2):
 
 
 def phase_full_field(sampler, n, cube):
-    """``Run`` on a 300×300×3681 MUSE field: every sweep through the tiled
-    kernel; for gibbs the χ² rebaseline at absolute sweeps 8 and 16, with
-    the running χ² against the from-scratch one just before each reset.
-    Then one sweep of the whole-cube kernel on the same problem and state,
-    for the engines' times side by side."""
+    """``Run`` on a 300×300×3681 MUSE field with the defaults: every sweep
+    through the tiled kernel, which the auto rule takes at this size in the
+    planned tile; for gibbs the χ² rebaseline at absolute sweeps 8 and 16,
+    with the running χ² against the from-scratch one just before each
+    reset.  Then one sweep each of the tiled and the whole-cube kernel on
+    the run's problem and state, and the auto rule's choice held against
+    the two times."""
     resets = []
     rebaseline = sm.rebaseline_chi2
 
@@ -900,13 +975,20 @@ def phase_full_field(sampler, n, cube):
     k1_ms = timed(lambda: segment_of(sampler)(whole, state, 1))[1]
     bound = sweep_bound(run.problem, 1, torch.tensor(
         [diag["acceptance_rate"]]))
+    waves = tl.wave_schedule(run.problem.ny // cfg.tile[0],
+                             run.problem.nx // cfg.tile[1])
+    previous_ms = timed(lambda: tl.tiled_segment(
+        run.problem, state, 1, lam_b=run.problem.L, **PREVIOUS_TILED))[1]
     emit("full_field", sampler=sampler, shape=list(cube.shape),
          f=run.problem.f, engine=cfg.engine, tile=cfg.tile,
          n_tiles=(run.problem.ny // cfg.tile[0]) * (run.problem.nx // cfg.tile[1]),
+         schedule="wavefront", waves=len(waves),
+         steps=len(waves) * run.problem.n_colors,
          chi2_rebaseline_every=cfg.chi2_rebaseline_every, sweeps=n,
          launches=launches, setup_s=setup_s, sweeps_per_sec=n / dt,
          ms_per_sweep=dt / n * 1e3, tiled_kernel_ms_per_sweep=k2_ms,
          whole_cube_kernel_ms_per_sweep=k1_ms,
+         tiled_kernel_earlier_design_ms_per_sweep=previous_ms,
          bound_ms_per_sweep=bound["bound_ms"],
          rebaselines=resets, chi2_consistency_end=consistency,
          acceptance=diag["acceptance_rate"], setup_peak_bytes=setup_peak,
@@ -923,8 +1005,12 @@ def phase_full_field(sampler, n, cube):
         check(diag["acceptance_rate"] == 1.0, "gibbs acceptance is not 1")
     else:
         check(not resets, "MH rebaselined")
+    check_auto_engine("full_field", sampler, cfg.engine,
+                      {"cuda_tiled": k2_ms, "cuda": k1_ms})
     return {"launches": launches, "ms": k2_ms, "shape": list(cube.shape),
-            "bound": bound}
+            "bound": bound, "tile": list(cfg.tile), "waves": len(waves),
+            "steps": len(waves) * run.problem.n_colors,
+            "previous_ms": previous_ms}
 
 
 def main() -> int:
@@ -1035,6 +1121,12 @@ def main() -> int:
         **bound(field[sampler]["bound"]), "library_ms": None,
         "at_600x68x68": other_shape(tiled[sampler]),
         "max_abs_err_3681x34x68": tiled[sampler]["max_abs_err_34x68x3681"],
+        "tile": field[sampler]["tile"], "schedule": "wavefront",
+        "waves": field[sampler]["waves"], "steps": field[sampler]["steps"],
+        "previous_ms": field[sampler]["previous_ms"],
+        "previous_ms_is": "this run's sweep in the kernel's earlier design: "
+                          "raster of (1, 2) tiles, synchronous loads, one "
+                          "block per spaxel in gibbs phase (b)",
     } for sampler in ("mh", "gibbs")]
     check(all(line["launches"] > 0 for line in lines),
           "a kernel was launched no time on its path")

@@ -1,22 +1,35 @@
 // One exact-Gibbs step of the color-decomposed sweep: every chain's spaxels
 // of one Step (a color over the whole field in gibbs_sweep.cu, a color
-// inside one tile in tiled_sweep.cu), with its three grid barriers.
+// inside the tiles of one wave in tiled_sweep.cu), with its three grid
+// barriers.
 //
 //   (a) lin   every (chain, spaxel, 32-wavelength chunk) task: the patch
-//             contraction (sweep_common.cuh), lin to scratch
+//             contraction out of the ring of asynchronous copies
+//             (sweep_common.cuh) on the row warps, while one service warp
+//             asks for the next patches and the other sums the previous
+//             task's lin to scratch
 //   --- grid barrier ---
-//   (b) draws every (chain, spaxel) task: one block runs the lw phases over
-//             the whole spectrum in shared memory (lin, quad, the normals
-//             that each phase overwrites with its jumps, and gacc: 4 L
-//             floats, 59 KB at L=3681), linT and g reaching +-lw/2 around
-//             each live voxel; it adds the jumps into clean and writes
-//             gacc, the step's dchi2 and the live count
+//   (b) draws every (chain, spaxel, wavelength slab) task: one block runs
+//             the lw phases over the slab's window [a - 2(lw-1), b +
+//             lw(lw-1)) in shared memory (lin, quad, qvox, the normals that
+//             each phase overwrites with its jumps, and gacc), linT and g
+//             reaching +-lw/2 around each live voxel.  A window edge's
+//             error moves inwards by at most lw - 1 per phase -- and by 1
+//             at the lower edge, since phase ph draws lambda = ph (mod lw)
+//             -- so the slab's jumps and g are the full spectrum's bit for
+//             bit (ops/resident.py window_margins).  The block adds its
+//             slab's jumps into clean and writes gacc and the per-wavelength
+//             dchi2 terms.  One slab of lam_b = L is the whole spectrum on
+//             one block; lam_b spreads a step of few spaxels over the card.
 //   --- grid barrier ---
-//   (c) commit every (chain, spaxel, chunk) task: resid -= patch(gacc)
+//   (c) commit every (chain, spaxel): dchi2 from the terms, summed in a
+//             fixed order (thread-strided over the block, lanes, warps),
+//             and the live count; every (chain, spaxel, chunk) task:
+//             resid -= patch(gacc), the patch streamed through the ring
 //   --- grid barrier ---
 //
 // A task's arithmetic depends neither on the chain batch nor on the step's
-// extent (see mh_step.cuh).
+// extent, nor on lam_b (see mh_step.cuh).
 #pragma once
 
 #include "philox.cuh"
@@ -48,8 +61,8 @@ __device__ __forceinline__ float gibbs_dlo_term(float ga, float qlo) {
 }
 
 struct GibbsArgs {
-  float* resid;            // [C, Hp, Wp, L]
-  const float* w;          // [Hp, Wp, L]
+  float* resid;            // [C, Hp, Wp, Ls] (the first L of a row are data)
+  const float* w;          // [Hp, Wp, Ls]
   const float* quad;       // [Yc, Xc, L]
   const float* quad_lo;    // [Yc, Xc, L] or null (zero)
   const float* qvox;       // [Yc, Xc, L]
@@ -63,56 +76,73 @@ struct GibbsArgs {
   float* live_out;         // [C, f*f, nij]
   float* dchi_out;         // [C, f*f, nij]
   float* uniforms_out;     // [C, f*f, nij, 2, L] or null
-  float* scratch;          // [2 * C * spaxels of a step * L]: lin, gacc
-  int C, L, f, ny, nx, S, lw;
-  int nyt, nxt;            // block rows / columns of a step
+  float* scratch;          // [4 * C * spaxels of the largest step * L]:
+                           // lin, gacc, dchi2 terms, quad_lo terms
+  const int* wave_start;   // [n_waves + 1] into wave_tiles (tiled kernel)
+  const int* wave_tiles;   // raster indices of every wave's tiles
+  int C, L, Ls, f, ny, nx, S, lw;
+  int nyt, nxt;            // block rows / columns of a tile
+  int n_waves;
+  int stages;              // ring stages (0: synchronous loads)
+  int lam_b;               // wavelengths per slab of phase (b)
+  int max_spaxels;         // (chain, spaxel)s of the largest step
   uint32_t sweep;
 };
 
-// Shared memory of one block: FSF images, per-warp pooled partials, one
-// spectrum's lin, quad, normals/jumps and gacc, block sums, Philox keys.
-struct GibbsShared {
-  float* img;              // [S * f * f]
-  float* pool;             // [nw * S * kChunk]
-  float* lin;              // [L]
-  float* quad;             // [L]
-  float* nj;               // [L] normals, then jumps
-  float* gacc;             // [L]
-  float* red;              // [3 * nw]
-  uint32_t* key;           // [2 * C]
-};
-
-inline size_t gibbs_smem_bytes(int S, int f, int L, int C) {
-  const int nw = f < kMaxWarps ? f : kMaxWarps;
-  return sizeof(float) * (static_cast<size_t>(S) * f * f +
-                          static_cast<size_t>(nw) * S * kChunk +
-                          4 * static_cast<size_t>(L) + 3 * nw +
-                          2 * static_cast<size_t>(C));
+__host__ __device__ inline int gibbs_window_lo(int lw) { return 2 * (lw - 1); }
+__host__ __device__ inline int gibbs_window_hi(int lw) { return lw * (lw - 1); }
+// widest window of a slab of lam_b wavelengths
+__host__ __device__ inline int gibbs_window(int L, int lw, int lam_b) {
+  const int wd = lam_b + gibbs_window_lo(lw) + gibbs_window_hi(lw);
+  return wd < L ? wd : L;
 }
 
-// Carve the block's shared memory and load the keys and images.
+// Shared memory of one block: the ring's barriers, FSF images, per-warp
+// pooled partials (two buffers: warp 0 finishes task i while the others
+// fill task i + 1), block sums, Philox keys; then the ring of (a) and (c),
+// which is also (b)'s window: lin, quad, qvox, normals/jumps and gacc, 5 x
+// the window's width.
+struct GibbsShared {
+  float* img;              // [S * f * f]
+  float* pool;             // [2][nw * S * kChunk]
+  float* red;              // [3 * nw]
+  uint32_t* key;           // [2 * C]
+  float* ring;             // [max(stages * ring_stage_floats, 5 * window)]
+};
+
+__host__ __device__ inline size_t gibbs_fixed_floats(int S, int f, int C) {
+  const int nw = row_warps(f);
+  return ring_aligned(kBarFloats + static_cast<size_t>(S) * f * f +
+                      2 * static_cast<size_t>(nw) * S * kChunk + 3 * nw +
+                      2 * static_cast<size_t>(C));
+}
+
+// Carve the block's shared memory, set up the ring's barriers and load the
+// keys and images.
 __device__ __forceinline__ GibbsShared gibbs_shared(const GibbsArgs& a,
-                                                    float* smem) {
-  const int nw = blockDim.x >> 5;
+                                                    float* smem,
+                                                    PatchMaps& maps) {
+  const int nw = row_warps(a.f);
   GibbsShared s;
-  s.img = smem;
+  s.img = smem + kBarFloats;
   s.pool = s.img + a.S * a.f * a.f;
-  s.lin = s.pool + nw * a.S * kChunk;
-  s.quad = s.lin + a.L;
-  s.nj = s.quad + a.L;
-  s.gacc = s.nj + a.L;
-  s.red = s.gacc + a.L;
+  s.red = s.pool + 2 * nw * a.S * kChunk;
   s.key = reinterpret_cast<uint32_t*>(s.red + 3 * nw);
+  s.ring = smem + gibbs_fixed_floats(a.S, a.f, a.C);
+  ring_init(smem, maps);
   for (int k = threadIdx.x; k < 2 * a.C; k += blockDim.x) s.key[k] = a.keys[k];
   load_images(s.img, a.imgs, a.S * a.f * a.f);
   return s;
 }
 
+template <int kS>
 __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
                                            const GibbsShared& sh,
+                                           float* smem, PatchMaps& maps,
                                            const Step& st,
-                                           cooperative_groups::grid_group& grid) {
-  const int L = a.L, f = a.f, S = a.S, lw = a.lw, half = lw / 2;
+                                           cooperative_groups::grid_group& grid,
+                                           TaskClocks& clk) {
+  const int L = a.L, Ls = a.Ls, f = a.f, S = a.S, lw = a.lw, half = lw / 2;
   const int nij = a.ny * a.nx, n_colors = f * f;
   const int Yc = a.ny * f, Xc = a.nx * f;
   const int Hp = f - 1 + Yc, Wp = f - 1 + Xc;
@@ -121,41 +151,92 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
   const int spaxels = a.C * nst;                 // (chain, spaxel) tasks
   const int tasks = spaxels * P;                 // (chain, spaxel, chunk)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5, nt = blockDim.x;
-  const int c = st.c, cy = st.cy, cx = st.cx;
+  const int nt = blockDim.x, nw = nt >> 5, nwv = row_warps(f);
+  const int c = st.c;
+  const int stages = a.stages;
+  const Ring ring(smem, sh.ring, stages, S, f, lw);
+  const int npool = nwv * S * kChunk;
+  const int mine = block_share(tasks);
+  const size_t chain = static_cast<size_t>(Hp) * Wp * Ls;
+  const size_t per = static_cast<size_t>(a.max_spaxels) * L;
   float* lin_buf = a.scratch;                     // [spaxels * L]
-  float* g_buf = lin_buf + static_cast<size_t>(spaxels) * L;
+  float* g_buf = lin_buf + per;
+  float* terms = g_buf + per;                     // dchi2 per wavelength
+  float* lo_terms = terms + per;                  // its quad_lo part
+  auto task = [&](int i) {
+    return task_of(static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x),
+                   P, nst, st, a.nx, f, Xc);
+  };
 
   // ---------------- (a) lin of every (chain, spaxel, chunk) ---------------
-  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
-    const int cs = t / P, l0 = (t % P) * kChunk;
-    const int ch = cs / nst, ij = st.ij(cs % nst, a.nx);
-    const int ys = (ij / a.nx) * f + cy, xs = (ij % a.nx) * f + cx;
-    const int sp = ys * Xc + xs;
-    if (a.valid[sp] == 0.0f) continue;        // uniform across the block
-    const int l = l0 + lane;
-    const size_t row0 = (static_cast<size_t>(ys) * Wp + xs) * L + l;
-    patch_partials(a.resid + static_cast<size_t>(ch) * Hp * Wp * L, a.w,
-                   sh.img, sh.pool, row0, l < L, Wp, L, f, S);
-    __syncthreads();
-    if (warp == 0 && l < L)
-      lin_buf[static_cast<size_t>(cs) * L + l] =
-          partials_to_lin(sh.pool, a.spec, l, L, S);
-    __syncthreads();   // pool is reused by the next task
+  const bool asks = warp == nwv, finishes = warp == nwv + 1;
+  // the asking warp's lane 0: the patches of task i into their stage (none
+  // for a frozen spaxel, which nobody waits for either)
+  auto produce_a = [&](int i) {
+    if (asks && lane == 0 && i < mine) {
+      const Task k = task(i);
+      if (a.valid[k.sp] != 0.0f)
+        ring.produce(maps, i % stages, k.l0, k.xs, k.ys, k.ch, true);
+    }
+  };
+  for (int i = 0; i < stages; ++i) produce_a(i);
+  clk.mark(0);                                   // decode, first copies
+  int nb = 0;                                    // block barriers so far
+  for (int i = 0; i < mine; ++i) {
+    const Task k = task(i);
+    const int slot = stages ? i % stages : 0;
+    const int l = k.l0 + lane;
+    float* pool = sh.pool + (nb & 1) * npool;
+    if (a.valid[k.sp] == 0.0f) {                 // uniform across the block
+      if (stages) produce_a(i + stages);
+      continue;
+    }
+    if (stages) ring.consume(maps, slot, warp < nwv);
+    clk.mark(2);                                 // waiting for the copies
+    if (warp < nwv) {
+      if (stages)
+        staged_partials<kS>(ring.rs(slot), ring.ws(slot), sh.img, pool, l < L, f, S);
+      else
+        patch_partials<kS>(a.resid + k.ch * chain, a.w, sh.img, pool,
+                       (static_cast<size_t>(k.ys) * Wp + k.xs) * Ls + l, l < L,
+                       Wp, Ls, f, S);
+    }
+    clk.mark(3);                                 // partials
+    __syncthreads();       // the partials are whole; the stage is consumed
+    ++nb;
+    clk.mark(4);                                 // block barrier
+    if (stages) produce_a(i + stages);
+    if (finishes && l < L)
+      lin_buf[static_cast<size_t>(k.cs) * L + l] =
+          partials_to_lin<kS>(pool, a.spec + l, L, S, nwv);
+    clk.count(12);
   }
   grid.sync();
-  // ---------------- (b) the lw phases of every (chain, spaxel) ------------
-  for (int cs = blockIdx.x; cs < spaxels; cs += gridDim.x) {
-    const int ch = cs / nst, ij = st.ij(cs % nst, a.nx);
-    const int ys = (ij / a.nx) * f + cy, xs = (ij % a.nx) * f + cx;
+  clk.mark(6);                                   // grid barrier 1
+  // ---------------- (b) the lw phases of every (chain, spaxel, slab) ------
+  const int lam_b = a.lam_b, n_slabs = (L + lam_b - 1) / lam_b;
+  const int wd = gibbs_window(L, lw, lam_b);
+  float* wlin = sh.ring;                          // the window: lin,
+  float* wq = wlin + wd;                          // quad,
+  float* wqv = wq + wd;                           // qvox,
+  float* wnj = wqv + wd;                          // normals -> jumps,
+  float* wg = wnj + wd;                           // gacc
+  for (int t = blockIdx.x; t < spaxels * n_slabs; t += gridDim.x) {
+    const int cs = t / n_slabs, slab = t - cs * n_slabs;
+    const int ch = cs / nst, ij = st.ij(cs - ch * nst, a.nx);
+    const int ys = (ij / a.nx) * f + st.cy, xs = (ij % a.nx) * f + st.cx;
     const int sp = ys * Xc + xs;
     const size_t out = static_cast<size_t>(ch * n_colors + c) * nij + ij;
-    const float* qv = a.qvox + static_cast<size_t>(sp) * L;
+    const int s0 = slab * lam_b, s1 = min(L, s0 + lam_b);   // the slab
+    const int wlo = max(0, s0 - gibbs_window_lo(lw));
+    const int whi = min(L, s1 + gibbs_window_hi(lw));
+    const int wn = whi - wlo;
+    const bool valid = a.valid[sp] != 0.0f;      // uniform across the block
     const uint32_t k0 = sh.key[2 * ch], k1 = sh.key[2 * ch + 1];
-    for (int l = threadIdx.x; l < L; l += nt) {
-      sh.lin[l] = lin_buf[static_cast<size_t>(cs) * L + l];
-      sh.quad[l] = a.quad[static_cast<size_t>(sp) * L + l];
-      sh.gacc[l] = 0.0f;
+    const float* lin0 = lin_buf + static_cast<size_t>(cs) * L;
+    __syncthreads();                             // the window is reused
+    for (int k = threadIdx.x; k < wn; k += nt) {
+      const int l = wlo + k;
       float u1, u2;
       if (a.uniforms) {
         u1 = a.uniforms[out * 2 * L + l];
@@ -164,100 +245,207 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
         u1 = lambda_uniform(k0, k1, a.sweep, c, ij, l, kStreamNormalU1);
         u2 = lambda_uniform(k0, k1, a.sweep, c, ij, l, kStreamNormalU2);
       }
-      if (a.uniforms_out) {
+      if (a.uniforms_out && l >= s0 && l < s1) {
         a.uniforms_out[out * 2 * L + l] = u1;
         a.uniforms_out[out * 2 * L + L + l] = u2;
       }
-      sh.nj[l] = box_muller(u1, u2);
+      if (!valid) continue;                      // (its lin was never made)
+      wlin[k] = lin0[l];
+      wq[k] = a.quad[static_cast<size_t>(sp) * L + l];
+      wqv[k] = a.qvox[static_cast<size_t>(sp) * L + l];
+      wnj[k] = box_muller(u1, u2);
+      wg[k] = 0.0f;
     }
     __syncthreads();
-    if (a.valid[sp] == 0.0f) {                // frozen spaxel: no draws
-      if (threadIdx.x == 0) a.live_out[out] = a.dchi_out[out] = 0.0f;
-      continue;                               // (its lin was never made)
-    }
-    float live = 0.0f;
+    clk.mark(7);                                 // window load, normals
+    if (!valid) continue;                        // frozen spaxel: no draws
+    // phase ph draws window index first + i lw, first = (ph - wlo) mod lw;
+    // at window index k its update reads the phase voxel k - half + r,
+    // r = (ph - (wlo + k - half)) mod lw: both step by one per phase
+    const float* lsfw = a.lsf + static_cast<size_t>(wlo) * lw;
+    const int dstep = nt % lw;
+    int first = ((-wlo) % lw + lw) % lw;
+    int r0 = ((half - wlo - static_cast<int>(threadIdx.x)) % lw + lw) % lw;
     for (int ph = 0; ph < lw; ++ph) {
       // draws of this phase: at most one live voxel in any lw-window
-      for (int l = ph + threadIdx.x * lw; l < L; l += nt * lw) {
-        const float q = qv[l];
+      for (int k = first + threadIdx.x * lw; k < wn; k += nt * lw) {
+        const float q = wqv[k];
         float jump = 0.0f;
         if (q > 0.0f) {
+          // linT = sum_d lsf[mu, d] lin[mu], mu = k + half - d
+          const int d0 = max(0, k + half - (wn - 1)), d1 = min(lw, k + half + 1);
           float linT = 0.0f;
-          for (int d = 0; d < lw; ++d) {
-            const int mu = l + half - d;
-            if (mu >= 0 && mu < L)
-              linT = band_term(linT, a.lsf[mu * lw + d], sh.lin[mu]);
+          for (int d = d0; d < d1; ++d) {
+            const int mu = k + half - d;
+            linT = band_term(linT, lsfw[mu * lw + d], wlin[mu]);
           }
-          jump = gibbs_jump(linT, fmaxf(q, 1.0e-30f), sh.nj[l]);
-          live += 1.0f;
+          jump = gibbs_jump(linT, fmaxf(q, 1.0e-30f), wnj[k]);
         }
-        sh.nj[l] = jump;
+        wnj[k] = jump;
       }
       __syncthreads();
       // g of the phase's jumps, and lin <- lin - g * quad
-      for (int mu = threadIdx.x; mu < L; mu += nt) {
-        const int lo = mu - half;
-        int r = (ph - lo) % lw;
-        if (r < 0) r += lw;
-        const int l = lo + r;                 // the phase voxel near mu
-        if (l >= 0 && l < L) {
-          const float g = __fmul_rn(a.lsf[mu * lw + (l - lo)], sh.nj[l]);
-          sh.lin[mu] = lin_after(sh.lin[mu], g, sh.quad[mu]);
-          sh.gacc[mu] = __fadd_rn(sh.gacc[mu], g);
+      for (int k = threadIdx.x, r = r0; k < wn; k += nt) {
+        const int kl = k - half + r;             // the phase voxel near k
+        if (kl >= 0 && kl < wn) {
+          const float g = __fmul_rn(lsfw[k * lw + r], wnj[kl]);
+          wlin[k] = lin_after(wlin[k], g, wq[k]);
+          wg[k] = __fadd_rn(wg[k], g);
         }
+        r -= dstep;
+        if (r < 0) r += lw;
       }
       __syncthreads();
+      if (++first == lw) first = 0;
+      if (++r0 == lw) r0 = 0;
     }
-    // dchi2 of the summed jump against lin0 (still in lin_buf)
-    float dchi = 0.0f, dlo = 0.0f;
-    const float* lin0 = lin_buf + static_cast<size_t>(cs) * L;
+    clk.mark(8);                                 // the lw phases
+    // the slab: dchi2 terms of the summed jump against lin0, clean, gacc
     const float* qlo =
         a.quad_lo ? a.quad_lo + static_cast<size_t>(sp) * L : nullptr;
     float* clean = a.clean + (static_cast<size_t>(ch) * Yc * Xc + sp) * L;
-    for (int l = threadIdx.x; l < L; l += nt) {
-      const float ga = sh.gacc[l];
-      dchi = __fadd_rn(dchi, gibbs_dchi_term(ga, sh.quad[l], lin0[l]));
-      if (qlo) dlo = __fadd_rn(dlo, gibbs_dlo_term(ga, qlo[l]));
-      clean[l] = __fadd_rn(clean[l], sh.nj[l]);
+    for (int l = s0 + threadIdx.x; l < s1; l += nt) {
+      const int k = l - wlo;
+      const float ga = wg[k];
+      terms[static_cast<size_t>(cs) * L + l] =
+          gibbs_dchi_term(ga, wq[k], lin0[l]);
+      if (qlo)
+        lo_terms[static_cast<size_t>(cs) * L + l] = gibbs_dlo_term(ga, qlo[l]);
+      clean[l] = __fadd_rn(clean[l], wnj[k]);
       g_buf[static_cast<size_t>(cs) * L + l] = ga;
     }
-    // block sums in a fixed order: lanes, then warps
-    dchi = warp_sum(dchi);
-    live = warp_sum(live);
-    dlo = warp_sum(dlo);
-    if (lane == 0) {
-      sh.red[warp] = dchi;
-      sh.red[nw + warp] = live;
-      sh.red[2 * nw + warp] = dlo;
+    clk.mark(9);                                 // terms, clean, gacc
+    clk.count(13);
+  }
+  if (stages) fence_async_proxy();   // the window, before (c)'s copies
+  grid.sync();
+  clk.mark(10);                                  // grid barrier 2
+  // ---------------- (c) dchi2 of every (chain, spaxel); the commit --------
+  // task i into its stage: thread 0 asks for the residual patch, every
+  // thread copies gacc at its lane's wavelength (one copy group per task)
+  auto copy_c = [&](int i) {
+    if (i < mine) {
+      const Task k = task(i);
+      const int slot = i % stages, l = k.l0 + lane;
+      if (a.valid[k.sp] != 0.0f) {
+        if (threadIdx.x == 0)
+          ring.produce(maps, slot, k.l0, k.xs, k.ys, k.ch, false);
+        if (l < L)
+          cp_async4(ring.own(slot) + threadIdx.x,
+                    g_buf + static_cast<size_t>(k.cs) * L + l);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < stages; ++i) copy_c(i);
+  // the sums, on the blocks with the fewest commits (the last ones)
+  for (int cs = gridDim.x - 1 - blockIdx.x; cs < spaxels; cs += gridDim.x) {
+    const int ch = cs / nst, ij = st.ij(cs - ch * nst, a.nx);
+    const int ys = (ij / a.nx) * f + st.cy, xs = (ij % a.nx) * f + st.cx;
+    const int sp = ys * Xc + xs;
+    const size_t out = static_cast<size_t>(ch * n_colors + c) * nij + ij;
+    if (a.valid[sp] == 0.0f) {                   // frozen spaxel: no draws
+      if (threadIdx.x == 0) a.live_out[out] = a.dchi_out[out] = 0.0f;
+      continue;
+    }
+    const float* tr = terms + static_cast<size_t>(cs) * L;
+    const float* lr = lo_terms + static_cast<size_t>(cs) * L;
+    const float* qv = a.qvox + static_cast<size_t>(sp) * L;
+    // block sums in a fixed order: thread-strided over the row warps'
+    // threads, lanes, then warps
+    for (int vw = warp; vw < nwv; vw += nw) {
+      float dchi = 0.0f, dlo = 0.0f, live = 0.0f;
+      for (int l = vw * 32 + lane; l < L; l += 32 * nwv) {
+        dchi = __fadd_rn(dchi, tr[l]);
+        if (a.quad_lo) dlo = __fadd_rn(dlo, lr[l]);
+        if (qv[l] > 0.0f) live += 1.0f;
+      }
+      dchi = warp_sum(dchi);
+      live = warp_sum(live);
+      dlo = warp_sum(dlo);
+      if (lane == 0) {
+        sh.red[vw] = dchi;
+        sh.red[nwv + vw] = live;
+        sh.red[2 * nwv + vw] = dlo;
+      }
     }
     __syncthreads();
     if (threadIdx.x == 0) {
       float sd = 0.0f, sl = 0.0f, so = 0.0f;
-      for (int r = 0; r < nw; ++r) {
+      for (int r = 0; r < nwv; ++r) {
         sd += sh.red[r];
-        sl += sh.red[nw + r];
-        so += sh.red[2 * nw + r];
+        sl += sh.red[nwv + r];
+        so += sh.red[2 * nwv + r];
       }
       a.dchi_out[out] = sd + so;
       a.live_out[out] = sl;
     }
-    __syncthreads();   // shared buffers are reused by the next task
+    __syncthreads();   // red is reused by the next sum
   }
-  grid.sync();
-  // ---------------- (c) commit of every (chain, spaxel, chunk) ------------
-  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
-    const int cs = t / P, l0 = (t % P) * kChunk;
-    const int ch = cs / nst, ij = st.ij(cs % nst, a.nx);
-    const int ys = (ij / a.nx) * f + cy, xs = (ij % a.nx) * f + cx;
-    const int sp = ys * Xc + xs;
-    const int l = l0 + lane;
-    if (a.valid[sp] == 0.0f || l >= L) continue;
-    const size_t row0 = (static_cast<size_t>(ys) * Wp + xs) * L + l;
-    patch_commit(a.resid + static_cast<size_t>(ch) * Hp * Wp * L, sh.img,
-                 a.spec, g_buf[static_cast<size_t>(cs) * L + l], row0, l,
-                 Wp, L, f, S);
+  clk.mark(11);                                  // the dchi2 sums
+  for (int i = 0; i < mine; ++i) {
+    const Task k = task(i);
+    const int slot = stages ? i % stages : 0;
+    const int l = k.l0 + lane;
+    const bool valid = a.valid[k.sp] != 0.0f;    // uniform across the block
+    const size_t row0 = (static_cast<size_t>(k.ys) * Wp + k.xs) * Ls + l;
+    if (stages) {
+      cp_async_wait(stages - 1);
+      if (valid) {
+        ring.consume(maps, slot);
+        if (l < L)
+          staged_commit<kS>(a.resid + k.ch * chain, ring.rs(slot), sh.img, a.spec,
+                        ring.own(slot)[threadIdx.x], row0, l, Wp, L, Ls, f, S);
+        __syncthreads();                         // the stage is consumed
+      }
+      copy_c(i + stages);
+    } else if (valid && l < L) {
+      patch_commit<kS>(a.resid + k.ch * chain, sh.img, a.spec,
+                   g_buf[static_cast<size_t>(k.cs) * L + l], row0, l, Wp, L,
+                   Ls, f, S);
+    }
+    clk.count(14);
   }
+  if (stages) {
+    cp_async_wait(0);
+    fence_async_proxy();             // the commits, before the next copies
+  }
+  clk.mark(15);                                  // commits
   grid.sync();         // the step is committed before the next one reads
+}
+
+// Launch `kernel(args, map of the residual, map of the weights)`: the ring's
+// stages (`a->stages` < 0: as many as fit; the ring needs rows padded to 16
+// bytes), the shared memory (the ring and phase (b)'s window share it), and
+// a grid for `a->max_spaxels` (chain, spaxel)s in the largest step.
+template <typename Kernel>
+inline int launch_gibbs(Kernel kernel, GibbsArgs* a, cudaStream_t stream) {
+  const int threads = block_threads(a->f);
+  const int Hp = a->f - 1 + a->ny * a->f, Wp = a->f - 1 + a->nx * a->f;
+  if (a->lam_b < 1 || a->Ls < a->L) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t fixed = sizeof(float) * gibbs_fixed_floats(a->S, a->f, a->C);
+  const size_t stage =
+      sizeof(float) * ring_stage_floats(a->S, a->f, a->lw, threads);
+  const size_t window =
+      sizeof(float) * 5 * static_cast<size_t>(gibbs_window(a->L, a->lw, a->lam_b));
+  size_t optin = 0;
+  if (const int e = smem_optin(&optin)) return e;
+  if (fixed + window > optin) return static_cast<int>(cudaErrorInvalidValue);
+  a->stages = pick_stages(a->Ls % 4 == 0 ? optin - fixed : 0, stage, a->stages);
+  if (a->stages < 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_r{}, map_w{};
+  if (a->stages > 0) {
+    if (const int e = patch_map(&map_r, a->resid, a->C, Hp, Wp, a->L, a->Ls, a->f))
+      return e;
+    if (const int e = patch_map(&map_w, a->w, 1, Hp, Wp, a->L, a->Ls, a->f))
+      return e;
+  }
+  const size_t ring = a->stages * stage;
+  void* params[] = {a, &map_r, &map_w};
+  return launch_cooperative(
+      kernel, params, threads, fixed + (ring > window ? ring : window),
+      static_cast<long long>(a->max_spaxels) * ((a->L + kChunk - 1) / kChunk),
+      stream);
 }
 
 }  // namespace deconv3d

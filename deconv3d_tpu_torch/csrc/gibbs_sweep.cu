@@ -33,10 +33,11 @@
 //
 // What bounds it.  (a) and (c) read and write every residual voxel f^2
 // times per sweep, as the MH kernel does (1.6 GB per sweep out of L2 on the
-// 30x30x600 MUSE subcube with one chain); (b) is a serial chain of 2 lw
-// block barriers per color on only C x nij blocks (4 per chain on that
-// subcube), each step a few wavelengths per thread.  A batch of chains
-// runs its (b) blocks side by side and pays the 3 f^2 grid barriers once.
+// 30x30x600 MUSE subcube with one chain), through the ring of asynchronous
+// copies; (b) is a serial chain of 2 lw block barriers per color, spread
+// over C x nij x ceil(L / lam_b) blocks, each running its slab's window.
+// A batch of chains runs its (b) blocks side by side and pays the 3 f^2
+// grid barriers once.
 //
 // Random numbers: Philox streams 2 and 3 (philox.cuh) under each chain's
 // key, or an injected [C, f*f, nij, 2, L] tensor of (u1, u2) for parity
@@ -51,47 +52,54 @@ namespace cg = cooperative_groups;
 
 namespace deconv3d {
 
+template <int kS>
 __global__ void __launch_bounds__(kMaxThreads)
-    gibbs_sweep_kernel(GibbsArgs a) {
-  extern __shared__ float smem[];
-  const GibbsShared sh = gibbs_shared(a, smem);
+    gibbs_sweep_kernel(GibbsArgs a, const __grid_constant__ CUtensorMap map_r,
+                       const __grid_constant__ CUtensorMap map_w) {
+  extern __shared__ __align__(128) float smem[];
+  PatchMaps maps{&map_r, &map_w};
+  const GibbsShared sh = gibbs_shared(a, smem, maps);
   cg::grid_group grid = cg::this_grid();
+  TaskClocks clk(smem);
   for (int c = 0; c < a.f * a.f; ++c)
-    gibbs_step(a, sh, Step(c, a.f, 0, 0, a.ny, a.nx), grid);
+    gibbs_step<kS>(a, sh, smem, maps, Step::whole(c, a.f, a.ny, a.nx), grid, clk);
+  clk.flush();
 }
 
 }  // namespace deconv3d
 
 extern "C" {
 
-// Floats of scratch one step over ny x nx spaxels of C chains needs (lin
-// and gacc spectra).
-long long gibbs_sweep_scratch_floats(int C, int L, int ny, int nx) {
-  return 2LL * C * ny * nx * L;
+// Floats of scratch a step over `spaxels` (chain, spaxel)s needs (lin,
+// gacc, and the per-wavelength dchi2 and quad_lo terms).
+long long gibbs_sweep_scratch_floats(int L, long long spaxels) {
+  return 4LL * spaxels * L;
 }
 
-// Launch one sweep of C chains on `stream`.  Returns a cudaError_t (0 on
-// success), checked right after the launch; the kernel itself runs
-// asynchronously.
+// Launch one sweep of C chains on `stream`; the rows of `resid` and `w`
+// hold `Ls` >= L floats; `stages` ring stages (< 0: as many as fit, 0:
+// synchronous loads), `lam_b` wavelengths per slab of phase
+// (b).  Returns a cudaError_t (0 on success), checked right after the
+// launch; the kernel itself runs asynchronously.
 int gibbs_sweep_launch(float* resid, const float* w, const float* quad,
                        const float* quad_lo, const float* qvox, float* clean,
                        const float* valid,
                        const float* spec, const float* imgs, const float* lsf,
                        const unsigned* keys, const float* uniforms,
                        float* live_out, float* dchi_out, float* uniforms_out,
-                       float* scratch, int C, int L, int f, int ny, int nx,
-                       int S, int lw, unsigned sweep, void* stream) {
+                       float* scratch, int C, int L, int Ls, int f, int ny,
+                       int nx, int S, int lw, int stages, int lam_b,
+                       unsigned sweep,
+                       void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, ny, nx)) return e;
   GibbsArgs a{resid, w, quad, quad_lo, qvox, clean, valid, spec, imgs, lsf, keys,
-              uniforms, live_out, dchi_out, uniforms_out, scratch, C, L, f,
-              ny, nx, S, lw, ny, nx, sweep};
-  const int nw = f < kMaxWarps ? f : kMaxWarps;
-  const long long tasks =
-      static_cast<long long>(C) * ny * nx * ((L + kChunk - 1) / kChunk);
-  return launch_cooperative(gibbs_sweep_kernel, &a, 32 * nw,
-                            gibbs_smem_bytes(S, f, L, C), tasks,
-                            static_cast<cudaStream_t>(stream));
+              uniforms, live_out, dchi_out, uniforms_out, scratch, nullptr,
+              nullptr, C, L, Ls, f, ny, nx, S, lw, ny, nx, 1, stages, lam_b,
+              C * ny * nx, sweep};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S == 1 ? launch_gibbs(gibbs_sweep_kernel<1>, &a, st)
+                : launch_gibbs(gibbs_sweep_kernel<kMaxRank>, &a, st);
 }
 
 }  // extern "C"

@@ -1,14 +1,22 @@
 // One Metropolis-Hastings step of the color-decomposed sweep: every chain's
 // spaxels of one Step (a color over the whole field in mh_sweep.cu, a color
-// inside one tile in tiled_sweep.cu), with its two grid barriers.
+// inside the tiles of one wave in tiled_sweep.cu), with its two grid
+// barriers.
 //
 //   phase 1  every (chain, spaxel, 32-wavelength chunk) task: lin over its
 //            chunk (f x f x 32 patch), the jump spectrum with the LSF halo,
-//            g, and its share of dchi2
+//            g, and its share of dchi2.  A block walks its tasks with the
+//            next ones' patches in flight (the ring of sweep_common.cuh),
+//            one block barrier per task: the row warps contract task i + 1
+//            while one service warp draws its jumps and asks the Tensor
+//            Memory Accelerator for task i + 1 + stages, and the other
+//            finishes task i (lin, band, share, stores).
 //   --- grid barrier ---
 //   phase 2  every task: dchi2 of its spaxel summed over the chunks in a
-//            fixed order, the accept decision (identical in all chunks),
-//            and on accept the commit of its chunk
+//            fixed order, the accept decision (identical in all chunks) --
+//            one warp per task, a block's warps deciding side by side --
+//            and on accept the commit of its chunk, the accepted patches
+//            of a batch streamed through the ring
 //   --- grid barrier ---
 //
 // A task's arithmetic depends neither on the chain batch nor on the step's
@@ -44,8 +52,8 @@ __device__ __forceinline__ float log_scale_step(float ls, float adapt,
 }
 
 struct MhArgs {
-  float* resid;            // [C, Hp, Wp, L]
-  const float* w;          // [Hp, Wp, L]
+  float* resid;            // [C, Hp, Wp, Ls] (the first L of a row are data)
+  const float* w;          // [Hp, Wp, Ls]
   const float* quad;       // [Yc, Xc, L]
   float* clean;            // [C, Yc, Xc, L]
   float* log_scale;        // [C, Yc, Xc]
@@ -58,46 +66,63 @@ struct MhArgs {
   float* accept_out;       // [C, f*f, nij]
   float* dchi_out;         // [C, f*f, nij]
   float* uniforms_out;     // [C, f*f, nij, L+1] or null
-  float* scratch;          // [tasks * (2 * kChunk + 1)] of one step
-  int C, L, f, ny, nx, S, lw;
-  int nyt, nxt;            // block rows / columns of a step
+  float* scratch;          // [tasks * (2 * kChunk + 1)] of the largest step
+  const int* wave_start;   // [n_waves + 1] into wave_tiles (tiled kernel)
+  const int* wave_tiles;   // raster indices of every wave's tiles
+  int C, L, Ls, f, ny, nx, S, lw;
+  int nyt, nxt;            // block rows / columns of a tile
+  int n_waves;
+  int stages;              // ring stages (0: synchronous loads)
   uint32_t sweep;
   float adapt, target;
 };
 
-// Shared memory of one block: FSF images, per-warp pooled partials, the
-// jump spectrum with its LSF halo, the chains' Philox keys.
+// Shared memory of one block: the ring's barriers, FSF images, per-warp
+// pooled partials and the jump spectrum with its LSF halo (two buffers
+// each: task i is finished while task i + 1 fills the other), the
+// decisions of a batch of tasks, the chains' Philox keys, the ring.
 struct MhShared {
   float* img;              // [S * f * f]
-  float* pool;             // [nw * S * kChunk]
-  float* jump;             // [kChunk + 2 * half]
+  float* pool;             // [2][row warps * S * kChunk]
+  float* jump;             // [2][kChunk + 2 * half]
+  float* flag;             // [warps]
   uint32_t* key;           // [2 * C]
+  float* ring;             // [stages][ring_stage_floats]
 };
 
-inline size_t mh_smem_bytes(int S, int f, int lw, int C) {
-  const int nw = f < kMaxWarps ? f : kMaxWarps;
-  return sizeof(float) * (static_cast<size_t>(S) * f * f +
-                          static_cast<size_t>(nw) * S * kChunk + kChunk +
-                          2 * (lw / 2) + 2 * static_cast<size_t>(C));
+__host__ __device__ inline size_t mh_fixed_floats(int S, int f, int lw, int C) {
+  const int nw = row_warps(f);
+  return ring_aligned(kBarFloats + static_cast<size_t>(S) * f * f +
+                      2 * static_cast<size_t>(nw) * S * kChunk +
+                      2 * static_cast<size_t>(kChunk + 2 * (lw / 2)) + nw +
+                      kServiceWarps + 2 * static_cast<size_t>(C));
 }
 
-// Carve the block's shared memory and load the keys and images.
-__device__ __forceinline__ MhShared mh_shared(const MhArgs& a, float* smem) {
-  const int nw = blockDim.x >> 5;
+// Carve the block's shared memory, set up the ring's barriers and load the
+// keys and images.
+__device__ __forceinline__ MhShared mh_shared(const MhArgs& a, float* smem,
+                                              PatchMaps& maps) {
+  const int nw = row_warps(a.f);
   MhShared s;
-  s.img = smem;
+  s.img = smem + kBarFloats;
   s.pool = s.img + a.S * a.f * a.f;
-  s.jump = s.pool + nw * a.S * kChunk;
-  s.key = reinterpret_cast<uint32_t*>(s.jump + kChunk + 2 * (a.lw / 2));
+  s.jump = s.pool + 2 * nw * a.S * kChunk;
+  s.flag = s.jump + 2 * (kChunk + 2 * (a.lw / 2));
+  s.key = reinterpret_cast<uint32_t*>(s.flag + nw + kServiceWarps);
+  s.ring = smem + mh_fixed_floats(a.S, a.f, a.lw, a.C);
+  ring_init(smem, maps);
   for (int k = threadIdx.x; k < 2 * a.C; k += blockDim.x) s.key[k] = a.keys[k];
   load_images(s.img, a.imgs, a.S * a.f * a.f);
   return s;
 }
 
+template <int kS>
 __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
+                                        float* smem, PatchMaps& maps,
                                         const Step& st,
-                                        cooperative_groups::grid_group& grid) {
-  const int L = a.L, f = a.f, S = a.S, lw = a.lw, half = lw / 2;
+                                        cooperative_groups::grid_group& grid,
+                                        TaskClocks& clk) {
+  const int L = a.L, Ls = a.Ls, f = a.f, S = a.S, lw = a.lw, half = lw / 2;
   const int nij = a.ny * a.nx, n_colors = f * f;
   const int Yc = a.ny * f, Xc = a.nx * f;
   const int Hp = f - 1 + Yc, Wp = f - 1 + Xc;
@@ -105,103 +130,254 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
   const int nst = st.spaxels();
   const int tasks = a.C * nst * P;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nt = blockDim.x;
-  const int c = st.c, cy = st.cy, cx = st.cx;
+  const int nt = blockDim.x, nw = nt >> 5, nwv = row_warps(f);
+  const int c = st.c;
+  const int stages = a.stages;
+  const Ring ring(smem, sh.ring, stages, S, f, lw);
+  const int npool = nwv * S * kChunk, njump = kChunk + 2 * half;
+  const int mine = block_share(tasks);
+  const size_t chain = static_cast<size_t>(Hp) * Wp * Ls;
   float* g_buf = a.scratch;                       // [tasks * kChunk]
   float* jump_buf = g_buf + static_cast<size_t>(tasks) * kChunk;
   float* part_buf = jump_buf + static_cast<size_t>(tasks) * kChunk;  // [tasks]
+  auto task = [&](int i) {
+    return task_of(static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x),
+                   P, nst, st, a.nx, f, Xc);
+  };
 
   // ---------------- phase 1: lin, jumps, g, partial dchi2 -----------------
-  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
-    const int cs = t / P;                      // chain * nst + local spaxel
-    const int ch = cs / nst, ij = st.ij(cs % nst, a.nx);
-    const int l0 = (t % P) * kChunk;
-    const int ys = (ij / a.nx) * f + cy;       // spaxel row == patch top row
-    const int xs = (ij % a.nx) * f + cx;
-    const int sp = ys * Xc + xs;
-    const int l = l0 + lane;
-    const bool on = l < L;
-    const float v = a.valid[sp];
-    patch_partials(a.resid + static_cast<size_t>(ch) * Hp * Wp * L, a.w,
-                   sh.img, sh.pool, (static_cast<size_t>(ys) * Wp + xs) * L + l,
-                   on, Wp, L, f, S);
-
-    // jump spectrum over the chunk plus the LSF halo
-    const size_t ubase = (static_cast<size_t>(ch * n_colors + c) * nij + ij) * (L + 1);
-    const uint32_t k0 = sh.key[2 * ch], k1 = sh.key[2 * ch + 1];
-    const float scale = expf(a.log_scale[static_cast<size_t>(ch) * Yc * Xc + sp]);
-    for (int k = threadIdx.x; k < kChunk + 2 * half; k += nt) {
-      const int m = l0 - half + k;
-      float jump = 0.0f;
-      if (m >= 0 && m < L) {
-        const float u = a.uniforms
-                            ? a.uniforms[ubase + m]
-                            : jump_uniform(k0, k1, a.sweep, c, ij, m);
-        if (a.uniforms_out && k >= half && k < half + kChunk)
-          a.uniforms_out[ubase + m] = u;
-        jump = mh_jump(u, scale, v);
-      }
-      sh.jump[k] = jump;
+  const bool draws = warp == nwv, finishes = warp == nwv + 1;
+  // the drawing warp's lane 0: the patches of task i into their stage
+  auto produce = [&](int i) {
+    if (lane == 0 && i < mine) {
+      const Task k = task(i);
+      ring.produce(maps, i % stages, k.l0, k.xs, k.ys, k.ch, true);
     }
-    __syncthreads();
-    if (warp == 0) {
-      float part = 0.0f, g = 0.0f;
-      if (on) {
-        const float lin = partials_to_lin(sh.pool, a.spec, l, L, S);
+  };
+  // the finishing warp: the tail's operands of task i at each lane's
+  // wavelength, one copy group per task (empty past the last one)
+  auto copy_tail = [&](int i) {
+    if (i < mine) {
+      const Task k = task(i);
+      const int slot = i % stages, l = k.l0 + lane;
+      if (l < L) {
         for (int d = 0; d < lw; ++d)
-          g = band_term(g, a.lsf[l * lw + d], sh.jump[lane + d]);
-        part = mh_share(g, a.quad[static_cast<size_t>(sp) * L + l], lin);
+          cp_async4(ring.lsf(slot) + lane * lw + d,
+                    a.lsf + static_cast<size_t>(l) * lw + d);
+        cp_async4(ring.quad(slot) + lane,
+                  a.quad + static_cast<size_t>(k.sp) * L + l);
+        for (int s = 0; s < S; ++s)
+          cp_async4(ring.spec(slot) + s * kChunk + lane,
+                    a.spec + static_cast<size_t>(s) * L + l);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < stages; ++i) {
+    if (draws) produce(i);
+    if (finishes) copy_tail(i);
+  }
+  clk.mark(0);                                   // decode, first copies
+  for (int i = 0; i < mine; ++i) {
+    const Task k = task(i);
+    const int slot = stages ? i % stages : 0, buf = i & 1;
+    const int l = k.l0 + lane;
+    const bool on = l < L;
+    float* pool = sh.pool + buf * npool;
+    float* jump_s = sh.jump + buf * njump;
+    if (stages && (draws || finishes)) ring.consume(maps, slot, false);
+    if (draws) {
+      // jump spectrum over the chunk plus the LSF halo
+      const float v = a.valid[k.sp];
+      const size_t ubase =
+          (static_cast<size_t>(k.ch * n_colors + c) * nij + k.ij) * (L + 1);
+      const uint32_t k0 = sh.key[2 * k.ch], k1 = sh.key[2 * k.ch + 1];
+      const float scale =
+          expf(a.log_scale[static_cast<size_t>(k.ch) * Yc * Xc + k.sp]);
+      for (int q = lane; q < njump; q += 32) {
+        const int m = k.l0 - half + q;
+        float jump = 0.0f;
+        if (m >= 0 && m < L) {
+          const float u = a.uniforms
+                              ? a.uniforms[ubase + m]
+                              : jump_uniform(k0, k1, a.sweep, c, k.ij, m);
+          if (a.uniforms_out && q >= half && q < half + kChunk)
+            a.uniforms_out[ubase + m] = u;
+          jump = mh_jump(u, scale, v);
+        }
+        jump_s[q] = jump;
+      }
+    } else if (!finishes) {
+      if (stages) {
+        ring.consume(maps, slot);
+        clk.mark(2);                             // waiting for the copies
+        staged_partials<kS>(ring.rs(slot), ring.ws(slot), sh.img, pool, on, f, S);
+      } else {
+        patch_partials<kS>(a.resid + k.ch * chain, a.w, sh.img, pool,
+                       (static_cast<size_t>(k.ys) * Wp + k.xs) * Ls + l, on,
+                       Wp, Ls, f, S);
+      }
+    }
+    clk.mark(3);                                 // partials
+    __syncthreads();   // partials and jumps are whole; the stage is consumed
+    clk.mark(4);                                 // block barrier
+    if (draws && stages) produce(i + stages);
+    if (finishes) {
+      const int t =
+          static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
+      float part = 0.0f, g = 0.0f;
+      if (stages) cp_async_wait(stages - 1);     // this task's operands
+      if (on) {
+        const float* spec = stages ? ring.spec(slot) + lane : a.spec + l;
+        const float* lsf = stages ? ring.lsf(slot) + lane * lw
+                                  : a.lsf + static_cast<size_t>(l) * lw;
+        const float q = stages ? ring.quad(slot)[lane]
+                               : a.quad[static_cast<size_t>(k.sp) * L + l];
+        const float lin =
+            partials_to_lin<kS>(pool, spec, stages ? kChunk : L, S, nwv);
+        for (int d = 0; d < lw; ++d)
+          g = band_term(g, lsf[d], jump_s[lane + d]);
+        part = mh_share(g, q, lin);
       }
       part = warp_sum(part);
       g_buf[static_cast<size_t>(t) * kChunk + lane] = g;
-      jump_buf[static_cast<size_t>(t) * kChunk + lane] = sh.jump[lane + half];
+      jump_buf[static_cast<size_t>(t) * kChunk + lane] = jump_s[lane + half];
       if (lane == 0) part_buf[t] = part;
+      if (stages) copy_tail(i + stages);
     }
-    __syncthreads();   // shared buffers are reused by the next task
+    clk.count(12);
   }
+  if (stages && finishes) cp_async_wait(0);
   grid.sync();
+  clk.mark(6);                                   // grid barrier 1
   // ---------------- phase 2: accept, commit --------------------------------
-  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
-    const int cs = t / P, chunk = t % P, l0 = chunk * kChunk;
-    const int ch = cs / nst, ij = st.ij(cs % nst, a.nx);
-    const int ys = (ij / a.nx) * f + cy;
-    const int xs = (ij % a.nx) * f + cx;
-    const int sp = ys * Xc + xs;
-    const int l = l0 + lane;
-    const float v = a.valid[sp];
-    const size_t out = static_cast<size_t>(ch * n_colors + c) * nij + ij;
-    // dchi2 of the spaxel: every warp sums the P chunk partials in the
-    // same fixed order, so every thread holds the same value
-    float dchi = 0.0f;
-    for (int q = lane; q < P; q += 32) dchi += part_buf[static_cast<size_t>(cs) * P + q];
-    dchi = warp_sum(dchi);
-    const float u2 = a.uniforms
-                         ? a.uniforms[out * (L + 1) + L]
-                         : accept_uniform(sh.key[2 * ch], sh.key[2 * ch + 1],
-                                          a.sweep, c, ij);
-    const bool acc = (logf(u2) < -0.5f * dchi) && (v > 0.0f);
-    // the spaxel's outputs first: nothing but the commit's own values
-    // stays live across the commit loop
-    if (chunk == 0 && threadIdx.x == 0) {
-      if (a.uniforms_out) a.uniforms_out[out * (L + 1) + L] = u2;
-      const float accf = acc ? 1.0f : 0.0f;
-      a.accept_out[out] = accf;
-      a.dchi_out[out] = dchi;
-      float* ls = a.log_scale + static_cast<size_t>(ch) * Yc * Xc + sp;
-      *ls = log_scale_step(*ls, a.adapt, accf, a.target, v);
+  for (int i0 = 0; i0 < mine; i0 += nw) {
+    // the decisions of nw tasks side by side, one warp each
+    if (i0 + warp < mine) {
+      const Task k = task(i0 + warp);
+      const float v = a.valid[k.sp];
+      const size_t out = static_cast<size_t>(k.ch * n_colors + c) * nij + k.ij;
+      // dchi2 of the spaxel: the P chunk partials in a fixed order
+      float dchi = 0.0f;
+      for (int q = lane; q < P; q += 32)
+        dchi += part_buf[static_cast<size_t>(k.cs) * P + q];
+      dchi = warp_sum(dchi);
+      const float u2 = a.uniforms
+                           ? a.uniforms[out * (L + 1) + L]
+                           : accept_uniform(sh.key[2 * k.ch],
+                                            sh.key[2 * k.ch + 1], a.sweep, c,
+                                            k.ij);
+      const bool acc = (logf(u2) < -0.5f * dchi) && (v > 0.0f);
+      if (lane == 0) {
+        sh.flag[warp] = acc ? 1.0f : 0.0f;
+        if (k.l0 == 0) {                         // the spaxel's outputs
+          if (a.uniforms_out) a.uniforms_out[out * (L + 1) + L] = u2;
+          const float accf = acc ? 1.0f : 0.0f;
+          a.accept_out[out] = accf;
+          a.dchi_out[out] = dchi;
+          float* ls = a.log_scale + static_cast<size_t>(k.ch) * Yc * Xc + k.sp;
+          *ls = log_scale_step(*ls, a.adapt, accf, a.target, v);
+        }
+      }
     }
-    if (acc && l < L) {
+    __syncthreads();
+    clk.mark(7);                                 // decisions
+    const int nb = min(nw, mine - i0);           // tasks of this batch
+    // the batch's accepted tasks, in order
+    auto next_accepted = [&](int j) {
+      do ++j; while (j < nb && sh.flag[j] == 0.0f);
+      return j;
+    };
+    auto commit = [&](int j, const float* rs, float g) {
+      const Task k = task(i0 + j);
+      const int t = static_cast<int>(blockIdx.x) +
+                    (i0 + j) * static_cast<int>(gridDim.x);
+      const int l = k.l0 + lane;
+      if (l >= L) return;
       if (warp == 0) {
-        float* cl = a.clean + (static_cast<size_t>(ch) * Yc * Xc + sp) * L + l;
+        float* cl = a.clean + (static_cast<size_t>(k.ch) * Yc * Xc + k.sp) * L + l;
         *cl = __fadd_rn(*cl, jump_buf[static_cast<size_t>(t) * kChunk + lane]);
       }
-      patch_commit(a.resid + static_cast<size_t>(ch) * Hp * Wp * L, sh.img,
-                   a.spec, g_buf[static_cast<size_t>(t) * kChunk + lane],
-                   (static_cast<size_t>(ys) * Wp + xs) * L + l, l, Wp, L,
-                   f, S);
+      const size_t row0 = (static_cast<size_t>(k.ys) * Wp + k.xs) * Ls + l;
+      if (rs)
+        staged_commit<kS>(a.resid + k.ch * chain, rs, sh.img, a.spec, g, row0,
+                          l, Wp, L, Ls, f, S);
+      else
+        patch_commit<kS>(a.resid + k.ch * chain, sh.img, a.spec,
+                         g_buf[static_cast<size_t>(t) * kChunk + lane], row0,
+                         l, Wp, L, Ls, f, S);
+      clk.count(13);
+    };
+    if (stages) {
+      // streamed through the ring: thread 0 asks for the residual patch of
+      // the accepted task after `jp`, every thread copies g at its lane's
+      // wavelength (one copy group per call, empty past the last task)
+      int jp = -1;
+      auto ask = [&](int slot) {
+        if (jp < nb) jp = next_accepted(jp);
+        if (jp < nb) {
+          const Task k = task(i0 + jp);
+          const int t = static_cast<int>(blockIdx.x) +
+                        (i0 + jp) * static_cast<int>(gridDim.x);
+          if (threadIdx.x == 0)
+            ring.produce(maps, slot, k.l0, k.xs, k.ys, k.ch, false);
+          if (k.l0 + lane < L)
+            cp_async4(ring.own(slot) + threadIdx.x,
+                      g_buf + static_cast<size_t>(t) * kChunk + lane);
+        }
+        cp_async_commit();
+      };
+      for (int slot = 0; slot < stages; ++slot) ask(slot);
+      int n = 0;
+      for (int j = next_accepted(-1); j < nb; j = next_accepted(j), ++n) {
+        const int slot = n % stages;
+        cp_async_wait(stages - 1);
+        ring.consume(maps, slot);
+        commit(j, ring.rs(slot), ring.own(slot)[threadIdx.x]);
+        __syncthreads();                         // the stage is consumed
+        ask(slot);
+      }
+      cp_async_wait(0);
+    } else {
+      for (int j = next_accepted(-1); j < nb; j = next_accepted(j))
+        commit(j, nullptr, 0.0f);
     }
+    __syncthreads();                             // the flags are reused
+    clk.mark(8);                                 // commits
   }
+  if (stages) fence_async_proxy();   // the commits, before the next copies
   grid.sync();         // the step is committed before the next one reads
+  clk.mark(9);                                   // grid barrier 2
+}
+
+// Launch `kernel(args, map of the residual, map of the weights)`: the ring's
+// stages (`a->stages` < 0: as many as fit; the ring needs rows padded to 16
+// bytes), the shared memory, and a grid for `spaxels` (chain, spaxel)s in
+// the largest step.
+template <typename Kernel>
+inline int launch_mh(Kernel kernel, MhArgs* a, long long spaxels,
+                     cudaStream_t stream) {
+  const int threads = block_threads(a->f);
+  const int Hp = a->f - 1 + a->ny * a->f, Wp = a->f - 1 + a->nx * a->f;
+  const size_t fixed = sizeof(float) * mh_fixed_floats(a->S, a->f, a->lw, a->C);
+  const size_t stage =
+      sizeof(float) * ring_stage_floats(a->S, a->f, a->lw, threads);
+  size_t optin = 0;
+  if (const int e = smem_optin(&optin)) return e;
+  if (fixed > optin || a->Ls < a->L) return static_cast<int>(cudaErrorInvalidValue);
+  a->stages = pick_stages(a->Ls % 4 == 0 ? optin - fixed : 0, stage, a->stages);
+  if (a->stages < 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_r{}, map_w{};
+  if (a->stages > 0) {
+    if (const int e = patch_map(&map_r, a->resid, a->C, Hp, Wp, a->L, a->Ls, a->f))
+      return e;
+    if (const int e = patch_map(&map_w, a->w, 1, Hp, Wp, a->L, a->Ls, a->f))
+      return e;
+  }
+  void* params[] = {a, &map_r, &map_w};
+  return launch_cooperative(kernel, params, threads,
+                            fixed + a->stages * stage,
+                            spaxels * ((a->L + kChunk - 1) / kChunk), stream);
 }
 
 }  // namespace deconv3d

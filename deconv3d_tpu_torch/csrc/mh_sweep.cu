@@ -18,12 +18,15 @@
 // the spaxels of one color are independent, and so are the chains; within
 // a spaxel every wavelength of the patch contraction and of the commit is
 // independent.  The work of one color is cut into TASKS of (chain, spaxel,
-// 32-wavelength chunk): a thread block of 32 x min(f, 18) threads takes a
-// task, lanes on wavelengths and warps on patch rows (sweep_common.cuh).
+// 32-wavelength chunk): a thread block of min(f, 18) row warps (and two
+// service warps) takes a task, lanes on wavelengths and warps on patch rows
+// (sweep_common.cuh).
 // Colors depend on each other, so the sweep is ONE cooperative launch for
 // all chains, one step per color: the two phases and two grid barriers of
 // mh_step.cuh (shared with the tiled kernel, tiled_sweep.cu) over every
-// spaxel of the color.
+// spaxel of the color, each block walking its tasks with the next ones'
+// patches in flight (the ring of sweep_common.cuh) and two service warps
+// beside the row warps.
 //
 // The chains share the weights, quad, FSF and LSF, and the barriers: a
 // batch of C chains pays the 2 f^2 barriers of a sweep once.  A task's
@@ -41,7 +44,8 @@
 // sweep: the sweep is bound by L2 latency and barriers, not by bandwidth.
 // A batch of chains multiplies the tasks per barrier (32 chains: 2432
 // tasks).  On the full MUSE range (L=3681) the state leaves L2 and the f^2
-// re-reads go to HBM.
+// re-reads go to HBM: the ring's copies then run the card's memory at
+// about two thirds of its rate, and that is the sweep's time (PERF.md).
 //
 // Per-(chain, color, spaxel) outputs: the accept flag and the proposed
 // dchi2; the wrapper sums accepted dchi2 in a fixed order and applies each
@@ -54,27 +58,35 @@ namespace cg = cooperative_groups;
 
 namespace deconv3d {
 
-__global__ void __launch_bounds__(kMaxThreads) mh_sweep_kernel(MhArgs a) {
-  extern __shared__ float smem[];
-  const MhShared sh = mh_shared(a, smem);
+template <int kS>
+__global__ void __launch_bounds__(kMaxThreads)
+    mh_sweep_kernel(MhArgs a, const __grid_constant__ CUtensorMap map_r,
+                    const __grid_constant__ CUtensorMap map_w) {
+  extern __shared__ __align__(128) float smem[];
+  PatchMaps maps{&map_r, &map_w};
+  const MhShared sh = mh_shared(a, smem, maps);
   cg::grid_group grid = cg::this_grid();
+  TaskClocks clk(smem);
   for (int c = 0; c < a.f * a.f; ++c)
-    mh_step(a, sh, Step(c, a.f, 0, 0, a.ny, a.nx), grid);
+    mh_step<kS>(a, sh, smem, maps, Step::whole(c, a.f, a.ny, a.nx), grid, clk);
+  clk.flush();
 }
 
 }  // namespace deconv3d
 
 extern "C" {
 
-// Floats of scratch one step over ny x nx spaxels of C chains needs
-// (per-task g, jumps and dchi2 shares).
-long long mh_sweep_scratch_floats(int C, int L, int ny, int nx) {
-  const long long tasks = static_cast<long long>(C) * ny * nx *
-                          ((L + deconv3d::kChunk - 1) / deconv3d::kChunk);
+// Floats of scratch a step over `spaxels` (chain, spaxel)s needs (per-task
+// g, jumps and dchi2 shares).
+long long mh_sweep_scratch_floats(int L, long long spaxels) {
+  const long long tasks =
+      spaxels * ((L + deconv3d::kChunk - 1) / deconv3d::kChunk);
   return tasks * (2 * deconv3d::kChunk + 1);
 }
 
-// Launch one sweep of C chains on `stream`.  Returns a cudaError_t (0 on
+// Launch one sweep of C chains on `stream`; the rows of `resid` and `w`
+// hold `Ls` >= L floats; `stages` ring stages (< 0: as many as fit, 0:
+// synchronous loads).  Returns a cudaError_t (0 on
 // success), checked right after the launch; the kernel itself runs
 // asynchronously.
 int mh_sweep_launch(float* resid, const float* w, const float* quad,
@@ -82,20 +94,19 @@ int mh_sweep_launch(float* resid, const float* w, const float* quad,
                     const float* spec, const float* imgs, const float* lsf,
                     const unsigned* keys, const float* uniforms,
                     float* accept_out, float* dchi_out, float* uniforms_out,
-                    float* scratch, int C, int L, int f, int ny, int nx, int S,
-                    int lw, unsigned sweep, float adapt, float target,
-                    void* stream) {
+                    float* scratch, int C, int L, int Ls, int f, int ny, int nx,
+                    int S, int lw, int stages, unsigned sweep, float adapt,
+                    float target, void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, ny, nx)) return e;
   MhArgs a{resid, w, quad, clean, log_scale, valid, spec, imgs, lsf, keys,
-           uniforms, accept_out, dchi_out, uniforms_out, scratch, C, L, f,
-           ny, nx, S, lw, ny, nx, sweep, adapt, target};
-  const int nw = f < kMaxWarps ? f : kMaxWarps;
-  const long long tasks =
-      static_cast<long long>(C) * ny * nx * ((L + kChunk - 1) / kChunk);
-  return launch_cooperative(mh_sweep_kernel, &a, 32 * nw,
-                            mh_smem_bytes(S, f, lw, C), tasks,
-                            static_cast<cudaStream_t>(stream));
+           uniforms, accept_out, dchi_out, uniforms_out, scratch, nullptr,
+           nullptr, C, L, Ls, f, ny, nx, S, lw, ny, nx, 1, stages, sweep, adapt,
+           target};
+  const long long spaxels = static_cast<long long>(C) * ny * nx;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S == 1 ? launch_mh(mh_sweep_kernel<1>, &a, spaxels, st)
+                : launch_mh(mh_sweep_kernel<kMaxRank>, &a, spaxels, st);
 }
 
 }  // extern "C"

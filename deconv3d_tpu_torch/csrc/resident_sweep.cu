@@ -220,7 +220,7 @@ __device__ __forceinline__ void all_geometry(const Resident& g, int ny,
                                              int* geo, float* vt) {
   for (int t = threadIdx.x; t < g.n_colors * g.ncs; t += blockDim.x) {
     const int c = t / g.ncs, cs = t - c * g.ncs;
-    const Step st(c, g.f, 0, 0, ny, nx);
+    const Step st = Step::whole(c, g.f, ny, nx);
     const int ch = cs / g.nij, ij = st.ij(cs % g.nij, nx);
     const int ys = (ij / nx) * g.f + st.cy, xs = (ij % nx) * g.f + st.cx;
     int* e = geo + kGeo * t;

@@ -10,10 +10,8 @@
 // nyt * nxt spaxels of that color with the per-spaxel math of the
 // whole-cube kernels (mh_step.cuh, gibbs_step.cuh).  A step sees every
 // earlier step's commit: the windows of neighbouring tiles overlap by
-// f - 1 rows and columns of halo, so the steps run one after another,
-// separated by grid barriers -- the last color of tile t is committed
-// before the first color of tile t + 1 reads.  This is a different fixed
-// scan than the whole-cube kernels' color-major one, and an equally valid
+// f - 1 rows and columns of halo.  This is a different fixed scan than the
+// whole-cube kernels' color-major one, and an equally valid
 // MH-within-Gibbs scan of the same posterior.
 //
 // Random numbers are keyed as in the whole-cube kernels, by (lambda >> 2,
@@ -23,26 +21,36 @@
 // the order of their visits, and one tile (nyt, nxt) = (ny, nx) is the
 // whole-cube kernel's sweep bit for bit.
 //
-// Design: one cooperative launch per sweep for all chains; per step the
-// two (MH) or three (gibbs) phases and grid barriers of the whole-cube
-// kernels, restricted to the tile's (chain, spaxel, 32-wavelength chunk)
-// tasks.  The TPU kernel copies each tile's window (owned rows + f - 1
-// halo) into VMEM at its first color and back at its last; here the window
-// is not copied: it is the region of the residual and weights the tile's
-// f^2 steps touch, and it stays in the 50 MB L2 across them when the tile
-// is planned under the L2 budget (ops/tiled.py plan_tiles).
+// Design, redone for this card.  The TPU runs its grid in order on one
+// core and copies each tile's window into VMEM; on the H100 a raster of
+// tiles leaves 130 of 132 SMs idle -- a (1, 2) tile of the full MUSE field
+// is 2 spaxels, 232 tasks, per step, and 162 * 289 = 46,818 dependent
+// steps per sweep.  So:
+//   * The schedule is data: a table of waves, each a list of tiles, and a
+//     step is one color over ALL tiles of a wave.  The wavefront schedule
+//     (ops/tiled.py wave_schedule) puts tile (ti, tj) in wave 2 ti + tj:
+//     every neighbour that precedes it in raster order -- (ti, tj-1),
+//     (ti-1, tj-1), (ti-1, tj), (ti-1, tj+1) -- is in an earlier wave,
+//     every later one in a later wave, and the tiles of one wave share no
+//     window (two tile columns apart: nxt f - f + 1 >= 1 columns between
+//     their windows), so the sweep is the raster sweep bit for bit in
+//     2 (Ty - 1) + Tx waves instead of Ty Tx.  The raster is the schedule
+//     of one tile per wave.
+//   * Each block walks its (chain, spaxel, 32-wavelength chunk) tasks with
+//     the next patches in flight (the ring of sweep_common.cuh).
+//   * Gibbs phase (b) of one (chain, spaxel) runs on ceil(L / lam_b)
+//     blocks, each over its slab's window (gibbs_step.cuh).
+// One cooperative launch per sweep for all chains; per step the two (MH)
+// or three (gibbs) grid barriers of the whole-cube kernels.  The window is
+// not copied: it is the region of the residual and weights a tile's f^2
+// steps touch; a raster of tiles planned under the L2 budget keeps it in
+// the 50 MB L2, the windows of a wave together do not fit it.
 //
-// What bounds it.  The dependent steps: n_tiles * f^2 per sweep, each
-// with 2 (MH) or 3 (gibbs) grid barriers (the full MUSE field, 18 x 18
-// spaxel blocks at f = 17, with (1, 2) tiles: 162 * 289 = 46,818 steps),
-// and only C * nyt * nxt spaxels of work per step (2 spaxels x 116 chunks
-// per chain at L = 3681; gibbs phase (b) on 2 blocks while the rest of the
-// grid waits).  Then L2 -> HBM traffic where a window spills.  Against the
-// whole-cube kernel the trade is fewer re-reads from HBM (each residual
-// voxel is still read f^2 times, but from L2) for n_tiles times more
-// barriers and phase loops; on the H100 the second weighs more (PERF.md).
-// Running tiles that share no halo concurrently (a wavefront keeping
-// raster semantics) and pinning the window in L2 are later work.
+// What bounds it.  Every residual and weight voxel is read f^2 times per
+// sweep (and the residual written back at every commit): 289 x 3.05 GB at
+// the full field, 0.26 s of HBM time for the reads alone unless a window
+// stays in L2.  Then the dependent steps: (waves) * f^2, each with 2 or 3
+// grid barriers.  PERF.md has the measured split.
 
 #include "gibbs_step.cuh"
 #include "mh_step.cuh"
@@ -51,84 +59,128 @@ namespace cg = cooperative_groups;
 
 namespace deconv3d {
 
-__global__ void __launch_bounds__(kMaxThreads) tiled_mh_kernel(MhArgs a) {
-  extern __shared__ float smem[];
-  const MhShared sh = mh_shared(a, smem);
+template <int kS>
+__global__ void __launch_bounds__(kMaxThreads)
+    tiled_mh_kernel(MhArgs a, const __grid_constant__ CUtensorMap map_r,
+                    const __grid_constant__ CUtensorMap map_w) {
+  extern __shared__ __align__(128) float smem[];
+  PatchMaps maps{&map_r, &map_w};
+  const MhShared sh = mh_shared(a, smem, maps);
   cg::grid_group grid = cg::this_grid();
+  TaskClocks clk(smem);
   const int n_colors = a.f * a.f, ntx = a.nx / a.nxt;
-  const int n_steps = (a.ny / a.nyt) * ntx * n_colors;
-  for (int k = 0; k < n_steps; ++k) {      // tiles in raster order, colors
-    const int t = k / n_colors;            // inside each tile
-    mh_step(a, sh, Step(k % n_colors, a.f, (t / ntx) * a.nyt,
-                        (t % ntx) * a.nxt, a.nyt, a.nxt), grid);
+  for (int wv = 0; wv < a.n_waves; ++wv) {     // waves in order; inside each
+    const int t0 = a.wave_start[wv];           // wave, the colors in order
+    const int n = a.wave_start[wv + 1] - t0;   // over all its tiles
+    for (int c = 0; c < n_colors; ++c)
+      mh_step<kS>(a, sh, smem, maps,
+              Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n), grid, clk);
   }
+  clk.flush();
 }
 
+template <int kS>
 __global__ void __launch_bounds__(kMaxThreads)
-    tiled_gibbs_kernel(GibbsArgs a) {
-  extern __shared__ float smem[];
-  const GibbsShared sh = gibbs_shared(a, smem);
+    tiled_gibbs_kernel(GibbsArgs a, const __grid_constant__ CUtensorMap map_r,
+                       const __grid_constant__ CUtensorMap map_w) {
+  extern __shared__ __align__(128) float smem[];
+  PatchMaps maps{&map_r, &map_w};
+  const GibbsShared sh = gibbs_shared(a, smem, maps);
   cg::grid_group grid = cg::this_grid();
+  TaskClocks clk(smem);
   const int n_colors = a.f * a.f, ntx = a.nx / a.nxt;
-  const int n_steps = (a.ny / a.nyt) * ntx * n_colors;
-  for (int k = 0; k < n_steps; ++k) {
-    const int t = k / n_colors;
-    gibbs_step(a, sh, Step(k % n_colors, a.f, (t / ntx) * a.nyt,
-                           (t % ntx) * a.nxt, a.nyt, a.nxt), grid);
+  for (int wv = 0; wv < a.n_waves; ++wv) {
+    const int t0 = a.wave_start[wv];
+    const int n = a.wave_start[wv + 1] - t0;
+    for (int c = 0; c < n_colors; ++c)
+      gibbs_step<kS>(a, sh, smem, maps,
+                 Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n), grid,
+                 clk);
   }
+  clk.flush();
+}
+
+inline int check_schedule(const void* wave_start, const void* wave_tiles,
+                          int n_waves, int max_tiles) {
+  if (!wave_start || !wave_tiles || n_waves < 1 || max_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace deconv3d
 
 extern "C" {
 
-// Launch one tiled MH sweep of C chains with nyt x nxt tiles on `stream`;
-// `scratch` holds mh_sweep_scratch_floats(C, L, nyt, nxt) floats.  Returns
-// a cudaError_t (0 on success), checked right after the launch.
+#ifdef TASK_PHASE_CLOCKS
+// Copy out and clear the task clocks of a measurement build.
+int task_phase_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(
+      out, deconv3d::task_clocks,
+      deconv3d::kTaskClocks * sizeof(unsigned long long));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[deconv3d::kTaskClocks] = {0};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(deconv3d::task_clocks, zero, sizeof(zero)));
+}
+#endif
+
+// Launch one tiled MH sweep of C chains with nyt x nxt tiles on `stream`,
+// in the order of the schedule `wave_start` [n_waves + 1] / `wave_tiles`
+// (device ints; at most `max_tiles` tiles in a wave); the rows of `resid`
+// and `w` hold `Ls` >= L floats; `scratch` holds
+// mh_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats.  Returns a
+// cudaError_t (0 on success), checked right after the launch.
 int tiled_mh_launch(float* resid, const float* w, const float* quad,
                     float* clean, float* log_scale, const float* valid,
                     const float* spec, const float* imgs, const float* lsf,
                     const unsigned* keys, const float* uniforms,
                     float* accept_out, float* dchi_out, float* uniforms_out,
-                    float* scratch, int C, int L, int f, int ny, int nx, int S,
-                    int lw, int nyt, int nxt, unsigned sweep, float adapt,
+                    float* scratch, const int* wave_start,
+                    const int* wave_tiles, int C, int L, int Ls, int f, int ny,
+                    int nx, int S, int lw, int nyt, int nxt, int n_waves,
+                    int max_tiles, int stages, unsigned sweep, float adapt,
                     float target, void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, nyt, nxt)) return e;
+  if (const int e = check_schedule(wave_start, wave_tiles, n_waves, max_tiles))
+    return e;
   MhArgs a{resid, w, quad, clean, log_scale, valid, spec, imgs, lsf, keys,
-           uniforms, accept_out, dchi_out, uniforms_out, scratch, C, L, f,
-           ny, nx, S, lw, nyt, nxt, sweep, adapt, target};
-  const int nw = f < kMaxWarps ? f : kMaxWarps;
-  const long long tasks =
-      static_cast<long long>(C) * nyt * nxt * ((L + kChunk - 1) / kChunk);
-  return launch_cooperative(tiled_mh_kernel, &a, 32 * nw,
-                            mh_smem_bytes(S, f, lw, C), tasks,
-                            static_cast<cudaStream_t>(stream));
+           uniforms, accept_out, dchi_out, uniforms_out, scratch, wave_start,
+           wave_tiles, C, L, Ls, f, ny, nx, S, lw, nyt, nxt, n_waves, stages,
+           sweep, adapt, target};
+  const long long spaxels = static_cast<long long>(C) * max_tiles * nyt * nxt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S == 1 ? launch_mh(tiled_mh_kernel<1>, &a, spaxels, st)
+                : launch_mh(tiled_mh_kernel<kMaxRank>, &a, spaxels, st);
 }
 
-// Launch one tiled exact-Gibbs sweep of C chains with nyt x nxt tiles on
-// `stream`; `scratch` holds gibbs_sweep_scratch_floats(C, L, nyt, nxt)
-// floats.  Returns a cudaError_t (0 on success).
+// Launch one tiled exact-Gibbs sweep of C chains, as tiled_mh_launch;
+// `lam_b` wavelengths per slab of phase (b); `scratch` holds
+// gibbs_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats.
+// Returns a cudaError_t (0 on success).
 int tiled_gibbs_launch(float* resid, const float* w, const float* quad,
                        const float* quad_lo, const float* qvox, float* clean,
                        const float* valid, const float* spec,
                        const float* imgs, const float* lsf,
                        const unsigned* keys, const float* uniforms,
                        float* live_out, float* dchi_out, float* uniforms_out,
-                       float* scratch, int C, int L, int f, int ny, int nx,
-                       int S, int lw, int nyt, int nxt, unsigned sweep,
+                       float* scratch, const int* wave_start,
+                       const int* wave_tiles, int C, int L, int Ls, int f,
+                       int ny, int nx, int S, int lw, int nyt, int nxt, int n_waves,
+                       int max_tiles, int stages, int lam_b,
+                       unsigned sweep,
                        void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, nyt, nxt)) return e;
+  if (const int e = check_schedule(wave_start, wave_tiles, n_waves, max_tiles))
+    return e;
   GibbsArgs a{resid, w, quad, quad_lo, qvox, clean, valid, spec, imgs, lsf,
-              keys, uniforms, live_out, dchi_out, uniforms_out, scratch, C, L,
-              f, ny, nx, S, lw, nyt, nxt, sweep};
-  const int nw = f < kMaxWarps ? f : kMaxWarps;
-  const long long tasks =
-      static_cast<long long>(C) * nyt * nxt * ((L + kChunk - 1) / kChunk);
-  return launch_cooperative(tiled_gibbs_kernel, &a, 32 * nw,
-                            gibbs_smem_bytes(S, f, L, C), tasks,
-                            static_cast<cudaStream_t>(stream));
+              keys, uniforms, live_out, dchi_out, uniforms_out, scratch,
+              wave_start, wave_tiles, C, L, Ls, f, ny, nx, S, lw, nyt, nxt,
+              n_waves, stages, lam_b, C * max_tiles * nyt * nxt, sweep};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S == 1 ? launch_gibbs(tiled_gibbs_kernel<1>, &a, st)
+                : launch_gibbs(tiled_gibbs_kernel<kMaxRank>, &a, st);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@ tile-major — share everything around the sweep:
 
   * the λ-contiguous segment layout (``[C, Hp, Wp, L]`` residual, shared
     ``[Hp, Wp, L]`` weights, ``[C, Yc, Xc, L]`` clean, ``[Yc, Xc, L]`` quad
-    and qvox), set up at the segment start and undone at its end;
+    and qvox), set up at the segment start and undone at its end; classic
+    K1 and the tiled kernel take the residual and the weights with rows
+    padded to 16 bytes, which their asynchronous patch copies need;
   * per-(sweep, chain, color, spaxel) outputs — MH: the accept flag and the
     proposed Δχ²; gibbs: the number of voxels drawn and the Δχ² of the
     color's committed draws — summed in a fixed order (float64) into each
@@ -38,6 +40,7 @@ accept uniform of every decision), gibbs ``[n_sweeps, (C,) n_colors, nij,
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import List, Optional, Tuple
 
@@ -63,8 +66,11 @@ class Segment:
 class _SweepState:
     """Segment-layout tensors one sweep reads and updates in place."""
 
-    resid: torch.Tensor      # [C, Hp, Wp, L]
-    w: torch.Tensor          # [Hp, Wp, L]
+    # the classic and tiled kernels take resid and w with rows padded to
+    # Ls = 4⌈L/4⌉ floats (the first L are data): a tensor map of the Tensor
+    # Memory Accelerator needs strides of 16 bytes
+    resid: torch.Tensor      # [C, Hp, Wp, L] (kernels: Ls)
+    w: torch.Tensor          # [Hp, Wp, L] (kernels: Ls)
     quad: torch.Tensor       # [Yc, Xc, L]
     qvox: Optional[torch.Tensor]   # [Yc, Xc, L] (gibbs)
     quad_lo: Optional[torch.Tensor]   # [Yc, Xc, L] (gibbs; None = zero)
@@ -82,8 +88,19 @@ class _SweepState:
     # (nyt, nxt) block rows / columns of a tile for the tiled scan; None =
     # the whole-cube scan (one step per color over the whole field)
     tile: Optional[Tuple[int, int]] = None
+    # the tiled scan's schedule: waves of raster tile indices, each wave's
+    # tiles updated side by side color by color (ops/tiled.py
+    # wave_schedule); None = every tile a wave of its own (the raster)
+    waves: Optional[List[List[int]]] = None
     key_words: Optional[torch.Tensor] = None   # [C, 2] int32, kernel only
     scratch: Optional[torch.Tensor] = None     # kernel workspace, reused
+    wave_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # the kernels' tuning knobs (measurements set them; the defaults are
+    # the shipped rules): ring stages (-1: as many as fit, 0: synchronous
+    # loads) and the wavelengths per slab of gibbs phase (b) (None:
+    # :func:`phase_slab`)
+    stages: int = -1
+    lam_b: Optional[int] = None
     # the kernel every sweep launches ('resident', 'classic' or 'tiled';
     # ops/resident.py sweep_kernel) and the resident kernel's (λ_b, blocks)
     kernel: str = "classic"
@@ -101,16 +118,37 @@ class _SweepState:
     def nxt(self) -> int:
         return self.nx if self.tile is None else self.tile[1]
 
-    def origins(self):
-        """(by0, bx0) block origins of the steps' regions in raster order:
-        the tiles, or the whole field once."""
-        return [(by0, bx0) for by0 in range(0, self.ny, self.nyt)
-                for bx0 in range(0, self.nx, self.nxt)]
+    def schedule(self) -> List[List[int]]:
+        """The waves of raster tile indices, in order (the whole field is
+        one tile)."""
+        if self.waves is not None:
+            return self.waves
+        n_tiles = (self.ny // self.nyt) * (self.nx // self.nxt)
+        return [[t] for t in range(n_tiles)]
+
+    def wave_origins(self):
+        """Per wave, the (by0, bx0) block origins of its tiles."""
+        ntx = self.nx // self.nxt
+        return [[((t // ntx) * self.nyt, (t % ntx) * self.nxt) for t in wave]
+                for wave in self.schedule()]
+
+    @property
+    def max_spaxels(self) -> int:
+        """(chain, spaxel)s of the largest step."""
+        return self.C * max(map(len, self.schedule())) * self.nyt * self.nxt
 
 
 def _lambda_last(t: torch.Tensor) -> torch.Tensor:
     """[..., L, A, B] → contiguous [..., A, B, L]."""
     return t.movedim(-3, -1).contiguous()
+
+
+def _lambda_last_padded(t: torch.Tensor) -> torch.Tensor:
+    """[..., L, A, B] → contiguous [..., A, B, Ls], Ls = 4⌈L/4⌉, zeros past L."""
+    L = t.shape[-3]
+    out = t.new_zeros((*t.shape[:-3], *t.shape[-2:], -(-L // 4) * 4))
+    out[..., :L] = t.movedim(-3, -1)
+    return out
 
 
 def _lambda_first(t: torch.Tensor) -> torch.Tensor:
@@ -196,13 +234,13 @@ def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
                     accept_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
     """One MH sweep with the uniforms ``u`` ``[C, n_colors, nij, L+1]``;
     updates ``k`` in place.  Each step updates one color's spaxels in one
-    region (``_SweepState.origins``): the colors in order for each region
-    in raster order."""
+    tile; the waves in order (``_SweepState.wave_origins``), inside a wave
+    the colors in order, each over the wave's tiles."""
     f = k.f
     L = k.spec.shape[1]
     pi = torch.tensor(math.pi, dtype=k.resid.dtype)
-    for by0, bx0 in k.origins():
-        for c in range(f * f):
+    for wave in k.wave_origins():
+        for c, (by0, bx0) in itertools.product(range(f * f), wave):
             cy, cx = divmod(c, f)
             rblk, lin = _color_lin(k, cy, cx, by0, bx0)
             v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
@@ -246,6 +284,22 @@ def gibbs_phases(lin0: torch.Tensor, q: torch.Tensor, qv: torch.Tensor,
     return gacc, emitted
 
 
+def slab_phases_reference(lin0: torch.Tensor, q: torch.Tensor,
+                          qv: torch.Tensor, normal: torch.Tensor,
+                          live: torch.Tensor, lsf: torch.Tensor, lam_b: int,
+                          margins: Optional[Tuple[int, int]] = None):
+    """The λ-phases as the kernels' phase (b) runs them (``csrc/
+    gibbs_step.cuh``): slab by slab of ``lam_b`` wavelengths, each over its
+    own window alone (``ops.resident.windowed_phases_reference``), the
+    slabs' results side by side.  With the default ``margins`` it returns
+    :func:`gibbs_phases`' (gacc, emitted) bit for bit for any ``lam_b``."""
+    L = lsf.shape[0]
+    parts = [resident.windowed_phases_reference(
+        lin0, q, qv, normal, live, lsf, a, min(L, a + lam_b), margins)
+        for a in range(0, L, lam_b)]
+    return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
+
+
 def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
                        live_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
     """One exact-Gibbs sweep with the Box-Muller pairs ``u`` ``[C, n_colors,
@@ -263,8 +317,8 @@ def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
     f = k.f
     dt = k.resid.dtype
     two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
-    for by0, bx0 in k.origins():
-        for c in range(f * f):
+    for wave in k.wave_origins():
+        for c, (by0, bx0) in itertools.product(range(f * f), wave):
             cy, cx = divmod(c, f)
             rblk, lin0 = _color_lin(k, cy, cx, by0, bx0)
             v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
@@ -301,9 +355,12 @@ def _check_cuda(name: str, t: torch.Tensor, device, shape, dtype=torch.float32):
 
 
 def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
-    """Checked tensors of one launch, the scratch, and the geometry ints
-    (after ``lw``: the tile's block rows and columns for the tiled kernel,
-    λ_b for the resident one)."""
+    """Checked tensors of one launch, the scratch, the schedule tables of
+    the tiled kernel (device ints) and the geometry ints (the padded row
+    length Ls after L, but for the resident kernel; after ``lw``: λ_b for
+    the resident kernel; the ring stages for the others, before them
+    the tile's block rows and columns, the waves and the largest wave's
+    tiles for the tiled kernel, after them gibbs phase (b)'s λ_b)."""
     from .._build import load_library
 
     dev = k.resid.device
@@ -313,8 +370,9 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     nij, n_colors = ny * nx, f * f
     Hp, Wp, Yc, Xc = f - 1 + ny * f, f - 1 + nx * f, ny * f, nx * f
     per = (L + 1,) if mode == "mh" else (2, L)
+    Ls = L if k.kernel == "resident" else -(-L // 4) * 4
     shapes = {
-        "resid": (k.resid, (C, Hp, Wp, L)), "w": (k.w, (Hp, Wp, L)),
+        "resid": (k.resid, (C, Hp, Wp, Ls)), "w": (k.w, (Hp, Wp, Ls)),
         "quad": (k.quad, (Yc, Xc, L)), "clean": (k.clean, (C, Yc, Xc, L)),
         "log_scale": (k.log_scale, (C, Yc, Xc)), "valid": (k.valid, (Yc, Xc)),
         "spec": (k.spec, (S, L)), "imgs": (k.imgs, (S, f, f)),
@@ -340,18 +398,55 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
             [[w - (1 << 32) if w >= 1 << 31 else w for w in pair]
              for pair in words], dtype=torch.int32, device=dev)
     lib = load_library()
+    pointers = ()
     if k.kernel == "resident":
         n_scratch = getattr(lib, f"resident_{mode}_scratch_floats")(
             C, L, f, ny, nx)
-        extra = (k.plan[0],)
+        dims = (C, L, f, ny, nx, S, lw, k.plan[0])
     else:
         scratch_floats = (lib.mh_sweep_scratch_floats if mode == "mh"
                           else lib.gibbs_sweep_scratch_floats)
-        n_scratch = scratch_floats(C, L, k.nyt, k.nxt)      # one step's
-        extra = () if k.tile is None else (k.nyt, k.nxt)
+        n_scratch = scratch_floats(L, k.max_spaxels)       # the largest step's
+        extra = (k.stages,)
+        if k.tile is not None:
+            waves = k.schedule()
+            if k.wave_tables is None:
+                starts = list(itertools.accumulate(map(len, waves), initial=0))
+                k.wave_tables = tuple(
+                    torch.tensor(v, dtype=torch.int32, device=dev)
+                    for v in (starts, [t for wave in waves for t in wave]))
+            pointers = k.wave_tables
+            extra = (k.nyt, k.nxt, len(waves), max(map(len, waves)), k.stages)
+        if mode == "gibbs":
+            lam_b = k.lam_b or phase_slab(
+                L, k.max_spaxels,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            extra = (*extra, lam_b)
+        dims = (C, L, Ls, f, ny, nx, S, lw, *extra)
     if k.scratch is None or k.scratch.numel() < n_scratch:
         k.scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    return lib, (C, L, f, ny, nx, S, lw, *extra)
+    return lib, pointers, dims
+
+
+#: the narrowest and the widest slab of gibbs phase (b): below the first
+#: the window's margins (2(lw−1) + lw(lw−1) wavelengths, 130 at lw = 11) are
+#: most of a block's work; above the second the 5 window arrays outgrow the
+#: shared memory the ring leaves
+MIN_PHASE_SLAB = 64
+MAX_PHASE_SLAB = 1024
+
+
+def phase_slab(L: int, spaxels: int, n_sm: int) -> int:
+    """λ_b, the wavelengths per slab of gibbs phase (b) (``csrc/
+    gibbs_step.cuh``): each of a step's ``spaxels`` (chain, spaxel)s runs its
+    λ-phases on ⌈L / λ_b⌉ blocks, each over its slab plus the window
+    margins.  The slabs spread the step over the card's ``n_sm`` SMs —
+    ⌈n_sm / spaxels⌉ of them per (chain, spaxel) — no narrower than
+    :data:`MIN_PHASE_SLAB` and no wider than :data:`MAX_PHASE_SLAB`.  Any
+    λ_b gives the same bits."""
+    n_slabs = max(-(-n_sm // max(spaxels, 1)), -(-L // MAX_PHASE_SLAB))
+    n_slabs = max(1, min(n_slabs, -(-L // MIN_PHASE_SLAB)))
+    return -(-L // n_slabs)
 
 
 def _launch_of(lib, k: _SweepState, mode: str):
@@ -383,7 +478,7 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
     a resident plan (counted by ``counter.resident_launches``), else
     ``csrc/mh_sweep.cu`` or, with a tile, ``csrc/tiled_sweep.cu`` (counted
     by ``counter.launches``)."""
-    lib, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
+    lib, tables, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
     dev = k.resid.device
     launch, count = _launch_of(lib, k, "mh")
     with torch.cuda.device(dev):
@@ -391,7 +486,8 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
             _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.clean),
             _ptr(k.log_scale), _ptr(k.valid), _ptr(k.spec), _ptr(k.imgs),
             _ptr(k.lsf), _ptr(k.key_words), _ptr(u), _ptr(accept_out),
-            _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch), *dims,
+            _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch),
+            *map(_ptr, tables), *dims,
             sweep & philox.M32, adapt, k.target, _stream(dev),
         )
     if err != 0:
@@ -406,7 +502,8 @@ def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
     """Launch one sweep of the whole batch, as :func:`_mh_sweep_cuda`:
     ``csrc/resident_sweep.cu``, ``csrc/gibbs_sweep.cu`` or
     ``csrc/tiled_sweep.cu``."""
-    lib, dims = _kernel_args(k, "gibbs", u, live_out, dchi_out, u_out)
+    lib, tables, dims = _kernel_args(k, "gibbs", u, live_out, dchi_out,
+                                     u_out)
     dev = k.resid.device
     launch, count = _launch_of(lib, k, "gibbs")
     with torch.cuda.device(dev):
@@ -415,7 +512,7 @@ def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
             _ptr(k.qvox), _ptr(k.clean), _ptr(k.valid), _ptr(k.spec),
             _ptr(k.imgs), _ptr(k.lsf), _ptr(k.key_words), _ptr(u),
             _ptr(live_out), _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch),
-            *dims,
+            *map(_ptr, tables), *dims,
             sweep & philox.M32, _stream(dev),
         )
     if err != 0:
@@ -436,13 +533,17 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                  uniforms: Optional[torch.Tensor], record_uniforms: bool,
                  mode: str, counter=None,
                  tile: Optional[Tuple[int, int]] = None,
-                 classic: bool = False) -> Segment:
+                 classic: bool = False,
+                 waves: Optional[List[List[int]]] = None,
+                 stages: int = -1, lam_b: Optional[int] = None) -> Segment:
     """The segment of every wrapper: ``counter`` None runs the plain sweep,
     else the kernel, adding each launch to ``counter.launches`` (or
     ``counter.resident_launches``); ``tile`` (block rows, columns) runs the
-    tiled scan, None the whole-cube one — on the resident kernel where the
-    state fits the card's shared memory (``ops/resident.py``) unless
-    ``classic`` pins classic K1."""
+    tiled scan in the order of ``waves`` (None: the raster), None the
+    whole-cube one — on the resident kernel where the state fits the
+    card's shared memory (``ops/resident.py``) unless ``classic`` pins
+    classic K1.  ``stages`` and ``lam_b`` are the kernels' tuning knobs
+    (``_SweepState``)."""
     p, cfg = problem, problem.config
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
@@ -473,9 +574,19 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     # the kernels are float32-only (_check_cuda); the plain versions run in
     # the problem's dtype, float64 included
     dt, f32 = p.data_pad.dtype, torch.float32
+    plan, kernel = None, "classic"
+    if counter is not None:
+        if tile is None and not classic:
+            plan = resident.plan_slabs(C, f, ny, nx, L, p.fsf_spec.shape[0],
+                                       int(p.lsf.shape[1]), mode,
+                                       *resident.device_limits(dev))
+        kernel = resident.sweep_kernel(tile, classic, plan)
+    # classic K1 and the tiled kernel read padded rows (_SweepState)
+    rows = (_lambda_last_padded
+            if counter is not None and kernel != "resident" else _lambda_last)
     k = _SweepState(
-        resid=_lambda_last(states.resid.to(dt)),
-        w=_lambda_last(p.w_pad),
+        resid=rows(states.resid.to(dt)),
+        w=rows(p.w_pad),
         quad=_lambda_last(p.quad),
         qvox=_lambda_last(p.qvox) if mode == "gibbs" else None,
         quad_lo=(_lambda_last(p.quad_lo)
@@ -487,14 +598,9 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         imgs=p.fsf_imgs.contiguous(),
         lsf=p.lsf.contiguous(),
         f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
-        target=float(cfg.target_acceptance), tile=tile,
+        target=float(cfg.target_acceptance), tile=tile, waves=waves,
+        stages=stages, lam_b=lam_b, kernel=kernel, plan=plan,
     )
-    if counter is not None:
-        if tile is None and not classic:
-            k.plan = resident.plan_slabs(C, f, ny, nx, L, k.spec.shape[0],
-                                         int(k.lsf.shape[1]), mode,
-                                         *resident.device_limits(dev))
-        k.kernel = resident.sweep_kernel(tile, classic, k.plan)
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
     adapt = sm.adapt_schedule(ids, cfg).tolist()
     keep = sm.keep_schedule(ids, cfg).tolist()
@@ -574,7 +680,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
 
     new_state = sm.SamplerState(
         clean=_lambda_first(k.clean),
-        resid=_lambda_first(k.resid),
+        resid=_lambda_first(k.resid[..., :L]),
         key=states.key.clone(),
         chi2=chi2,
         chi2_comp=chi2c,
@@ -629,7 +735,7 @@ def mh_segment_reference(problem: sm.Problem, state: sm.SamplerState,
 def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                uniforms: Optional[torch.Tensor] = None,
                record_uniforms: bool = False, *,
-               _classic: bool = False) -> Segment:
+               _classic: bool = False, **_knobs) -> Segment:
     """``n_sweeps`` MH sweeps; each one launch for the whole batch of
     chains: of the resident kernel ``csrc/resident_sweep.cu`` where the
     state fits the card's shared memory (``ops/resident.py``), else of
@@ -639,12 +745,14 @@ def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     launch raises; nothing falls back).  Only for tensors on the CPU does
     it run the plain torch version.  ``mh_segment.launches`` counts classic
     K1's launches, ``mh_segment.resident_launches`` the resident kernel's;
-    ``_classic`` pins classic K1 (for the comparisons of the two).
+    ``_classic`` pins classic K1 (for the comparisons of the two), and
+    ``_knobs`` are the classic kernel's tuning knobs ``stages`` / ``lam_b``
+    of :func:`_run_segment` (for the measurements).
     """
     use = _use_kernel(problem, state, "mh_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
                         mode="mh", counter=mh_segment if use else None,
-                        classic=_classic)
+                        classic=_classic, **_knobs)
 
 
 mh_segment.launches = 0
@@ -666,7 +774,7 @@ def gibbs_segment_reference(problem: sm.Problem, state: sm.SamplerState,
 def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                   uniforms: Optional[torch.Tensor] = None,
                   record_uniforms: bool = False, *,
-                  _classic: bool = False) -> Segment:
+                  _classic: bool = False, **_knobs) -> Segment:
     """``n_sweeps`` exact-Gibbs sweeps; each one launch for the whole batch
     of chains, of the resident kernel or of classic K1
     (``csrc/gibbs_sweep.cu``), as :func:`mh_segment` chooses; counters
@@ -675,7 +783,7 @@ def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     use = _use_kernel(problem, state, "gibbs_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
                         mode="gibbs", counter=gibbs_segment if use else None,
-                        classic=_classic)
+                        classic=_classic, **_knobs)
 
 
 gibbs_segment.launches = 0

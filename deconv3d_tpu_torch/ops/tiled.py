@@ -10,9 +10,9 @@ posterior as the whole-cube one (``ops/sweep.py``), visited in another
 order.  :func:`tiled_segment` runs each sweep as one launch of the
 hand-written kernel ``csrc/tiled_sweep.cu`` on a CUDA device;
 :func:`tiled_segment_reference` is the same scan in plain torch, which
-:func:`tiled_segment` takes only for tensors on the CPU.  Both share ``ops/sweep.py``'s segment
-(layout, per-(sweep, color, spaxel) outputs, Kahan χ², accumulators,
-traces, injected uniforms in the same shapes).
+:func:`tiled_segment` takes only for tensors on the CPU.  Both share
+``ops/sweep.py``'s segment (layout, per-(sweep, color, spaxel) outputs,
+Kahan χ², accumulators, traces, injected uniforms in the same shapes).
 
 Random numbers are keyed as in the whole-cube sweep, by (λ >> 2, absolute
 sweep, color, stream << 24 | GLOBAL spaxel row) (``ops/philox.py``), not by
@@ -20,28 +20,34 @@ the tile as the TPU kernel keys them: a spaxel's visit draws the same
 numbers under any tiling, so one tile ``(ny, nx)`` is the whole-cube sweep
 bit for bit and the engines differ only in the order of their visits.
 
+The schedule.  The TPU runs its tiles one after another; on the card that
+leaves most SMs idle (a (1, 2) tile of the full MUSE field is two spaxels
+per step).  :func:`wave_schedule` runs the tiles that share no window side
+by side, in waves, and gives the raster sweep bit for bit in far fewer
+dependent steps; it is the default, the raster stays for comparison.
+
 Tile planning.  The TPU kernel copies each tile's window (owned rows plus
-the f − 1 halo) into VMEM.  On Hopper no window fits one SM's shared
-memory (one f=17 patch at L=3681 is 4.3 MB); the level that can hold a
-window is the L2 (50 MB on the H100), where it stays hot across the tile's
-f² steps.  :func:`plan_tiles` keeps the TPU rule — most spaxels per step,
-then the least total window volume — under a budget of the card's whole
-L2 for the window's residual and weights (:func:`l2_budget_bytes`).
+the f − 1 halo) into VMEM and plans the tile under VMEM's size.  On Hopper
+no window fits one SM's shared memory (one f=17 patch at L=3681 is 4.3 MB)
+and the window is not copied.  :func:`plan_tiles` keeps the TPU rule — most
+spaxels per step, then the least total window volume — under a window
+budget that was measured on the card (:func:`window_budget_bytes`).
 """
 
 from __future__ import annotations
 
 import types
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import sampler as sm
 from . import sweep as sw
 
-#: L2 of the H100 (bytes), the budget's base when no CUDA device is given
-#: (CPU runs plan the tiles the card would)
-H100_L2_BYTES = 50 * 2**20
+#: the tile planner's window budget (bytes of one tile's residual and
+#: weights), measured on an NVIDIA H100 80GB HBM3 (``python -m
+#: deconv3d_tpu_torch.tile_sweep``, PERF.md §6)
+WINDOW_BUDGET_BYTES = 2**30
 
 #: launch counters of the two modes of ``csrc/tiled_sweep.cu``: each adds
 #: one per kernel launch, and the plain version never adds to them
@@ -49,23 +55,28 @@ tiled_mh = types.SimpleNamespace(launches=0)
 tiled_gibbs = types.SimpleNamespace(launches=0)
 
 
-def l2_budget_bytes(device=None) -> int:
-    """The tile budget: the L2 of ``device`` (a CUDA device), or the H100's
-    for anything else.
+def window_budget_bytes() -> int:
+    """The tile budget: the largest window (a tile's residual and weights)
+    the planner takes, and the size of field above which ``engine='auto'``
+    leaves the whole-cube kernel for the tiled one
+    (``sampler.resolve_engine``).
 
-    The whole L2, not a share of it: a step's fixed cost (its grid
-    barriers, and in gibbs the λ-phase loop of one block per spaxel)
-    outweighs what the window's residency saves, so the largest window that
-    nominally fits wins.  At the full MUSE field (f=17, L=3681, float32
-    weights) that is the (1, 2) window, 33·50·3681·8 B = 48.6 MB; on an
-    H100 its sweep took 0.87 s (MH) and 2.98 s (gibbs) against 0.98 s and
-    5.02 s with the 32 MB (1, 1) window that 0.75 of the L2 would plan
-    (PERF.md §6; ``python -m deconv3d_tpu_torch.tile_sweep`` measures it).
+    A measured constant, the same for every device.  A sweep's time falls
+    with every larger tile — fewer dependent steps, each a few grid
+    barriers — while the window stays under about a gigabyte, and rises
+    again above: on an H100 the full MUSE field (f=17, L=3681; 4.6 GB of
+    residual and weights) took 469 ms (MH) and 974 ms (gibbs) per sweep in
+    (1, 2) tiles, 406 / 817 in (3, 3), 391 / 759 in (6, 6), 393 / 744 in
+    (9, 9) tiles of 0.84 GB windows, and 440 / 811 ms as one tile, the
+    whole-cube kernel; a (9, 18) tile of 1.6 GB was slower than (9, 9) too.
+    Fields under the budget are fastest as one tile (60×60×3681, 0.2 GB:
+    21.6 / 37.8 ms against 25–33 / 50–69 in smaller tiles).  The 50 MB L2
+    plays no part.  Every byte comes from device memory either way; what a
+    window of that size keeps is not measured (the reach of the address
+    translation caches is a guess).  PERF.md §6 has the runs (``python -m
+    deconv3d_tpu_torch.tile_sweep``).
     """
-    if device is not None and torch.device(device).type == "cuda":
-        return torch.cuda.get_device_properties(
-            torch.device(device)).L2_cache_size
-    return H100_L2_BYTES
+    return WINDOW_BUDGET_BYTES
 
 
 def tile_geometry(f: int, ny_t: int, nx_t: int):
@@ -103,6 +114,43 @@ def plan_tiles(f: int, ny: int, nx: int, L: int, budget: int,
     return None if best is None else best[1]
 
 
+#: the tile schedules: ``'raster'`` runs one tile after another, as the TPU
+#: kernel's grid does; ``'wavefront'`` runs the tiles that share no window
+#: side by side and gives the same bits
+SCHEDULES = ("raster", "wavefront")
+
+
+def wave_schedule(Ty: int, Tx: int, schedule: str = "wavefront"
+                  ) -> List[List[int]]:
+    """The waves of a sweep over Ty × Tx tiles: lists of raster tile
+    indices ``ti · Tx + tj``, run in order, the tiles of one wave side by
+    side (color by color).
+
+    ``'wavefront'``: tile (ti, tj) runs in wave 2·ti + tj.  The neighbours
+    that precede it in raster order — (ti, tj−1), (ti−1, tj−1), (ti−1, tj),
+    (ti−1, tj+1) — are 1, 3, 2 and 1 waves earlier, the later ones later,
+    and two tiles of one wave lie at least two tile columns apart, so their
+    windows (the owned columns plus f − 1 of halo) do not meet: every tile
+    sees exactly the commits it sees in the raster, and the sweep is the
+    raster sweep bit for bit in 2·(Ty − 1) + Tx waves (Ty when Tx = 1)
+    instead of Ty · Tx.  ``'raster'``: one tile per wave."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, "
+                         f"got {schedule!r}")
+    if schedule == "raster":
+        return [[t] for t in range(Ty * Tx)]
+    waves: List[List[int]] = [[] for _ in range(2 * (Ty - 1) + Tx)]
+    for ti in range(Ty):
+        for tj in range(Tx):
+            waves[2 * ti + tj].append(ti * Tx + tj)
+    return [wave for wave in waves if wave]
+
+
+def _waves(problem: sm.Problem, tile: Tuple[int, int], schedule: str):
+    return wave_schedule(problem.ny // tile[0], problem.nx // tile[1],
+                         schedule)
+
+
 def _tile(problem: sm.Problem, tile) -> Tuple[int, int]:
     tile = problem.config.tile if tile is None else tile
     if tile is None:
@@ -123,23 +171,29 @@ def tiled_segment_reference(problem: sm.Problem, state: sm.SamplerState,
                             n_sweeps: int,
                             uniforms: Optional[torch.Tensor] = None,
                             record_uniforms: bool = False,
-                            tile: Optional[Tuple[int, int]] = None
-                            ) -> sw.Segment:
+                            tile: Optional[Tuple[int, int]] = None,
+                            schedule: str = "wavefront") -> sw.Segment:
     """``n_sweeps`` tiled sweeps of ``config.sampler`` in plain torch (the
     kernel's plain version), on whatever device the problem lives on.
-    ``tile`` defaults to ``config.tile``; ``uniforms`` as in
+    ``tile`` defaults to ``config.tile``; ``schedule`` as
+    :func:`wave_schedule` (both give the same bits); ``uniforms`` as in
     ``ops/sweep.py``."""
+    tile = _tile(problem, tile)
     return sw._run_segment(problem, state, n_sweeps, uniforms,
-                           record_uniforms, mode=_mode(problem),
-                           tile=_tile(problem, tile))
+                           record_uniforms, mode=_mode(problem), tile=tile,
+                           waves=_waves(problem, tile, schedule))
 
 
 def tiled_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                   uniforms: Optional[torch.Tensor] = None,
                   record_uniforms: bool = False,
-                  tile: Optional[Tuple[int, int]] = None) -> sw.Segment:
+                  tile: Optional[Tuple[int, int]] = None,
+                  schedule: str = "wavefront", **_knobs) -> sw.Segment:
     """``n_sweeps`` tiled sweeps of ``config.sampler``; each one launch of
-    ``csrc/tiled_sweep.cu`` for the whole batch of chains.
+    ``csrc/tiled_sweep.cu`` for the whole batch of chains, the tiles in
+    the order of ``schedule`` (:func:`wave_schedule`; both give the same
+    bits).  ``_knobs``: the kernel's tuning knobs ``stages`` / ``lam_b`` of
+    ``ops.sweep._run_segment`` (for the measurements).
 
     On a CUDA device every sweep goes through the kernel (a failed build or
     launch raises); only for tensors on the CPU does it run the plain
@@ -148,6 +202,8 @@ def tiled_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     mode = _mode(problem)
     use = sw._use_kernel(problem, state, "tiled_segment")
     counter = (tiled_gibbs if mode == "gibbs" else tiled_mh) if use else None
+    tile = _tile(problem, tile)
     return sw._run_segment(problem, state, n_sweeps, uniforms,
                            record_uniforms, mode=mode, counter=counter,
-                           tile=_tile(problem, tile))
+                           tile=tile, waves=_waves(problem, tile, schedule),
+                           **_knobs)

@@ -83,12 +83,12 @@ class RunConfig:
     versions) elsewhere; naming the other device's engine raises.
     ``'auto'`` (:func:`resolve_engine`) takes the device's tiled engine
     when ``tile`` is given, or on a CUDA device when one chain's residual
-    and weights exceed the tile budget of the card's L2
-    (``ops/tiled.py``); else the whole-cube engine.  ``tile`` = (ny_t,
-    nx_t) spaxel blocks per tile (None: planned).
-    ``chi2_rebaseline_every``: None → 8 for gibbs on a tiled engine with
-    more than 2**28 B of clean cube, else 0 (off); an int works on every
-    engine (:func:`rebaseline_interleave`).
+    and weights exceed the measured window budget (``ops/tiled.py``); else
+    the whole-cube engine.  ``tile`` = (ny_t, nx_t) spaxel blocks per tile
+    (None: planned).
+    ``chi2_rebaseline_every``: None → 8 for gibbs with more than 2**28 B
+    of clean cube, else 0 (off); an int works on every engine
+    (:func:`rebaseline_interleave`).
     """
 
     max_iterations: int = 1000
@@ -319,19 +319,25 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
 
     ``'auto'``: the tiled engine when ``config.tile`` is given, or on a CUDA
     device when one chain's padded residual and weights (float32) exceed
-    ``budget`` (default :func:`ops.tiled.l2_budget_bytes` of the device)
-    and a tile fits it — the JAX package's step from the on-chip
-    whole-cube kernel down to the tiled one (``deconv3d_tpu/sampler.py:
-    466-536``), with the L2 in place of VMEM; else the whole-cube engine.
-    A tiled engine without ``config.tile`` plans one
-    (:func:`ops.tiled.plan_tiles`).
+    ``budget`` (default :func:`ops.tiled.window_budget_bytes`) and a tile
+    fits it; else the whole-cube engine.  The rule has the form of the JAX
+    package's step from the whole-cube kernel down to the tiled one
+    (``deconv3d_tpu/sampler.py:466-536``), with a budget measured on the
+    card in place of VMEM's size: on an H100 the whole-cube kernel is the
+    faster engine up to about a gigabyte of residual and weights
+    (60×60×3681: 22 against 32 ms per MH sweep, 38 against 68 ms per gibbs
+    sweep in (1, 2) tiles), and the tiled kernel in the planned tile above
+    it (300×300×3681, (9, 9) tiles: 393 against 440 ms MH, 744 against 811
+    ms gibbs; PERF.md §6, ``python -m
+    deconv3d_tpu_torch.tile_sweep``).  A tiled engine without
+    ``config.tile`` plans one (:func:`ops.tiled.plan_tiles`).
     """
     from .ops import tiled
 
     device = torch.device(device)
     whole, tiled_engine = _device_engines(device, config.engine)
     if budget is None:
-        budget = tiled.l2_budget_bytes(device)
+        budget = tiled.window_budget_bytes()
     tile, engine = config.tile, config.engine
     if engine == "auto":
         Hp, Wp = f - 1 + ny * f, f - 1 + nx * f
@@ -361,11 +367,13 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
 
 
 def auto_rebaseline_every(engine: str, sampler: str, clean_bytes: int) -> int:
-    """``chi2_rebaseline_every`` for None: 8 for gibbs on a tiled engine
-    with more than :data:`REBASELINE_AUTO_BYTES` of clean cube (the JAX
-    package's rule, ``deconv3d_tpu/sampler.py:537-552``), else 0."""
-    return 8 if (engine.endswith("_tiled") and sampler == "gibbs"
-                 and clean_bytes > REBASELINE_AUTO_BYTES) else 0
+    """``chi2_rebaseline_every`` for None: 8 for gibbs with more than
+    :data:`REBASELINE_AUTO_BYTES` of clean cube, else 0.  The JAX package
+    ties the rule to its tiled engine, the only one that runs fields of
+    that size there (``deconv3d_tpu/sampler.py:537-552``); here the
+    whole-cube kernels run them too (``engine='cuda'`` pinned), so the rule
+    covers every ``engine``."""
+    return 8 if sampler == "gibbs" and clean_bytes > REBASELINE_AUTO_BYTES else 0
 
 
 def make_problem(

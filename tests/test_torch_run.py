@@ -364,8 +364,8 @@ def test_tiled_kernel_matches_plain_on_card(sampler, fsf_size, size, L):
     """The tiled kernel (``csrc/tiled_sweep.cu``) on a batch of 2 chains
     against its plain version, same injected uniforms, tiles of (1, 2)
     spaxel blocks: 8 tiles at f = 5, 2 at f = 21 (more patch rows than a
-    block's warps), and 8 at L = 3200 (100 λ-chunks per spaxel; the gibbs
-    phase loop's 4L floats take more than 48 KB of shared memory).
+    block's row warps, one ring stage), and 8 at L = 3200 (100 λ-chunks per
+    spaxel; gibbs phase (b) on several wavelength slabs per spaxel).
     Tolerances as the whole-cube kernels'."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the tiled kernel has no CPU mode")

@@ -410,10 +410,12 @@ MUSE_FIELD = dict(f=17, ny=18, nx=18, L=3681)      # 300×300×3681, f=17
 
 
 def test_full_muse_field_has_a_plan_under_the_l2_budget():
-    budget = tl.l2_budget_bytes()
-    assert budget == 50 * 2**20               # the H100's whole L2
+    budget = tl.window_budget_bytes()
+    assert budget == 2**30                    # measured on the card
     plan = tl.plan_tiles(**MUSE_FIELD, budget=budget)
-    assert plan == (1, 2)
+    assert plan == (9, 9)
+    # the H100's L2, the budget before the measurement, plans (1, 2)
+    assert tl.plan_tiles(**MUSE_FIELD, budget=50 * 2**20) == (1, 2)
     ny_t, nx_t = plan
     assert 18 % ny_t == 0 and 18 % nx_t == 0
     assert tl.window_bytes(17, ny_t, nx_t, 3681) <= budget
@@ -445,7 +447,8 @@ def test_tile_sweep_covers_the_plan_and_makes_a_seeded_field():
 
     tiles = ts.default_tiles(18, 18)
     assert tiles == [(1, 1), (1, 2), (2, 2), (3, 3), (6, 6), (9, 9), (18, 18)]
-    assert tl.plan_tiles(**MUSE_FIELD, budget=tl.l2_budget_bytes()) in tiles
+    assert tl.plan_tiles(**MUSE_FIELD, budget=tl.window_budget_bytes()) in tiles
+    assert (1, 2) in tiles
     assert ts.default_tiles(2, 4) == [(1, 1), (1, 2), (2, 2)]
     a = ts.field_cube(L=12, Y=30, X=30, device="cpu")
     b = ts.field_cube(L=12, Y=30, X=30, device="cpu")
@@ -455,14 +458,16 @@ def test_tile_sweep_covers_the_plan_and_makes_a_seeded_field():
 
 @pytest.mark.parametrize("geometry, budget, want", [
     (dict(f=17, ny=2, nx=2, L=600), None, ("cuda", None)),          # bench
-    (dict(f=17, ny=4, nx=4, L=3681), None, ("cuda_tiled", (1, 2))),
-    (MUSE_FIELD, None, ("cuda_tiled", (1, 2))),
+    (dict(f=17, ny=4, nx=4, L=3681), None, ("cuda", None)),         # 60×60
+    (dict(f=17, ny=8, nx=8, L=3681), None, ("cuda", None)),         # 120×120
+    (MUSE_FIELD, None, ("cuda_tiled", (9, 9))),
+    (MUSE_FIELD, 50 * 2**20, ("cuda_tiled", (1, 2))),
     (MUSE_FIELD, 40 * 2**20, ("cuda_tiled", (1, 1))),
     (MUSE_FIELD, 10**12, ("cuda", None)),                  # fits the budget
     (MUSE_FIELD, 1024, ("cuda", None)),                    # no tile fits
 ])
 def test_auto_engine_rule_on_a_card(geometry, budget, want):
-    budget = tl.l2_budget_bytes() if budget is None else budget
+    budget = tl.window_budget_bytes() if budget is None else budget
     got = tsm.resolve_engine(tsm.RunConfig(), torch.device("cuda"),
                              budget=budget, **geometry)
     assert got == want
@@ -470,7 +475,7 @@ def test_auto_engine_rule_on_a_card(geometry, budget, want):
 
 def test_engine_resolution_rules():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    budget = tl.l2_budget_bytes()
+    budget = tl.window_budget_bytes()
     # the CPU stays on the whole-cube scan unless a tile or engine says so
     assert tsm.resolve_engine(tsm.RunConfig(), cpu, budget=budget,
                               **MUSE_FIELD) == ("torch", None)
@@ -478,7 +483,7 @@ def test_engine_resolution_rules():
                               **MUSE_FIELD) == ("torch_tiled", (2, 3))
     assert tsm.resolve_engine(tsm.RunConfig(engine="torch_tiled"), cpu,
                               budget=budget, **MUSE_FIELD) == (
-                                  "torch_tiled", (1, 2))
+                                  "torch_tiled", (9, 9))
     assert tsm.resolve_engine(tsm.RunConfig(tile=(1, 2)), cuda, budget=budget,
                               f=17, ny=2, nx=2, L=600) == ("cuda_tiled", (1, 2))
     with pytest.raises(ValueError, match="needs a tiled engine"):
@@ -506,7 +511,8 @@ def test_rebaseline_auto_rule(rng, monkeypatch):
     assert tsm.auto_rebaseline_every("cuda_tiled", "gibbs", big) == 8
     assert tsm.auto_rebaseline_every("torch_tiled", "gibbs", big) == 8
     assert tsm.auto_rebaseline_every("cuda_tiled", "gibbs", small) == 0
-    assert tsm.auto_rebaseline_every("cuda", "gibbs", big) == 0
+    assert tsm.auto_rebaseline_every("cuda", "gibbs", big) == 8
+    assert tsm.auto_rebaseline_every("torch", "gibbs", small) == 0
     assert tsm.auto_rebaseline_every("cuda_tiled", "mh", big) == 0
     # off for small problems on every engine ...
     for kw in ({}, dict(engine="torch_tiled", tile=TILE)):
@@ -517,7 +523,8 @@ def test_rebaseline_auto_rule(rng, monkeypatch):
     monkeypatch.setattr(tsm, "REBASELINE_AUTO_BYTES", 1024)
     p = _port_problem("gibbs", engine="torch_tiled", tile=TILE)
     assert p.config.chi2_rebaseline_every == 8
-    assert _port_problem("gibbs").config.chi2_rebaseline_every == 0
+    assert _port_problem("gibbs").config.chi2_rebaseline_every == 8
+    assert _port_problem("mh").config.chi2_rebaseline_every == 0
     p = _port_problem("gibbs", chi2_rebaseline_every=3)
     assert p.config.chi2_rebaseline_every == 3
     with pytest.raises(ValueError, match=">= 0"):
