@@ -61,7 +61,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (voxel counts; residual, clean, Δχ²); the in-kernel Philox bits; ms per
    sweep of both, launches per sweep, the kernel's share of device time.
    Then the same comparison and Philox bits on 34×68×3681 in 4 tiles of
-   (1, 2): the full field's per-step shapes (L=3681, banded LSF).  In both
+   (1, 2) (L=3681, banded LSF; two spaxels per step), and on 153×306×3681
+   in two tiles of (9, 9), the full field's planned tile and so its
+   per-step shapes: 81 spaxels and 9396 tasks per step, about 71 per block
+   through the ring, the widest slabs of gibbs phase (b).  In the first two
    geometries the wavefront schedule against the raster in (1, 1) tiles
    (two tiles per wave), 2 sweeps on the Philox draws, every output
    bit-equal.
@@ -88,7 +91,8 @@ resident, classic K1 and tiled kernels, each with its launches, ms per
 sweep and bound (:func:`sweep_bound`) on its own path — ``main`` /
 ``gibbs_main``, ``chains``, ``full_field`` — and its error and plain ms
 from its comparison phase, at the shape it names; the tiled ones with
-their tile, schedule, waves, steps and ``previous_ms``), the
+their tile, schedule, waves, the widest wave's tiles, steps and
+``previous_ms``), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -285,8 +289,9 @@ def phase_gibbs_kernel(n_sweeps=2):
     ms = time_sweeps(lambda n: sw.gibbs_segment(problem, state, n,
                                                 _classic=True), 50)
     launches_per_sweep = (sw.gibbs_segment.launches - n0) / 51
-    plain_ms = time_sweeps(
-        lambda n: sw.gibbs_segment_reference(problem, state, n), 1)
+    # one plain sweep, no warm-up: the comparison above ran it already
+    plain_ms = timed(
+        lambda: sw.gibbs_segment_reference(problem, state, 1))[1]
     emit("gibbs_sweep_time", shape=[L, problem.Y, problem.X], kernel_ms=ms,
          plain_ms=plain_ms, launches_per_sweep=launches_per_sweep)
     check(launches_per_sweep == 1, "expected one kernel launch per sweep")
@@ -836,14 +841,24 @@ def wave_vs_raster(cube, sampler, tile=(1, 1), n_sweeps=2):
           f"raster: {[k for k, v in equal.items() if not v]}")
 
 
+#: the tile the planner takes at the full MUSE field (``ops/tiled.py::
+#: plan_tiles`` under ``WINDOW_BUDGET_BYTES``; ``phase_full_field`` checks it)
+FIELD_TILE = (9, 9)
+
+
 def phase_tiled_kernel(tile=(1, 2)):
     """The tiled kernel against its plain version, MH 2 sweeps and gibbs 1,
-    in two MUSE geometries (f=17) with tiles of (1, 2) spaxel blocks:
-    68×68×600 in 8 tiles — then ms per sweep of both versions, launches
-    per sweep and a profile — and 34×68×3681 in 4 tiles, the full field's
-    per-step shapes (116 λ-chunks per spaxel, the banded LSF).  In both,
-    the wavefront schedule against the raster in (1, 1) tiles, bit for
-    bit."""
+    in three MUSE geometries (f=17).  68×68×600 in 8 tiles of (1, 2) spaxel
+    blocks — then ms per sweep of both versions, launches per sweep and a
+    profile.  34×68×3681 in 4 such tiles: 116 λ-chunks per spaxel and the
+    banded LSF, two spaxels per step (232 tasks, at most two per block;
+    narrow slabs in gibbs phase (b)).  153×306×3681 in two tiles of
+    :data:`FIELD_TILE`: the full field's per-step shapes — 81 spaxels per
+    step, so every block walks about 71 tasks through its ring, MH commits
+    in batches, and gibbs phase (b) runs in the widest slabs — from which
+    the ``kernels`` line takes the error and the plain version's time.  In
+    the first two, the wavefront schedule against the raster in (1, 1)
+    tiles, bit for bit."""
     out = {}
     small = bench_cube(L=600, Y=68, X=68)
     for sampler, n_sweeps, seed in (("mh", 2, 4), ("gibbs", 1, 5)):
@@ -856,8 +871,8 @@ def phase_tiled_kernel(tile=(1, 2)):
                          n_time)
         per_sweep = (counter.launches - n0) / (n_time + 1)
         if sampler == "mh":
-            plain_ms = time_sweeps(
-                lambda n: tl.tiled_segment_reference(problem, state, n), 1)
+            plain_ms = timed(
+                lambda: tl.tiled_segment_reference(problem, state, 1))[1]
         share = phase_profile(problem, state, sampler, n=n_time,
                               seg=tl.tiled_segment,
                               kernel_name=f"tiled_{sampler}_kernel")
@@ -866,11 +881,12 @@ def phase_tiled_kernel(tile=(1, 2)):
              plain_ms=plain_ms, launches_per_sweep=per_sweep,
              kernel_share_of_device=share)
         check(per_sweep == 1, "expected one kernel launch per sweep")
-        out[sampler] = {"max_abs_err": errs["resid_max_abs_err"], "ms": ms,
-                        "plain_ms": plain_ms,
-                        "bound": sweep_bound(problem, 1, kern.accept)}
+        out[sampler] = {"at_600x68x68": {
+            "max_abs_err": errs["resid_max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms,
+            "bound": sweep_bound(problem, 1, kern.accept)}}
         wave_vs_raster(small, sampler)
-    del small
+    del small, problem, state, kern
     large = field_cube(L=3681, Y=34, X=68)
     for sampler, n_sweeps, seed in (("mh", 2, 6), ("gibbs", 1, 7)):
         t0 = time.perf_counter()
@@ -879,8 +895,29 @@ def phase_tiled_kernel(tile=(1, 2)):
         emit("tiled_kernel_full_lambda", sampler=sampler,
              shape=list(large.shape), tile=tile, kernel_ms_per_sweep=kernel_ms,
              plain_ms_per_sweep=plain_ms, seconds=time.perf_counter() - t0)
-        out[sampler]["max_abs_err_34x68x3681"] = errs["resid_max_abs_err"]
+        out[sampler]["max_abs_err_3681x34x68"] = errs["resid_max_abs_err"]
         wave_vs_raster(large, sampler)
+    del large
+    wide = field_cube(L=3681, Y=153, X=306)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for sampler, n_sweeps, seed in (("mh", 1, 8), ("gibbs", 1, 9)):
+        t0 = time.perf_counter()
+        problem, state, errs, kernel_ms, plain_ms, _ = tiled_compare(
+            wide, FIELD_TILE, sampler, n_sweeps, seed)
+        if sampler == "mh":
+            plain_ms = timed(lambda: tl.tiled_segment_reference(
+                problem, state, 1))[1]
+        spaxels = FIELD_TILE[0] * FIELD_TILE[1]
+        emit("tiled_kernel_field_tile", sampler=sampler,
+             shape=list(wide.shape), tile=FIELD_TILE,
+             spaxels_per_step=spaxels,
+             tasks_per_step=spaxels * -(-problem.L // 32),
+             phase_slab=sw.phase_slab(problem.L, spaxels, n_sm),
+             kernel_ms_per_sweep=kernel_ms, plain_ms_per_sweep=plain_ms,
+             seconds=time.perf_counter() - t0)
+        out[sampler].update(max_abs_err=errs["resid_max_abs_err"],
+                            plain_ms=plain_ms, shape=list(wide.shape))
+        del problem, state
     return out
 
 
@@ -948,6 +985,8 @@ def phase_full_field(sampler, n, cube):
     cfg = run.problem.config
     every = 8 if sampler == "gibbs" else 0
     check(cfg.engine == "cuda_tiled", f"full field resolved to {cfg.engine}")
+    check(cfg.tile == FIELD_TILE, f"the planner took tile {cfg.tile}, the "
+          f"kernel is held against its plain version in {FIELD_TILE}")
     check(cfg.chi2_rebaseline_every == every,
           f"chi2_rebaseline_every resolved to {cfg.chi2_rebaseline_every}")
     counter = tiled_counter(sampler)
@@ -977,12 +1016,13 @@ def phase_full_field(sampler, n, cube):
         [diag["acceptance_rate"]]))
     waves = tl.wave_schedule(run.problem.ny // cfg.tile[0],
                              run.problem.nx // cfg.tile[1])
-    previous_ms = timed(lambda: tl.tiled_segment(
+    previous_ms = timed(lambda: tl.tuned_segment(
         run.problem, state, 1, lam_b=run.problem.L, **PREVIOUS_TILED))[1]
     emit("full_field", sampler=sampler, shape=list(cube.shape),
          f=run.problem.f, engine=cfg.engine, tile=cfg.tile,
          n_tiles=(run.problem.ny // cfg.tile[0]) * (run.problem.nx // cfg.tile[1]),
          schedule="wavefront", waves=len(waves),
+         max_wave_tiles=max(map(len, waves)),
          steps=len(waves) * run.problem.n_colors,
          chi2_rebaseline_every=cfg.chi2_rebaseline_every, sweeps=n,
          launches=launches, setup_s=setup_s, sweeps_per_sec=n / dt,
@@ -1009,6 +1049,7 @@ def phase_full_field(sampler, n, cube):
                       {"cuda_tiled": k2_ms, "cuda": k1_ms})
     return {"launches": launches, "ms": k2_ms, "shape": list(cube.shape),
             "bound": bound, "tile": list(cfg.tile), "waves": len(waves),
+            "max_wave_tiles": max(map(len, waves)),
             "steps": len(waves) * run.problem.n_colors,
             "previous_ms": previous_ms}
 
@@ -1117,12 +1158,18 @@ def main() -> int:
         "max_abs_err": tiled[sampler]["max_abs_err"],
         "ms": field[sampler]["ms"],
         "plain_ms": tiled[sampler]["plain_ms"],
-        "max_abs_err_and_plain_ms_at": [600, 68, 68],
+        "max_abs_err_and_plain_ms_at": tiled[sampler]["shape"],
+        "max_abs_err_and_plain_ms_tile": list(FIELD_TILE),
         **bound(field[sampler]["bound"]), "library_ms": None,
-        "at_600x68x68": other_shape(tiled[sampler]),
-        "max_abs_err_3681x34x68": tiled[sampler]["max_abs_err_34x68x3681"],
+        "at_600x68x68": other_shape(tiled[sampler]["at_600x68x68"]),
+        "max_abs_err_3681x34x68": tiled[sampler]["max_abs_err_3681x34x68"],
         "tile": field[sampler]["tile"], "schedule": "wavefront",
-        "waves": field[sampler]["waves"], "steps": field[sampler]["steps"],
+        "waves": field[sampler]["waves"],
+        "max_wave_tiles": field[sampler]["max_wave_tiles"],
+        "schedule_note": "one tile per wave at this tile: the wavefront is "
+                         "the raster here"
+                         if field[sampler]["max_wave_tiles"] == 1 else None,
+        "steps": field[sampler]["steps"],
         "previous_ms": field[sampler]["previous_ms"],
         "previous_ms_is": "this run's sweep in the kernel's earlier design: "
                           "raster of (1, 2) tiles, synchronous loads, one "

@@ -110,6 +110,11 @@ __host__ __device__ inline int window_lo_margin(int lw) { return 2 * (lw - 1); }
 __host__ __device__ inline int window_hi_margin(int lw) { return lw * (lw - 1); }
 
 constexpr int kGeo = 6;    // ints per (chain, spaxel) of a color: see Geo
+// A resident block holds min(f, 18) row warps and no service warp, and its
+// shared memory leaves room for one block per SM.  The kernels say so in
+// their launch bounds: without the 1, ptxas may aim at two blocks per SM
+// and cap a thread at 56 registers, which spills (measured: 8% slower).
+constexpr int kResidentThreads = 32 * kMaxWarps;
 
 // Offsets (4-byte words) of the block's shared arrays.
 struct ResidentLayout {
@@ -365,7 +370,7 @@ __device__ __forceinline__ void slab_commit(const Resident& g, float* smem,
 
 // kS: a compile-time bound on the FSF rank (1, or kMaxRank for any S).
 template <int kS>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kResidentThreads, 1)
     resident_mh_kernel(ResidentArgs a) {
   extern __shared__ float smem[];
   PHASE_CLOCKS_BEGIN;
@@ -518,7 +523,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 template <int kS>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kResidentThreads, 1)
     resident_gibbs_kernel(ResidentArgs a) {
   extern __shared__ float smem[];
   PHASE_CLOCKS_BEGIN;

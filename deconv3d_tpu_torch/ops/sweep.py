@@ -735,7 +735,7 @@ def mh_segment_reference(problem: sm.Problem, state: sm.SamplerState,
 def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                uniforms: Optional[torch.Tensor] = None,
                record_uniforms: bool = False, *,
-               _classic: bool = False, **_knobs) -> Segment:
+               _classic: bool = False) -> Segment:
     """``n_sweeps`` MH sweeps; each one launch for the whole batch of
     chains: of the resident kernel ``csrc/resident_sweep.cu`` where the
     state fits the card's shared memory (``ops/resident.py``), else of
@@ -745,14 +745,12 @@ def mh_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     launch raises; nothing falls back).  Only for tensors on the CPU does
     it run the plain torch version.  ``mh_segment.launches`` counts classic
     K1's launches, ``mh_segment.resident_launches`` the resident kernel's;
-    ``_classic`` pins classic K1 (for the comparisons of the two), and
-    ``_knobs`` are the classic kernel's tuning knobs ``stages`` / ``lam_b``
-    of :func:`_run_segment` (for the measurements).
+    ``_classic`` pins classic K1 (for the comparisons of the two).
     """
     use = _use_kernel(problem, state, "mh_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
                         mode="mh", counter=mh_segment if use else None,
-                        classic=_classic, **_knobs)
+                        classic=_classic)
 
 
 mh_segment.launches = 0
@@ -774,7 +772,7 @@ def gibbs_segment_reference(problem: sm.Problem, state: sm.SamplerState,
 def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                   uniforms: Optional[torch.Tensor] = None,
                   record_uniforms: bool = False, *,
-                  _classic: bool = False, **_knobs) -> Segment:
+                  _classic: bool = False) -> Segment:
     """``n_sweeps`` exact-Gibbs sweeps; each one launch for the whole batch
     of chains, of the resident kernel or of classic K1
     (``csrc/gibbs_sweep.cu``), as :func:`mh_segment` chooses; counters
@@ -783,7 +781,7 @@ def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     use = _use_kernel(problem, state, "gibbs_segment")
     return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
                         mode="gibbs", counter=gibbs_segment if use else None,
-                        classic=_classic, **_knobs)
+                        classic=_classic)
 
 
 gibbs_segment.launches = 0

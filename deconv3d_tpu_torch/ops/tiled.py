@@ -31,7 +31,7 @@ the f − 1 halo) into VMEM and plans the tile under VMEM's size.  On Hopper
 no window fits one SM's shared memory (one f=17 patch at L=3681 is 4.3 MB)
 and the window is not copied.  :func:`plan_tiles` keeps the TPU rule — most
 spaxels per step, then the least total window volume — under a window
-budget that was measured on the card (:func:`window_budget_bytes`).
+budget that was measured on the card (:data:`WINDOW_BUDGET_BYTES`).
 """
 
 from __future__ import annotations
@@ -44,39 +44,29 @@ import torch
 from .. import sampler as sm
 from . import sweep as sw
 
-#: the tile planner's window budget (bytes of one tile's residual and
-#: weights), measured on an NVIDIA H100 80GB HBM3 (``python -m
-#: deconv3d_tpu_torch.tile_sweep``, PERF.md §6)
+#: the tile budget: the largest window (a tile's residual and weights, in
+#: bytes) the planner takes, and the size of field above which
+#: ``engine='auto'`` leaves the whole-cube kernel for the tiled one
+#: (``sampler.resolve_engine``).  A measured constant, the same for every
+#: device.  A sweep's time falls with every larger tile — fewer dependent
+#: steps, each a few grid barriers — while the window stays under about a
+#: gigabyte, and rises again above: on an NVIDIA H100 80GB HBM3 the full
+#: MUSE field (f=17, L=3681; 4.6 GB of residual and weights) took 469 ms
+#: (MH) and 974 ms (gibbs) per sweep in (1, 2) tiles, 406 / 817 in (3, 3),
+#: 391 / 759 in (6, 6), 393 / 744 in (9, 9) tiles of 0.84 GB windows, and
+#: 440 / 811 ms as one tile, the whole-cube kernel; a (9, 18) tile of
+#: 1.6 GB was slower than (9, 9) too.  Fields under the budget are fastest
+#: as one tile (60×60×3681, 0.2 GB: 21.6 / 37.8 ms against 25–33 / 50–69 in
+#: smaller tiles).  The 50 MB L2 plays no part.  Every byte comes from
+#: device memory either way; what a window of that size keeps is not
+#: measured (the reach of the address translation caches is a guess).
+#: PERF.md §6 has the runs (``python -m deconv3d_tpu_torch.tile_sweep``).
 WINDOW_BUDGET_BYTES = 2**30
 
 #: launch counters of the two modes of ``csrc/tiled_sweep.cu``: each adds
 #: one per kernel launch, and the plain version never adds to them
 tiled_mh = types.SimpleNamespace(launches=0)
 tiled_gibbs = types.SimpleNamespace(launches=0)
-
-
-def window_budget_bytes() -> int:
-    """The tile budget: the largest window (a tile's residual and weights)
-    the planner takes, and the size of field above which ``engine='auto'``
-    leaves the whole-cube kernel for the tiled one
-    (``sampler.resolve_engine``).
-
-    A measured constant, the same for every device.  A sweep's time falls
-    with every larger tile — fewer dependent steps, each a few grid
-    barriers — while the window stays under about a gigabyte, and rises
-    again above: on an H100 the full MUSE field (f=17, L=3681; 4.6 GB of
-    residual and weights) took 469 ms (MH) and 974 ms (gibbs) per sweep in
-    (1, 2) tiles, 406 / 817 in (3, 3), 391 / 759 in (6, 6), 393 / 744 in
-    (9, 9) tiles of 0.84 GB windows, and 440 / 811 ms as one tile, the
-    whole-cube kernel; a (9, 18) tile of 1.6 GB was slower than (9, 9) too.
-    Fields under the budget are fastest as one tile (60×60×3681, 0.2 GB:
-    21.6 / 37.8 ms against 25–33 / 50–69 in smaller tiles).  The 50 MB L2
-    plays no part.  Every byte comes from device memory either way; what a
-    window of that size keeps is not measured (the reach of the address
-    translation caches is a guess).  PERF.md §6 has the runs (``python -m
-    deconv3d_tpu_torch.tile_sweep``).
-    """
-    return WINDOW_BUDGET_BYTES
 
 
 def tile_geometry(f: int, ny_t: int, nx_t: int):
@@ -188,22 +178,42 @@ def tiled_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                   uniforms: Optional[torch.Tensor] = None,
                   record_uniforms: bool = False,
                   tile: Optional[Tuple[int, int]] = None,
-                  schedule: str = "wavefront", **_knobs) -> sw.Segment:
+                  schedule: str = "wavefront") -> sw.Segment:
     """``n_sweeps`` tiled sweeps of ``config.sampler``; each one launch of
     ``csrc/tiled_sweep.cu`` for the whole batch of chains, the tiles in
     the order of ``schedule`` (:func:`wave_schedule`; both give the same
-    bits).  ``_knobs``: the kernel's tuning knobs ``stages`` / ``lam_b`` of
-    ``ops.sweep._run_segment`` (for the measurements).
+    bits).
 
     On a CUDA device every sweep goes through the kernel (a failed build or
     launch raises); only for tensors on the CPU does it run the plain
     version.  :data:`tiled_mh` / :data:`tiled_gibbs` count the launches.
     """
+    return tuned_segment(problem, state, n_sweeps, uniforms, record_uniforms,
+                         tile=_tile(problem, tile), schedule=schedule)
+
+
+def tuned_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
+                  uniforms: Optional[torch.Tensor] = None,
+                  record_uniforms: bool = False,
+                  tile: Optional[Tuple[int, int]] = None,
+                  schedule: str = "wavefront", stages: int = -1,
+                  lam_b: Optional[int] = None) -> sw.Segment:
+    """The measurements' entry (``tile_sweep``, ``task_phases``, the knob
+    tests): :func:`tiled_segment` in ``tile`` — or, with ``tile`` None, the
+    classic whole-cube kernel — under the kernels' tuning knobs ``stages``
+    and ``lam_b`` of ``ops.sweep._run_segment``, which the entry points
+    leave at the shipped rules.  Any setting gives the same bits."""
     mode = _mode(problem)
-    use = sw._use_kernel(problem, state, "tiled_segment")
-    counter = (tiled_gibbs if mode == "gibbs" else tiled_mh) if use else None
-    tile = _tile(problem, tile)
+    use = sw._use_kernel(problem, state, "tuned_segment")
+    if tile is None:
+        counter = sw.gibbs_segment if mode == "gibbs" else sw.mh_segment
+        waves = None
+    else:
+        counter = tiled_gibbs if mode == "gibbs" else tiled_mh
+        tile = _tile(problem, tile)
+        waves = _waves(problem, tile, schedule)
     return sw._run_segment(problem, state, n_sweeps, uniforms,
-                           record_uniforms, mode=mode, counter=counter,
-                           tile=tile, waves=_waves(problem, tile, schedule),
-                           **_knobs)
+                           record_uniforms, mode=mode,
+                           counter=counter if use else None, tile=tile,
+                           classic=tile is None, waves=waves, stages=stages,
+                           lam_b=lam_b)

@@ -319,7 +319,7 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
 
     ``'auto'``: the tiled engine when ``config.tile`` is given, or on a CUDA
     device when one chain's padded residual and weights (float32) exceed
-    ``budget`` (default :func:`ops.tiled.window_budget_bytes`) and a tile
+    ``budget`` (default ``ops.tiled.WINDOW_BUDGET_BYTES``) and a tile
     fits it; else the whole-cube engine.  The rule has the form of the JAX
     package's step from the whole-cube kernel down to the tiled one
     (``deconv3d_tpu/sampler.py:466-536``), with a budget measured on the
@@ -337,7 +337,7 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
     device = torch.device(device)
     whole, tiled_engine = _device_engines(device, config.engine)
     if budget is None:
-        budget = tiled.window_budget_bytes()
+        budget = tiled.WINDOW_BUDGET_BYTES
     tile, engine = config.tile, config.engine
     if engine == "auto":
         Hp, Wp = f - 1 + ny * f, f - 1 + nx * f
@@ -366,13 +366,13 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
     return engine, (ny_t, nx_t)
 
 
-def auto_rebaseline_every(engine: str, sampler: str, clean_bytes: int) -> int:
+def auto_rebaseline_every(sampler: str, clean_bytes: int) -> int:
     """``chi2_rebaseline_every`` for None: 8 for gibbs with more than
     :data:`REBASELINE_AUTO_BYTES` of clean cube, else 0.  The JAX package
     ties the rule to its tiled engine, the only one that runs fields of
     that size there (``deconv3d_tpu/sampler.py:537-552``); here the
     whole-cube kernels run them too (``engine='cuda'`` pinned), so the rule
-    covers every ``engine``."""
+    holds on every engine."""
     return 8 if sampler == "gibbs" and clean_bytes > REBASELINE_AUTO_BYTES else 0
 
 
@@ -415,7 +415,7 @@ def make_problem(
     engine, tile = resolve_engine(config, device, f, ny, nx, L)
     every = config.chi2_rebaseline_every
     if every is None:
-        every = auto_rebaseline_every(engine, config.sampler,
+        every = auto_rebaseline_every(config.sampler,
                                       L * Yc * Xc * dtype.itemsize)
     config = dataclasses.replace(config, engine=engine, tile=tile,
                                  chi2_rebaseline_every=int(every))

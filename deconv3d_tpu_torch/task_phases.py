@@ -71,8 +71,8 @@ def task_split(sampler: str, cube, tile, schedule: str, stages: int) -> dict:
     counter = tl.tiled_gibbs if sampler == "gibbs" else tl.tiled_mh
 
     def sweep():
-        return tl.tiled_segment(problem, state, 1, schedule=schedule,
-                                stages=stages)
+        return tl.tuned_segment(problem, state, 1, tile=tile,
+                                schedule=schedule, stages=stages)
 
     setattr(lib, name, getattr(variant, name))
     try:

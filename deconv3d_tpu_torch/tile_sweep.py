@@ -31,7 +31,6 @@ import torch
 from . import sampler as sm
 from .cube import Cube
 from .instruments import MUSE
-from .ops import sweep as sw
 from .ops import tiled as tl
 
 
@@ -82,9 +81,8 @@ def sweep_tiles(cube: Cube, sampler: str, tiles=None,
     problem = sm.make_problem(cube, MUSE(), sm.RunConfig(
         seed=0, sampler=sampler, engine="cuda"))
     state = sm.init_state(problem)
-    whole = sw.gibbs_segment if sampler == "gibbs" else sw.mh_segment
     f, L = problem.f, problem.L
-    budget = tl.window_budget_bytes()
+    budget = tl.WINDOW_BUDGET_BYTES
     auto = sm.resolve_engine(sm.RunConfig(sampler=sampler), problem.device,
                              f, problem.ny, problem.nx, L)
     out = {"shape": list(cube.shape), "sampler": sampler, "f": f,
@@ -96,12 +94,12 @@ def sweep_tiles(cube: Cube, sampler: str, tiles=None,
     for st, lb in settings:
         knobs = {"stages": st, **({"lam_b": lb} if lb else {})}
         out["k1_ms"].append({"stages": st, "lam_b": lb, "ms": _ms(
-            lambda: whole(problem, state, 1, _classic=True, **knobs))})
+            lambda: tl.tuned_segment(problem, state, 1, **knobs))})
         for tile in tiles or default_tiles(problem.ny, problem.nx):
             for schedule in schedules:
                 waves = tl.wave_schedule(problem.ny // tile[0],
                                          problem.nx // tile[1], schedule)
-                ms = _ms(lambda: tl.tiled_segment(
+                ms = _ms(lambda: tl.tuned_segment(
                     problem, state, 1, tile=tile, schedule=schedule, **knobs))
                 out["tiles"].append({
                     "tile": list(tile), "schedule": schedule, "stages": st,

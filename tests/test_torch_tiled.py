@@ -410,7 +410,7 @@ MUSE_FIELD = dict(f=17, ny=18, nx=18, L=3681)      # 300×300×3681, f=17
 
 
 def test_full_muse_field_has_a_plan_under_the_l2_budget():
-    budget = tl.window_budget_bytes()
+    budget = tl.WINDOW_BUDGET_BYTES
     assert budget == 2**30                    # measured on the card
     plan = tl.plan_tiles(**MUSE_FIELD, budget=budget)
     assert plan == (9, 9)
@@ -447,7 +447,7 @@ def test_tile_sweep_covers_the_plan_and_makes_a_seeded_field():
 
     tiles = ts.default_tiles(18, 18)
     assert tiles == [(1, 1), (1, 2), (2, 2), (3, 3), (6, 6), (9, 9), (18, 18)]
-    assert tl.plan_tiles(**MUSE_FIELD, budget=tl.window_budget_bytes()) in tiles
+    assert tl.plan_tiles(**MUSE_FIELD, budget=tl.WINDOW_BUDGET_BYTES) in tiles
     assert (1, 2) in tiles
     assert ts.default_tiles(2, 4) == [(1, 1), (1, 2), (2, 2)]
     a = ts.field_cube(L=12, Y=30, X=30, device="cpu")
@@ -467,7 +467,7 @@ def test_tile_sweep_covers_the_plan_and_makes_a_seeded_field():
     (MUSE_FIELD, 1024, ("cuda", None)),                    # no tile fits
 ])
 def test_auto_engine_rule_on_a_card(geometry, budget, want):
-    budget = tl.window_budget_bytes() if budget is None else budget
+    budget = tl.WINDOW_BUDGET_BYTES if budget is None else budget
     got = tsm.resolve_engine(tsm.RunConfig(), torch.device("cuda"),
                              budget=budget, **geometry)
     assert got == want
@@ -475,7 +475,7 @@ def test_auto_engine_rule_on_a_card(geometry, budget, want):
 
 def test_engine_resolution_rules():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    budget = tl.window_budget_bytes()
+    budget = tl.WINDOW_BUDGET_BYTES
     # the CPU stays on the whole-cube scan unless a tile or engine says so
     assert tsm.resolve_engine(tsm.RunConfig(), cpu, budget=budget,
                               **MUSE_FIELD) == ("torch", None)
@@ -508,12 +508,10 @@ def test_engine_resolution_rules():
 
 def test_rebaseline_auto_rule(rng, monkeypatch):
     big, small = tsm.REBASELINE_AUTO_BYTES + 1, tsm.REBASELINE_AUTO_BYTES
-    assert tsm.auto_rebaseline_every("cuda_tiled", "gibbs", big) == 8
-    assert tsm.auto_rebaseline_every("torch_tiled", "gibbs", big) == 8
-    assert tsm.auto_rebaseline_every("cuda_tiled", "gibbs", small) == 0
-    assert tsm.auto_rebaseline_every("cuda", "gibbs", big) == 8
-    assert tsm.auto_rebaseline_every("torch", "gibbs", small) == 0
-    assert tsm.auto_rebaseline_every("cuda_tiled", "mh", big) == 0
+    assert tsm.auto_rebaseline_every("gibbs", big) == 8
+    assert tsm.auto_rebaseline_every("gibbs", small) == 0
+    assert tsm.auto_rebaseline_every("mh", big) == 0
+    assert tsm.auto_rebaseline_every("mh", small) == 0
     # off for small problems on every engine ...
     for kw in ({}, dict(engine="torch_tiled", tile=TILE)):
         for sampler in ("mh", "gibbs"):

@@ -147,6 +147,27 @@ def test_wavefront_scan_is_the_raster_scan(sampler, tile, n_chains):
         assert not torch.equal(k.result.state.resid, raster.result.state.resid)
 
 
+@pytest.mark.parametrize("sampler", ["mh", "gibbs"])
+def test_tuned_segment_is_the_entry_points_segment(sampler):
+    """The measurements' entry runs the plain versions on the CPU, whatever
+    the knobs: a tile gives the tiled scan, no tile the whole-cube sweep;
+    the entry points themselves take no knob."""
+    p = _toy(sampler, engine="torch_tiled", tile=(1, 2))
+    s0 = tsm.init_state(p)
+    tiled = tl.tiled_segment_reference(p, s0, 2)
+    _assert_segments_equal(
+        tl.tuned_segment(p, s0, 2, tile=(1, 2), stages=0, lam_b=7), tiled)
+    whole = (sw.mh_segment_reference if sampler == "mh"
+             else sw.gibbs_segment_reference)(p, s0, 2)
+    _assert_segments_equal(tl.tuned_segment(p, s0, 2, stages=0), whole)
+    assert not torch.equal(whole.result.state.resid, tiled.result.state.resid)
+    with pytest.raises(ValueError, match="does not divide"):
+        tl.tuned_segment(p, s0, 1, tile=(3, 2))
+    for entry in (tl.tiled_segment, sw.mh_segment, sw.gibbs_segment):
+        with pytest.raises(TypeError, match="stages"):
+            entry(p, s0, 1, stages=0)
+
+
 # ---------------------------------------------------------------------------
 # gibbs phase (b), slab by slab
 # ---------------------------------------------------------------------------
@@ -269,7 +290,8 @@ def test_wavefront_kernel_is_the_raster_kernel_on_card(sampler, fsf_size,
     if sampler == "gibbs":
         knobs += [dict(lam_b=L), dict(lam_b=8), dict(stages=0, lam_b=33)]
     for kw in knobs:
-        _assert_segments_equal(tl.tiled_segment(p, states, 3, **kw), raster)
+        _assert_segments_equal(
+            tl.tuned_segment(p, states, 3, tile=p.config.tile, **kw), raster)
 
 
 @pytest.mark.gpu
@@ -292,4 +314,4 @@ def test_one_tile_is_the_whole_cube_kernel_on_card(sampler, rank):
         one = tl.tiled_segment(p, s0, 3, tile=(p.ny, p.nx), schedule=schedule)
         _assert_segments_equal(one, classic)
     for kw in (dict(stages=0), dict(stages=0, lam_b=200)):
-        _assert_segments_equal(seg(p, s0, 3, _classic=True, **kw), classic)
+        _assert_segments_equal(tl.tuned_segment(p, s0, 3, **kw), classic)
