@@ -77,13 +77,25 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (9, 9) tiles, χ² rebaseline every 8 sweeps) for 16 sweeps — every sweep
    one tiled launch, the rebaseline at sweeps 8 and 16 with the running χ²
    within 1e-5 of the from-scratch one just before each reset and at the
-   end, acceptance exactly 1 — then MH with ``coarse_every=0`` for 8
-   sweeps; set-up seconds, sweeps/s, the planned tile, peak memory of
-   set-up, run and ``full_chi2``, and one sweep each of the tiled kernel,
+   end, acceptance exactly 1 — then MH in the default flow for 8 sweeps:
+   ``coarse_every`` resolves to 8, so one global coarse pass runs after
+   absolute sweep 8 (its banded Cholesky factors built once, its draws
+   through the banded kernel: k·L draws, all accepted), χ² within 1e-5 of
+   the from-scratch one after the pass, the sweeps' acceptance in the
+   adaptation's early band [0.05, 0.35], the constants' build and
+   the pass's ms (CUDA events) and peak bytes; set-up seconds, sweeps/s,
+   the planned tile, peak memory of set-up, run and ``full_chi2``, and one
+   sweep each of the tiled kernel,
    of the whole-cube kernel and of the tiled kernel's earlier design
    (raster of (1, 2) tiles, synchronous loads, one block per spaxel in
    gibbs phase (b)) on the run's state (CUDA events); the auto rule's
    engine must be the faster of the first two (within 5%).
+12. coarse — the banded kernels (``csrc/banded.cu``: Cholesky, conditional
+   draw) against their plain versions at L = 3681, lw = 11 (the MUSE LSF):
+   one system (the global pass's draw), four (its constants' factors) and
+   324 (one color of the full field); ms of both.  Then one global and one
+   ``soft`` anchor pass on 68×68×600 on the card and on the CPU from one
+   state with the same Philox draws: resid, clean, χ², counts.
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
@@ -92,13 +104,15 @@ sweep and bound (:func:`sweep_bound`) on its own path — ``main`` /
 ``gibbs_main``, ``chains``, ``full_field`` — and its error and plain ms
 from its comparison phase, at the shape it names; the tiled ones with
 their tile, schedule, waves, the widest wave's tiles, steps and
-``previous_ms``), the
+``previous_ms``; the banded ones with their launches on the default MH
+flow of ``full_field`` and their ms at that flow's shapes), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
 
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -110,6 +124,7 @@ import torch
 
 import deconv3d_tpu_torch as d3
 from deconv3d_tpu_torch import _build, chains as ch, sampler as sm
+from deconv3d_tpu_torch.ops import banded as bd, coarse as co
 from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
 from deconv3d_tpu_torch.tile_sweep import field_cube
 
@@ -501,6 +516,7 @@ def reset_launches():
     for seg in (sw.mh_segment, sw.gibbs_segment):
         seg.launches = seg.resident_launches = 0
     tl.tiled_mh.launches = tl.tiled_gibbs.launches = 0
+    bd.cholesky_banded.launches = bd.sample_conditional.launches = 0
 
 
 def tiled_counter(sampler):
@@ -947,14 +963,147 @@ def phase_tiled_vs_whole(n_sweeps=2):
         check(bit_equal, "one tile is not the whole-cube kernel bit for bit")
 
 
+#: the banded kernels against their plain versions, of the output's scale
+#: (float32: the sums run in another order, and the solves amplify rounding
+#: by the system's condition; at the MUSE LSF, L = 3681, the plain float32
+#: draw is 7e-5 and the factor 4e-6 of its scale off float64, on the CPU)
+BANDED_TOL = {"cholesky": 1e-4, "sample": 1e-3}
+
+#: the pass on the card against the pass on the CPU, same problem, state
+#: and Philox draws, of each output's scale: convolutions round
+#: differently on the two devices, and the global draw amplifies that by
+#: its conditional's condition (a 1e-7 relative change of the weights
+#: moves the global pass's clean jump by 5.5e-5 of its scale and the
+#: residual by 1e-7 on the CPU, 68×68×600)
+PASS_TOL = {"resid": 1e-4, "clean": 1e-3, "chi2": 1e-5}
+
+
+def banded_bound(kind, n_sys, L, p):
+    """The least time one banded launch could take: each input read and
+    each output written once, against the HBM rate; flops per row (an fma
+    2, a division or square root 1): the Cholesky (P + 1)² + 1, the draw
+    4P + 4 (both solves)."""
+    W = p + 1
+    if kind == "cholesky":
+        nbytes, flops = 2 * n_sys * L * W * 4, n_sys * L * (W * W + 1)
+    else:
+        nbytes, flops = n_sys * L * (W + 3) * 4, n_sys * L * (4 * p + 4)
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def ms_per_call(fn, n):
+    """``fn()`` (after a warm-up call) and its mean ms over ``n`` calls
+    between CUDA events."""
+    fn()
+    out, ms = timed(lambda: [fn() for _ in range(n)])
+    return out[-1], ms / n
+
+
+def phase_coarse(L=3681):
+    """The banded kernels against their plain versions at the MUSE LSF (lw
+    11) and L = 3681: 1 system (the global pass's draw), 4 (its constants'
+    factors, one batched launch) and 324 (one color of the full field);
+    then one global and one soft pass on 68×68×600 on the card and on the
+    CPU from one state with the same Philox draws."""
+    lam = 4750.0 + 1.25 * np.arange(L)
+    lsf = torch.tensor(d3.MUSE().lsf.bank(lam, cdelt=1.25, width=None),
+                       dtype=torch.float32).cuda()
+    lw = int(lsf.shape[1])
+    check(lw == 11, f"the MUSE LSF has {lw} taps, expected 11")
+    rng = np.random.default_rng(10)
+    out = {}
+    for n_sys in (1, 4, 324):
+        q = torch.tensor(1.0 + rng.random((n_sys, L)),
+                         dtype=torch.float32).cuda()
+        bands = bd.precision_bands(lsf, q)
+        R, chol_ms = ms_per_call(lambda: bd.cholesky_banded(bands), 20)
+        R_ref, chol_plain_ms = timed(
+            lambda: bd.cholesky_banded_reference(bands))
+        b, noise = (torch.tensor(rng.standard_normal((n_sys, L)),
+                                 dtype=torch.float32).cuda()
+                    for _ in range(2))
+        x, ms = ms_per_call(lambda: bd.sample_conditional(R_ref, b, noise),
+                            20)
+        x_ref, plain_ms = timed(
+            lambda: bd.sample_conditional_reference(R_ref, b, noise))
+        errs = {"cholesky": float((R - R_ref).abs().max()),
+                "sample": float((x - x_ref).abs().max())}
+        scale = {"cholesky": float(R_ref.abs().max()),
+                 "sample": float(x_ref.abs().max())}
+        out[n_sys] = {
+            "cholesky": {"max_abs_err": errs["cholesky"], "ms": chol_ms,
+                         "plain_ms": chol_plain_ms,
+                         "bound": banded_bound("cholesky", n_sys, L, lw - 1)},
+            "sample": {"max_abs_err": errs["sample"], "ms": ms,
+                       "plain_ms": plain_ms,
+                       "bound": banded_bound("sample", n_sys, L, lw - 1)}}
+        emit("banded_kernel_vs_plain", L=L, lw=lw, n_systems=n_sys,
+             **{f"{k}_{n}": v[n] if n != "bound" else v[n]["bound_ms"]
+                for k, v in out[n_sys].items()
+                for n in ("max_abs_err", "ms", "plain_ms", "bound")},
+             **{f"{k}_tol": BANDED_TOL[k] * scale[k] for k in scale})
+        for k in errs:
+            check(errs[k] <= BANDED_TOL[k] * scale[k],
+                  f"banded {k} kernel differs from its plain version "
+                  f"({n_sys} systems)")
+
+    cube = bench_cube(L=600, Y=68, X=68)
+    card = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(seed=0))
+    cpu = sm.make_problem(cube.to("cpu"), d3.MUSE(), sm.RunConfig(seed=0),
+                          device="cpu")
+    state = sm.run_sweeps(card, sm.init_state(card), 2).state
+    state_cpu = sm.SamplerState(**{k: v.cpu() for k, v in vars(state).items()})
+    for mode in ("global", "soft"):
+        # the first build of the process also starts cuBLAS and cuDNN
+        # for these shapes: timed twice
+        build_ms = [timed(lambda: co.coarse_constants(card, mode))[1]]
+        consts, ms = timed(lambda: co.coarse_constants(card, mode))
+        build_ms.append(ms)
+        got, pass_ms = timed(lambda: co.coarse_pass(card, state, consts))
+        t0 = time.perf_counter()
+        want = co.coarse_pass(cpu, state_cpu,
+                              co.coarse_constants(cpu, mode))
+        cpu_s = time.perf_counter() - t0
+        errs = {n: float((getattr(got, n).cpu() - getattr(want, n)).abs().max())
+                / float(getattr(want, n).abs().max())
+                for n in ("resid", "clean")}
+        errs["chi2"] = abs(float(got.chi2) - float(want.chi2)) / float(want.chi2)
+        counts = [float(got.n_accept - state.n_accept),
+                  float(want.n_accept - state_cpu.n_accept),
+                  float(got.n_propose - state.n_propose),
+                  float(want.n_propose - state_cpu.n_propose)]
+        full = float(sm.full_chi2(card, got))
+        consistency = abs(float(got.chi2) - full) / full
+        emit("coarse_pass_card_vs_cpu", mode=mode, shape=list(cube.shape),
+             f=card.f, patterns=len(consts) if mode != "global"
+             else int(consts[0][1].shape[0]),
+             rel_err=errs, rel_tol=PASS_TOL,
+             accepted_card_cpu_proposed_card_cpu=counts,
+             chi2_consistency_card=consistency,
+             constants_ms_first_then_warm=build_ms,
+             pass_ms=pass_ms, cpu_pass_s=cpu_s)
+        for n, tol in PASS_TOL.items():
+            check(errs[n] <= tol, f"{mode} pass on the card differs from the "
+                  f"CPU in {n}")
+        check(counts[0] == counts[1] > 0 and counts[2] == counts[3],
+              f"{mode} pass accept / proposal counts differ: {counts}")
+        check(consistency <= 1e-5, "running chi2 drifted in the pass")
+    return out
+
+
 def phase_full_field(sampler, n, cube):
     """``Run`` on a 300×300×3681 MUSE field with the defaults: every sweep
     through the tiled kernel, which the auto rule takes at this size in the
     planned tile; for gibbs the χ² rebaseline at absolute sweeps 8 and 16,
     with the running χ² against the from-scratch one just before each
-    reset.  Then one sweep each of the tiled and the whole-cube kernel on
-    the run's problem and state, and the auto rule's choice held against
-    the two times."""
+    reset; for MH the global coarse pass after absolute sweep 8 (its
+    constants' build and the pass timed, the banded kernels' launches
+    counted).  Then one sweep each of the tiled and the whole-cube kernel
+    on the run's problem and state, and the auto rule's choice held
+    against the two times."""
     resets = []
     rebaseline = sm.rebaseline_chi2
 
@@ -972,12 +1121,36 @@ def phase_full_field(sampler, n, cube):
                            torch.cuda.max_memory_allocated()})
         return rebaseline(problem, state)
 
+    passes, builds = [], []
+    apply_pass, build = sm.apply_coarse_pass, co.coarse_constants
+
+    def recording_pass(problem, state, constants):
+        torch.cuda.synchronize()
+        peak_before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        out, ms = timed(lambda: apply_pass(problem, state, constants))
+        passes.append({"sweep": int(state.sweep.reshape(-1)[0]), "ms": ms,
+                       "bytes_live": live, "peak_bytes":
+                           torch.cuda.max_memory_allocated(),
+                       "peak_bytes_before": peak_before,
+                       "accepted": float((out.n_accept
+                                          - state.n_accept).sum()),
+                       "proposed": float((out.n_propose
+                                          - state.n_propose).sum())})
+        return out
+
+    def recording_build(problem, mode):
+        out, ms = timed(lambda: build(problem, mode))
+        builds.append({"mode": mode, "ms": ms, "patterns": sum(
+            int(e[1].shape[0]) for e in out if e[0] == "global_batch")})
+        return out
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    kw = {"coarse_every": 0} if sampler == "mh" else {}
     run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2, seed=0,
-                 sampler=sampler, **kw)
+                 sampler=sampler)
     run.states                                  # init_state
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -989,8 +1162,13 @@ def phase_full_field(sampler, n, cube):
           f"kernel is held against its plain version in {FIELD_TILE}")
     check(cfg.chi2_rebaseline_every == every,
           f"chi2_rebaseline_every resolved to {cfg.chi2_rebaseline_every}")
+    coarse_every = 8 if sampler == "mh" else None
+    check(cfg.coarse_every == coarse_every
+          and (coarse_every is None or cfg.coarse_mode == "global"),
+          f"coarse_every resolved to {cfg.coarse_every} ({cfg.coarse_mode})")
     counter = tiled_counter(sampler)
     sm.rebaseline_chi2 = recording_rebaseline
+    sm.apply_coarse_pass, co.coarse_constants = recording_pass, recording_build
     try:
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -999,9 +1177,14 @@ def phase_full_field(sampler, n, cube):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = counter.launches
+        banded = {"cholesky_launches": bd.cholesky_banded.launches,
+                  "sample_launches": bd.sample_conditional.launches}
     finally:
         sm.rebaseline_chi2 = rebaseline
-    run_peak = torch.cuda.max_memory_allocated()
+        sm.apply_coarse_pass, co.coarse_constants = apply_pass, build
+    run_peak = max([torch.cuda.max_memory_allocated()]
+                   + [p["peak_bytes_before"] for p in passes])
+    acc_sweeps = float(np.mean(run.trace("accept")))
     consistency = chi2_consistency(run)
     diag = run.diagnostics()
     # one sweep each of the tiled and the whole-cube kernel on the run's
@@ -1031,8 +1214,12 @@ def phase_full_field(sampler, n, cube):
          tiled_kernel_earlier_design_ms_per_sweep=previous_ms,
          bound_ms_per_sweep=bound["bound_ms"],
          rebaselines=resets, chi2_consistency_end=consistency,
-         acceptance=diag["acceptance_rate"], setup_peak_bytes=setup_peak,
-         run_peak_bytes=run_peak, chi2=diag["chi2"])
+         coarse_every=cfg.coarse_every, coarse_mode=cfg.coarse_mode,
+         coarse_passes=passes, coarse_constants_builds=builds, **banded,
+         acceptance=diag["acceptance_rate"], acceptance_of_sweeps=acc_sweeps,
+         acceptance_per_sweep=run.trace("accept")[0].tolist(),
+         setup_peak_bytes=setup_peak, run_peak_bytes=run_peak,
+         chi2=diag["chi2"])
     check(launches == n, f"tiled kernel launched {launches} times for {n}")
     check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
     check(all(np.isfinite(diag[k]) for k in ("chi2", "acceptance_rate")),
@@ -1043,15 +1230,51 @@ def phase_full_field(sampler, n, cube):
         check(all(r["chi2_consistency_before"] <= 1e-5 for r in resets),
               "running chi2 drifted before a rebaseline")
         check(diag["acceptance_rate"] == 1.0, "gibbs acceptance is not 1")
+        check(not passes and not builds, "gibbs ran a coarse pass")
     else:
         check(not resets, "MH rebaselined")
+        check([p["sweep"] for p in passes] == [8],
+              f"coarse passes at {[p['sweep'] for p in passes]}, not 8")
+        check(len(builds) == 1, "the pass constants were not built once")
+        check(banded["cholesky_launches"] == 1
+              and banded["sample_launches"] == builds[0]["patterns"] > 0,
+              f"banded kernels launched {banded}: one Cholesky launch and "
+              f"one draw for each of {builds[0]['patterns']} patterns "
+              "expected")
+        # the pass is an exact Gibbs move: k·L draws, every one accepted
+        p0 = passes[0]
+        check(p0["accepted"] == p0["proposed"]
+              == builds[0]["patterns"] * run.problem.L,
+              f"the pass accepted {p0['accepted']} of {p0['proposed']}")
+        # 8 sweeps from the default start are the adaptation's transient:
+        # both packages read 0.06-0.12 over their first 12 MH sweeps (on
+        # the CPU: the JAX package at 30×30×600, the port at 34×34×3681),
+        # and reach the 0.234 target after burn-in (phase main: sweeps
+        # 200-400 in [0.15, 0.35])
+        check(0.05 <= acc_sweeps <= 0.35,
+              f"MH acceptance of the sweeps {acc_sweeps:.3f} out of "
+              "[0.05, 0.35]")
     check_auto_engine("full_field", sampler, cfg.engine,
                       {"cuda_tiled": k2_ms, "cuda": k1_ms})
     return {"launches": launches, "ms": k2_ms, "shape": list(cube.shape),
+            "passes": passes, "builds": builds, **banded,
             "bound": bound, "tile": list(cfg.tile), "waves": len(waves),
             "max_wave_tiles": max(map(len, waves)),
             "steps": len(waves) * run.problem.n_colors,
             "previous_ms": previous_ms}
+
+
+class WarningCounts(logging.Handler):
+    """Counts the port's log warnings by their first clause, so that the
+    warnings of the many runs of a smoke fit one line."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.counts = {}
+
+    def emit(self, record):
+        head = record.getMessage().split(":")[0][:100]
+        self.counts[head] = self.counts.get(head, 0) + 1
 
 
 def main() -> int:
@@ -1064,15 +1287,20 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     # the phases run under PyTorch's default TF32 flags, as a user's
     # program does; the port's own guard (convolve.no_tf32) must keep χ²
     # exact and leave the flags as it found them
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    emit("device", name=kind, nvidia_smi=smi, torch=torch.__version__,
+    emit("device", name=device_name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count(),
          tf32_matmul=tf32[0], tf32_cudnn=tf32[1])
+
+    warnings = WarningCounts()
+    port_log = logging.getLogger("deconv3d_tpu_torch")
+    port_log.addHandler(warnings)
+    port_log.propagate = False
 
     _build.load_library()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
@@ -1095,6 +1323,7 @@ def main() -> int:
     phase_full_lambda("gibbs", 10)
     tiled = phase_tiled_kernel()
     phase_tiled_vs_whole()
+    coarse = phase_coarse()
     cube = field_cube()
     field = {sampler: phase_full_field(sampler, n, cube)
              for sampler, n in (("gibbs", 16), ("mh", 8))}
@@ -1102,6 +1331,7 @@ def main() -> int:
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
+    emit("log", warnings=warnings.counts)
     emit("wall", seconds=time.perf_counter() - t_start)
 
     def bound(b):
@@ -1175,12 +1405,35 @@ def main() -> int:
                           "raster of (1, 2) tiles, synchronous loads, one "
                           "block per spaxel in gibbs phase (b)",
     } for sampler in ("mh", "gibbs")]
+    # the banded kernels: launches on the default MH flow of full_field,
+    # everything else at that flow's shapes (the constants factor all
+    # patterns in one launch, each draw is one system)
+    n_patterns = field["mh"]["builds"][0]["patterns"]
+    for part, name, n_sys, launches in (
+            ("cholesky", "banded_cholesky", n_patterns, "cholesky_launches"),
+            ("sample", "banded_sample_conditional", 1, "sample_launches")):
+        n_sys = n_sys if n_sys in coarse else 4
+        at = coarse[n_sys][part]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "deconv3d_tpu_torch/csrc/banded.cu",
+            "replaces": "deconv3d_tpu/ops/banded.py:77-192 "
+                        "(lax.scan, no Pallas)",
+            "launches": field["mh"][launches],
+            "launches_path": "full_field (mh, the default flow's coarse pass)",
+            "shape": [n_sys, 3681, 11],
+            "max_abs_err": at["max_abs_err"], "ms": at["ms"],
+            "plain_ms": at["plain_ms"], **bound(at["bound"]),
+            "library_ms": None,
+            "n_systems_324": other_shape(coarse[324][part]),
+        })
     check(all(line["launches"] > 0 for line in lines),
           "a kernel was launched no time on its path")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

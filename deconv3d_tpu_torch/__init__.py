@@ -5,9 +5,12 @@ The PyTorch port of ``deconv3d_tpu``: Metropolis-Hastings-within-Gibbs
 sampling of clean MUSE cubes under a separable FSF ⊛ LSF instrument model,
 with incremental local-patch likelihood deltas and convergence diagnostics.
 On a CUDA device every sweep runs through a hand-written Hopper kernel
-(``csrc/mh_sweep.cu``, ``csrc/gibbs_sweep.cu``, or on fields too large
-for the card's L2 the tiled ``csrc/tiled_sweep.cu``); on the CPU through
-its plain torch version.
+(``csrc/resident_sweep.cu``, ``csrc/mh_sweep.cu``, ``csrc/gibbs_sweep.cu``,
+or on fields whose residual and weights exceed the 1 GiB window budget,
+``ops/tiled.py::WINDOW_BUDGET_BYTES``, the tiled ``csrc/tiled_sweep.cu``),
+and MH on a large blurred field interleaves coarse pattern passes whose
+banded draws run ``csrc/banded.cu``; on the CPU everything runs its plain
+torch version.
 
     from deconv3d_tpu_torch import Run, MUSE, Cube
     run = Run(cube, MUSE(), max_iterations=10_000)

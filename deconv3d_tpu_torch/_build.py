@@ -73,6 +73,8 @@ _SIGNATURES = {
     "resident_smem_bytes": ([_I] * 9, ctypes.c_longlong),
     "resident_barrier_launch": ([_I, _I, ctypes.c_longlong, _I, _P], _I),
     "resident_phase_clocks": ([_P], _I),
+    "banded_cholesky_launch": ([_P, _P, _I, _I, _I, _F, _P], _I),
+    "banded_sample_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
 }
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from . import sampler as sm
+from .cube import torch_dtype
 
 _PROBLEM_INTS = ("L", "Y", "X", "f", "ny", "nx")
 _PROBLEM_TENSORS = (
@@ -48,7 +49,8 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
     ``qvox`` only as ``quad_tiled`` / ``qvox_tiled``, in the layout of
     ``config.tile``: they come back in the cube layout
     (:func:`untiled_layout`).  Its bfloat16 ``w_pad`` holds the same
-    values as the port's float32 one."""
+    values as the port's float32 one.  Float arrays take ``config.dtype``."""
+    fdt = torch_dtype(config.dtype)
     kw = {n: int(d[n]) for n in _PROBLEM_INTS}
     d = dict(d)
     for n in ("quad", "qvox"):
@@ -67,7 +69,8 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
         elif np.issubdtype(arr.dtype, np.integer):
             dtype = torch.int64
         else:                        # float32, float64, bfloat16 values
-            arr, dtype = arr.astype(np.float32), torch.float32
+            arr, dtype = arr.astype(
+                np.float64 if fdt == torch.float64 else np.float32), fdt
         kw[n] = torch.tensor(arr, dtype=dtype, device=device)
     return sm.Problem(config=config, **kw)
 
@@ -89,8 +92,14 @@ def key_from_words(words) -> int:
     return int((w[0] << np.uint64(32)) | w[1])
 
 
-def state_from_numpy(d: Mapping, device="cpu") -> sm.SamplerState:
-    """Port SamplerState from a mapping of field name → NumPy array."""
+#: the state's float32 bookkeeping scalars (the cubes take the run's dtype)
+_STATE_FLOAT32 = ("chi2", "chi2_comp", "n_accept", "n_propose", "n_kept")
+
+
+def state_from_numpy(d: Mapping, device="cpu",
+                     dtype=torch.float32) -> sm.SamplerState:
+    """Port SamplerState from a mapping of field name → NumPy array; the
+    cubes and log-scales take ``dtype``, χ² and the counts float32."""
     kw = {}
     for fld in dataclasses.fields(sm.SamplerState):
         arr = np.asarray(d[fld.name])
@@ -101,8 +110,9 @@ def state_from_numpy(d: Mapping, device="cpu") -> sm.SamplerState:
         elif fld.name == "sweep":
             kw["sweep"] = torch.tensor(int(arr), dtype=torch.int64, device=device)
         else:
-            kw[fld.name] = torch.tensor(arr, dtype=torch.float32,
-                                        device=device)
+            kw[fld.name] = torch.tensor(
+                arr, device=device,
+                dtype=torch.float32 if fld.name in _STATE_FLOAT32 else dtype)
     return sm.SamplerState(**kw)
 
 

@@ -1,17 +1,33 @@
-"""Diagonal of the banded spectral precision, for the exact-Gibbs sampler.
+"""Banded SPD linear algebra: spectral precisions, Cholesky, conditional draws.
 
-Counterpart of ``precision_diag`` in ``deconv3d_tpu/ops/banded.py``.  The
-conditional precision of one voxel (λ, y, x) under the separable model is
-``qvox[λ] = Σ_μ M[μ, λ]² · quad[μ]``, with M the banded LSF matrix
-(``M[μ, μ + d − half] = lsf[μ, d]``) and ``quad[μ] = Σ F²[μ] w`` the
-per-spaxel quadratic weight (``sampler.Problem.quad``).  The banded
-Cholesky machinery of the JAX module belongs to ``sampler='gibbs_block'``,
-which is not ported yet.
+Counterpart of ``deconv3d_tpu/ops/banded.py``.  The conditional precision
+of a spectrum under the separable model is A = Mᵀ diag(q) M, with M the
+banded LSF matrix (``M[μ, μ + d − half] = lsf[μ, d]``) and q per-λ
+quadratic weights (``sampler.Problem.quad`` for one voxel, a coarse
+pattern's response norm for the global pass of ``ops/coarse.py``).  A is
+banded with bandwidth p = lw − 1, so a draw x ~ N(A⁻¹b, A⁻¹) costs O(L·lw²)
+through a banded Cholesky A = RᵀR and two triangular solves.
+
+Band storage: ``bands[..., l, k]`` holds A[l, l+k] for k = 0..p (zero past
+the matrix edge).  Every routine is batched over leading dims.  The
+``*_reference`` functions and the solves are plain torch loops over λ
+(the JAX package's ``lax.scan``s); :func:`cholesky_banded` and
+:func:`sample_conditional` run them on CPU tensors and, on CUDA tensors,
+the kernels of ``csrc/banded.cu`` (one thread per system), which a
+failed build or launch does not turn into the plain loop: it raises.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: largest bandwidth the kernels take (lw ≤ 11)
+MAX_P = 10
+
+#: the smallest squared pivot of the Cholesky (zero rows stay finite)
+EPS = 1e-30
 
 
 def precision_diag(lsf: torch.Tensor, q_lfirst: torch.Tensor) -> torch.Tensor:
@@ -29,3 +45,184 @@ def precision_diag(lsf: torch.Tensor, q_lfirst: torch.Tensor) -> torch.Tensor:
         col = (lsfp[off : off + L, d] ** 2).reshape(shape)
         out = out + col * qp[off : off + L]
     return out
+
+
+def precision_bands(lsf: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Bands of A = Mᵀ diag(q) M: ``[..., L, lw]`` for ``q`` ``[..., L]``,
+    ``bands[..., l, k] = Σ_d q[l+half−d]·lsf[l+half−d, d]·lsf[l+half−d,
+    d+k]``."""
+    L, lw = lsf.shape
+    half = lw // 2
+    qp = torch.nn.functional.pad(q, (lw, lw))
+    lsfp = torch.nn.functional.pad(lsf, (0, 0, lw, lw))
+    edge = torch.arange(L, device=q.device)
+    out = []
+    for k in range(lw):
+        acc = torch.zeros_like(q)
+        for d in range(lw - k):
+            # μ = l + half − d for l = 0..L-1 → padded index l + lw + half − d
+            off = lw + half - d
+            acc = acc + (qp[..., off : off + L] * lsfp[off : off + L, d]
+                         * lsfp[off : off + L, d + k])
+        # zero the entries whose column l + k falls off the matrix edge
+        out.append(torch.where(edge < L - k, acc, torch.zeros_like(acc)))
+    return torch.stack(out, dim=-1)
+
+
+def cholesky_banded_reference(bands: torch.Tensor,
+                              jitter: float = 0.0) -> torch.Tensor:
+    """Upper banded Cholesky A = RᵀR, plain torch, one step per row.
+
+    ``bands`` ``[..., L, p+1]``; returns R in the same layout (R[l, l+k] at
+    ``[..., l, k]``).  ``jitter`` scales the pivot by (1 + jitter); a pivot
+    below :data:`EPS` (a fully masked row) becomes sqrt(EPS), so the solves
+    stay finite.
+    """
+    L, W = bands.shape[-2:]
+    p = W - 1
+    batch = bands.shape[:-2]
+    dev = bands.device
+    m = torch.arange(p, device=dev)[:, None]
+    k = torch.arange(W, device=dev)[None, :]
+    # G[m, k] = prev[m][m + 1 + k] = R[l-1-m, l+k]; prev[m] = row l-1-m
+    idx = (m + 1 + k).clamp(max=p).expand(*batch, p, W)
+    keep = (m + 1 + k <= p).to(bands.dtype)
+    prev = bands.new_zeros((*batch, p, W))
+    out = torch.empty_like(bands)
+    for l in range(L):
+        G = torch.gather(prev, -1, idx) * keep
+        s = bands[..., l, :] - (G[..., :1] * G).sum(dim=-2)
+        rii = torch.sqrt(torch.clamp(s[..., :1] * (1.0 + jitter), min=EPS))
+        row = torch.cat([rii, s[..., 1:] / rii], dim=-1)
+        out[..., l, :] = row
+        if p:
+            prev = torch.cat([row[..., None, :], prev[..., :-1, :]], dim=-2)
+    return out
+
+
+def solve_transposed_banded(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve Rᵀ z = b (forward substitution; Rᵀ is lower-banded), plain
+    torch: ``acc[k]`` carries Σ_i R[i, l+1+k]·z[i] over the rows done."""
+    L, W = R.shape[-2:]
+    p = W - 1
+    acc = b.new_zeros((*b.shape[:-1], p))
+    z = torch.empty_like(b)
+    for l in range(L):
+        if not p:
+            z[..., l] = b[..., l] / R[..., l, 0]
+            continue
+        zl = (b[..., l] - acc[..., 0]) / R[..., l, 0]
+        acc = (torch.nn.functional.pad(acc[..., 1:], (0, 1))
+               + R[..., l, 1:] * zl[..., None])
+        z[..., l] = zl
+    return z
+
+
+def solve_banded(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve R x = b (backward substitution; R is upper-banded), plain
+    torch: ``hist[m]`` = x[l+1+m]."""
+    L, W = R.shape[-2:]
+    p = W - 1
+    hist = b.new_zeros((*b.shape[:-1], p))
+    x = torch.empty_like(b)
+    for l in range(L - 1, -1, -1):
+        xl = (b[..., l] - (R[..., l, 1:] * hist).sum(dim=-1)) / R[..., l, 0]
+        if p:
+            hist = torch.cat([xl[..., None], hist[..., :-1]], dim=-1)
+        x[..., l] = xl
+    return x
+
+
+def sample_conditional_reference(R: torch.Tensor, b: torch.Tensor,
+                                 noise: torch.Tensor) -> torch.Tensor:
+    """x ~ N(A⁻¹b, A⁻¹) for A = RᵀR and standard-normal ``noise``, plain
+    torch.  Mean: Rᵀz = b, Rμ = z; fluctuation: Rη = noise, cov(η) = A⁻¹."""
+    return solve_banded(R, solve_transposed_banded(R, b) + noise)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _kernel_input(name: str, t: torch.Tensor, shape) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}: the banded kernels take "
+                         "CUDA tensors (the plain loops CPU tensors)")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernels take "
+                        "torch.float32")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def _bandwidth(bands: torch.Tensor) -> int:
+    p = bands.shape[-1] - 1
+    if not 0 <= p <= MAX_P:
+        raise ValueError(f"bandwidth {p} is outside the kernels' 0..{MAX_P}")
+    return p
+
+
+def _launch(name: str, *args) -> None:
+    import ctypes
+
+    from .. import _build
+
+    fn = getattr(_build.load_library(), name)
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*conv, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def cholesky_banded(bands: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Upper banded Cholesky of ``bands`` ``[..., L, p+1]``
+    (:func:`cholesky_banded_reference`): on a CUDA tensor one launch of
+    ``banded_cholesky_kernel`` (``csrc/banded.cu``) for every system of the
+    batch, counted by ``cholesky_banded.launches``; on a CPU tensor the
+    plain loop."""
+    if bands.device.type == "cpu":
+        return cholesky_banded_reference(bands, jitter)
+    p = _bandwidth(bands)
+    _kernel_input("bands", bands, bands.shape)
+    L = bands.shape[-2]
+    out = torch.empty_like(bands)
+    _launch("banded_cholesky_launch", bands, out,
+            math.prod(bands.shape[:-2]), L, p, float(jitter))
+    cholesky_banded.launches += 1
+    return out
+
+
+cholesky_banded.launches = 0
+
+
+def sample_conditional(R: torch.Tensor, b: torch.Tensor,
+                       noise: torch.Tensor) -> torch.Tensor:
+    """x ~ N(A⁻¹b, A⁻¹) for A = RᵀR (:func:`sample_conditional_reference`):
+    on CUDA tensors one launch of ``banded_sample_kernel``
+    (``csrc/banded.cu``: both solves) for every system of the batch,
+    counted by ``sample_conditional.launches``; on CPU tensors the plain
+    loops."""
+    if R.device.type == "cpu" and b.device.type == "cpu" \
+            and noise.device.type == "cpu":
+        return sample_conditional_reference(R, b, noise)
+    p = _bandwidth(R)
+    _kernel_input("R", R, R.shape)
+    _kernel_input("b", b, R.shape[:-1])
+    _kernel_input("noise", noise, R.shape[:-1])
+    if not (R.device == b.device == noise.device):
+        raise ValueError("R, b and noise must lie on one CUDA device")
+    out = torch.empty_like(b)
+    _launch("banded_sample_launch", R, b, noise, out,
+            math.prod(R.shape[:-2]), R.shape[-2], p)
+    sample_conditional.launches += 1
+    return out
+
+
+sample_conditional.launches = 0

@@ -18,10 +18,25 @@ Counter layout of the MH sweep (one 4-word block per counter):
 word ``λ & 3`` of the block is the jump uniform of wavelength λ (stream 0);
 word 0 of the stream-1 block at λ = 0 is the accept uniform.  The exact-Gibbs
 sweep draws its Box-Muller pair (u1, u2) of every (color, spaxel, λ) from
-streams 2 and 3 in the same layout.  Keying by the
-absolute sweep makes any segmentation of a run, and any resume, draw the
-identical numbers (the tiled TPU kernel keys its streams the same way,
-``deconv3d_tpu/ops/pallas_tiled.py``).
+streams 2 and 3 in the same layout.
+
+The coarse pattern passes (``ops/coarse.py``), which run after the sweeps
+of absolute sweep ``s`` (a multiple of ``coarse_every``), key their draws
+by that same ``s`` and a slot = entry << 8 | j in word 2, where entry is
+the pass's constants entry and j the pattern (global pass) or the
+checkerboard color (anchor passes):
+
+    counter = (λ >> 2, s, entry << 8 | j, stream << 24 | anchor)
+
+The global pass draws the normal of pattern j's spectrum entry λ at anchor
+0, the anchor passes the normal of (λ, anchor I·nx + J); both by
+Box-Muller, sqrt(−2 log u1)·cos(2π u2), u1 from stream 4 and u2 from
+stream 5, word ``λ & 3`` as above.  An anchor pass's accept uniform is
+word 0 of the stream-6 block at λ = 0.  Keying by the absolute sweep makes
+any segmentation of a run, and any resume, draw the identical numbers (the
+tiled TPU kernel keys its streams the same way,
+``deconv3d_tpu/ops/pallas_tiled.py``; the JAX package folds the absolute
+sweep into the key of its passes, ``deconv3d_tpu/sampler.py:1395``).
 """
 
 from __future__ import annotations
@@ -40,6 +55,10 @@ STREAM_JUMP = 0
 STREAM_ACCEPT = 1
 STREAM_NORMAL_U1 = 2
 STREAM_NORMAL_U2 = 3
+#: stream ids of the coarse passes' draws
+STREAM_PASS_U1 = 4
+STREAM_PASS_U2 = 5
+STREAM_PASS_ACCEPT = 6
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -91,22 +110,30 @@ def key_words(key: int):
     return key & M32, (key >> 32) & M32
 
 
-def _lambda_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
-                     stream: int, device=None) -> torch.Tensor:
-    """``[n_colors, nij, L]`` uniforms of one stream: word ``λ & 3`` of the
-    block at counter (λ >> 2, sweep, color, stream << 24 | ij)."""
-    dev = torch.device(device) if device is not None else None
+def _slot_uniforms(key: int, sweep: int, slots: torch.Tensor, nij: int,
+                   L: int, stream: int) -> torch.Tensor:
+    """``[len(slots), nij, L]`` uniforms of one stream: word ``λ & 3`` of
+    the block at counter (λ >> 2, sweep, slot, stream << 24 | ij)."""
+    dev = slots.device
     lam = torch.arange(L, dtype=torch.int64, device=dev)
-    color = torch.arange(n_colors, dtype=torch.int64, device=dev)[:, None, None]
+    slot = slots.to(torch.int64)[:, None, None]
     ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :, None]
     words = philox4x32(
-        (lam >> 2, sweep & M32, color, (stream << 24) | ij), key_words(key)
+        (lam >> 2, sweep & M32, slot, (stream << 24) | ij), key_words(key)
     )
     stacked = torch.stack(torch.broadcast_tensors(*words), dim=-1)
     bits = torch.gather(
-        stacked, -1, (lam & 3).expand(n_colors, nij, L)[..., None]
+        stacked, -1, (lam & 3).expand(len(slots), nij, L)[..., None]
     )[..., 0]
     return bits_to_uniform(bits)
+
+
+def _lambda_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
+                     stream: int, device=None) -> torch.Tensor:
+    """``[n_colors, nij, L]`` uniforms of one stream, slot = color."""
+    dev = torch.device(device) if device is not None else None
+    colors = torch.arange(n_colors, dtype=torch.int64, device=dev)
+    return _slot_uniforms(key, sweep, colors, nij, L, stream)
 
 
 def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
@@ -137,3 +164,34 @@ def gibbs_sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int,
         _lambda_uniforms(key, sweep, n_colors, nij, L, stream, device)
         for stream in (STREAM_NORMAL_U1, STREAM_NORMAL_U2)
     ], dim=2)
+
+
+def pass_slot(entry: int, j: int) -> int:
+    """Counter word 2 of a coarse pass's draws: entry << 8 | j."""
+    return (entry << 8) | j
+
+
+def pass_normals(key: int, sweep: int, slots, n_anchor: int, L: int,
+                 device=None) -> torch.Tensor:
+    """Box-Muller normals of a coarse pass: ``[len(slots), n_anchor, L]``
+    float32, sqrt(−2 log u1)·cos(2π u2) with u1, u2 from streams 4, 5."""
+    dev = torch.device(device) if device is not None else None
+    slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+    u1, u2 = (_slot_uniforms(key, sweep, slots, n_anchor, L, stream)
+              for stream in (STREAM_PASS_U1, STREAM_PASS_U2))
+    two_pi = torch.tensor(2.0 * torch.pi, dtype=torch.float32)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+
+
+def pass_accept_uniforms(key: int, sweep: int, slots, n_anchor: int,
+                         device=None) -> torch.Tensor:
+    """The anchor passes' accept uniforms: ``[len(slots), n_anchor]``
+    float32, word 0 of the stream-6 block at λ = 0."""
+    dev = torch.device(device) if device is not None else None
+    slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+    ij = torch.arange(n_anchor, dtype=torch.int64, device=dev)[None, :]
+    bits = philox4x32(
+        (0, sweep & M32, slots[:, None], (STREAM_PASS_ACCEPT << 24) | ij),
+        key_words(key),
+    )[0]
+    return bits_to_uniform(torch.broadcast_to(bits, (len(slots), n_anchor)))

@@ -12,10 +12,14 @@ visits.  The run lives on ``device`` (default: the first CUDA device when
 there is one, else the CPU); on a CUDA device every sweep goes through a
 hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``), one launch
 per sweep for all ``n_chains`` chains: the whole-cube kernel, or on a
-field too large for the card's L2 (a full MUSE field) the tiled one
+field whose residual and weights exceed the 1 GiB window budget
+(``ops/tiled.py::WINDOW_BUDGET_BYTES``; a full MUSE field) the tiled one
 (``engine``, ``tile``: ``sampler.resolve_engine``; the resolved engine is
-``config.engine`` and in ``diagnostics()``).  Meshes, ``run_until``,
-``map_estimate`` and ``resume`` are not ported yet and raise.
+``config.engine`` and in ``diagnostics()``).  As in the JAX package, MH on
+a large blurred field interleaves global coarse pattern passes
+(``coarse_every=8``; ``coarse_every=0`` turns them off).  ``run_until``
+samples until R̂ / ESS targets hold, ``resume`` restarts from a checkpoint
+bit-exactly.  Meshes and ``map_estimate`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -130,7 +134,7 @@ class Run:
             engine=engine,
             fsf_tol=fsf_tol,
             track_variance=track_variance,
-            coarse_every=coarse_every or None,
+            coarse_every=coarse_every,
             coarse_mode=coarse_mode,
             tile=None if tile is None else tuple(tile),
             chi2_rebaseline_every=chi2_rebaseline_every,
@@ -138,26 +142,52 @@ class Run:
         self.problem = sm.make_problem(cube, self.instrument, self.config,
                                        device=self.device)
         self.config = self.problem.config
-        # The JAX package switches coarse pattern passes on by default for
-        # mh on large blurred fields; the port has no coarse passes yet, so
-        # it refuses to run such a field without them (coarse_every=0 opts
-        # out explicitly).
+        # Auto coarse passes, the JAX package's rule: interleaved global
+        # pattern passes only where they were measured a wall-clock ESS/s
+        # win, MH on large blurred fields; a blur-dominated small field
+        # gets a warning instead (the passes measured a loss there).
         from .ops.coarse import auto_coarse_every
 
         auto_every = (
             auto_coarse_every(self.problem) if coarse_every is None else None
         )
         if auto_every:
-            raise NotImplementedError(
-                f"a {self.problem.Y}x{self.problem.X} field with footprint "
-                f"{self.problem.f} enables coarse pattern passes by default "
-                "(coarse_every=8), which are not ported to deconv3d_tpu_torch "
-                "yet: see ROADMAP.md, Queue 1 item 13.  Pass coarse_every=0 "
-                "to run plain single-site sweeps."
+            self._set_config(coarse_every=auto_every, coarse_mode="global")
+            logger.info(
+                "large blurred field (%dx%d spaxels, footprint %d px): "
+                "enabling global coarse-pattern passes (coarse_every=%d), "
+                "where the JAX package measured them as a wall-clock ESS/s "
+                "win.  Pass coarse_every=0 to disable.",
+                self.problem.Y, self.problem.X, self.problem.f, auto_every,
             )
+        elif (
+            coarse_every is None
+            and sampler in ("mh", "gibbs")
+            and self.problem.f >= max(9, min(self.problem.Y,
+                                             self.problem.X) // 2)
+        ):
+            logger.warning(
+                "FSF footprint (%d px) covers >= half the %dx%d field: "
+                "single-site sweeps mix the blur-null modes too slowly for "
+                "a posterior mean to localise sources in a fixed-length "
+                "run.  Coarse passes are NOT auto-enabled at this size — "
+                "the JAX package measured a wall-clock ESS/s loss there.  "
+                "Pass coarse_every=8 with a long run if you need MCMC "
+                "uncertainties here (map_estimate() and sampler='direct', "
+                "the point estimates, are not ported yet: ROADMAP.md, "
+                "Queue 1 item 14).",
+                self.problem.f, self.problem.Y, self.problem.X,
+            )
+        if self.config.coarse_every == 0:
+            # explicit opt-out: normalise to the interleaver's 'off' value
+            self._set_config(coarse_every=None)
         self._states = None
         self._traces = {"chi2": [], "accept": [], "flux": [], "monitor": []}
         self._last_result: Optional[ch.MultiChainResult] = None
+
+    def _set_config(self, **changes) -> None:
+        self.config = dataclasses.replace(self.config, **changes)
+        self.problem = dataclasses.replace(self.problem, config=self.config)
 
     # -- execution -----------------------------------------------------------
 
@@ -232,19 +262,160 @@ class Run:
                 "jump amplitude is likely mistuned", acc,
                 self.min_acceptance_rate,
             )
+        self._warn_if_undermixed()
         return self
 
-    def run_until(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Run.run_until is not ported to deconv3d_tpu_torch yet: see "
-            "ROADMAP.md, Queue 1 item 7"
-        )
+    def _warn_if_undermixed(self) -> None:
+        """Warn when the post-burn-in monitor-voxel ESS is ≪ the sample
+        count: a chain can equilibrate in χ² while its voxels barely
+        decorrelate, and the posterior mean of such a run has not averaged
+        over the blur-null modes.  Needs ≥ 100 post-burn-in sweeps."""
+        burn = self.config.resolved_burn_in()
+        try:
+            mon = self.trace("monitor")          # [C, n, K]
+        except ValueError:
+            return
+        n = mon.shape[1]
+        start = burn - (self.sweeps_done - n)    # trace-local burn index
+        window = n - max(start, 0)
+        if window < 100:
+            return  # too short for the ESS estimate to mean anything
+        seg = mon[:, max(start, 0):, :]
+        ess = [
+            ch.effective_sample_size(seg[:, :, k])
+            for k in range(seg.shape[-1])
+        ]
+        ess = [e for e in ess if np.isfinite(e)]
+        if not ess:
+            return
+        ess_mean = float(np.mean(ess))
+        if ess_mean < max(10.0, 0.01 * window):
+            hints = []
+            if not self.config.coarse_every:
+                hints.append("coarse_every=8 (global pattern passes)")
+            if self.config.sampler == "mh":
+                hints.append("sampler='gibbs'")
+            hints.append("a longer run")
+            logger.warning(
+                "post-burn-in monitor-voxel ESS is %.1f over %d kept "
+                "sweeps (%.1f%%): the chain is equilibrated in chi² but "
+                "the per-voxel posterior has NOT decorrelated — the "
+                "posterior mean may not localise sources.  Consider: %s.",
+                ess_mean, window, 100.0 * ess_mean / window,
+                "; ".join(hints),
+            )
 
-    def resume(self, path: Optional[str] = None):
-        raise NotImplementedError(
-            "Run.resume is not ported to deconv3d_tpu_torch yet: see "
-            "ROADMAP.md, Queue 1 item 7"
-        )
+    def run_until(
+        self,
+        rhat: Optional[float] = 1.01,
+        min_ess: Optional[float] = None,
+        check_every: Optional[int] = None,
+        max_sweeps: Optional[int] = None,
+    ) -> dict:
+        """Run until the convergence diagnostics meet their targets.
+
+        Samples in segments and stops when every given criterion holds:
+
+          * ``rhat`` — split-R̂ of the chi² trace AND of every monitor voxel
+            ≤ this value (needs ``n_chains >= 2``).
+          * ``min_ess`` — pooled effective sample size of the chi² trace
+            ≥ this value (works for any chain count).
+
+        ``check_every`` sweeps run between checks (default: a heuristic
+        segment ≤ 256); the first segment covers burn-in plus one check
+        window, since pre-burn-in samples carry no diagnostic signal.
+        ``max_sweeps`` (default ``max_iterations``) bounds the total;
+        hitting it returns ``converged=False`` with a warning, the state
+        and traces usable.  Returns the final diagnostics (``converged``,
+        ``sweeps``, ``window``, ``ess_chi2``, and ``rhat_max`` with two or
+        more chains).
+        """
+        if self.n_chains < 2:
+            if min_ess is None:
+                raise ValueError(
+                    "run_until with a single chain has no R̂ signal — pass "
+                    "min_ess=... (or run n_chains >= 2 for R̂-based stopping)"
+                )
+            rhat = None
+        if rhat is None and min_ess is None:
+            raise ValueError("run_until needs at least one criterion")
+        burn = self.config.resolved_burn_in()
+        max_sweeps = max_sweeps or self.config.max_iterations
+        check_every = check_every or max(32, min(256, max_sweeps // 8))
+        first = max(check_every, burn - self.sweeps_done + check_every)
+        self.run(min(first, max(max_sweeps - self.sweeps_done, 1)))
+        while True:
+            d = self._convergence_criteria(burn)
+            ok = True
+            if rhat is not None:
+                ok = ok and d["rhat_max"] <= rhat
+            if min_ess is not None:
+                ok = ok and d["ess_chi2"] >= min_ess
+            d["converged"] = bool(ok)
+            if ok:
+                logger.info("run_until converged at sweep %d: %s",
+                            d["sweeps"], d)
+                return d
+            remaining = max_sweeps - self.sweeps_done
+            if remaining <= 0:
+                logger.warning(
+                    "run_until hit max_sweeps=%d without converging: %s — "
+                    "raise max_sweeps or loosen the criteria; if the FSF "
+                    "blur is heavy, coarse_every=8 attacks exactly the "
+                    "slow-mixing modes", max_sweeps, d,
+                )
+                return d
+            self.run(min(check_every, remaining))
+
+    def _convergence_criteria(self, burn: int) -> dict:
+        """R̂ / ESS over the diagnostic window: the last half of the trace,
+        never earlier than burn-in (the Stan convention), so a χ² transient
+        that outlasts a fixed burn-in leaves the window as the run grows.
+        The trace is process-local (shorter than ``sweeps_done`` after a
+        resume), so the absolute burn-in is rebased to trace coordinates.
+        A window too short for split-R̂ reads as not converged (inf)."""
+        chi2_t = self.trace("chi2")                     # [n_chains, n]
+        n = chi2_t.shape[1]
+        burn_local = burn - (self.sweeps_done - n)
+        start = int(np.clip(max(burn_local, n // 2), 0, max(n - 2, 0)))
+        seg = chi2_t[:, start:]
+        out = {
+            "sweeps": self.sweeps_done,
+            "window": [start, n],
+            "ess_chi2": float(ch.effective_sample_size(seg)),
+        }
+        if self.n_chains >= 2:
+            rhat_chi2 = ch.gelman_rubin(seg)
+            mon = self.trace("monitor")[:, start:, :]
+            rhat_mon = [
+                ch.gelman_rubin(mon[:, :, k]) for k in range(mon.shape[-1])
+            ]
+            # gelman_rubin is NaN only for a window of < 2 samples per
+            # split half (zero-variance traces map to 1.0 / inf): no signal
+            # must read as not converged, never as the ideal 1.0
+            rhats = [rhat_chi2, *rhat_mon]
+            finite = [r for r in rhats if not np.isnan(r)]
+            out["rhat_chi2"] = float(rhat_chi2)
+            out["rhat_monitor_max"] = (
+                float(np.max([r for r in rhat_mon if not np.isnan(r)]))
+                if any(not np.isnan(r) for r in rhat_mon)
+                else float("inf")
+            ) if mon.shape[-1] else 1.0
+            out["rhat_max"] = (
+                float(np.max(finite)) if len(finite) == len(rhats)
+                else float("inf")
+            )
+        return out
+
+    def resume(self, path: Optional[str] = None) -> "Run":
+        """Load a checkpoint written by this configuration (bit-exact: the
+        state holds every chain's Philox key and absolute sweep)."""
+        path = path or self.checkpoint_path
+        if path is None:
+            raise ValueError("no checkpoint path given")
+        self.states, meta = ckpt.load_state(path, self.states)
+        logger.info("resumed at sweep %s", meta.get("sweeps_done"))
+        return self
 
     def map_estimate(self, *args, **kwargs):
         raise NotImplementedError(

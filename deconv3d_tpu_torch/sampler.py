@@ -16,6 +16,9 @@ scheme is the JAX package's:
     ``'gibbs'`` draws every voxel from its exact Gaussian conditional
     (precision ``qvox``), the wavelengths of one spaxel in ``lw`` phases
     (voxels ``lw`` apart have disjoint LSF footprints).
+  * With ``coarse_every`` set (``Run`` sets 8 for MH on large blurred
+    fields), a coarse pattern pass (``ops/coarse.py``) follows every
+    ``coarse_every``-th absolute sweep (:func:`coarse_interleave`).
 
 Every engine builds the *kernel-engine problem* of the JAX package: weights
 rounded to bfloat16 values before ``quad`` and χ², and the FSF replaced by
@@ -24,8 +27,9 @@ device: on a CUDA device every sweep runs a hand-written kernel, on the
 CPU its plain torch version.  Two scans of the spaxels, each an engine
 per device: the whole-cube one (colors over the whole field; ``'cuda'``,
 ``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu``, and ``'torch'``,
-``ops/sweep.py``) and the tiled one for fields too large for the L2
-(tiles in raster order, all colors per tile; ``'cuda_tiled'``,
+``ops/sweep.py``) and the tiled one for fields whose residual and weights
+exceed the 1 GiB window budget (``ops/tiled.py::WINDOW_BUDGET_BYTES``;
+tiles in wavefront order, all colors per tile; ``'cuda_tiled'``,
 ``csrc/tiled_sweep.cu``, and ``'torch_tiled'``, ``ops/tiled.py``).  All
 sample the same posterior.
 
@@ -50,7 +54,6 @@ from .instruments import Instrument
 _NOT_PORTED = {
     "sampler": "Queue 1 item 10 (gibbs_block), 14 (direct)",
     "positivity": "Queue 1 item 9 (positivity)",
-    "coarse_every": "Queue 1 item 13 (coarse passes)",
     "prior_precision": "Queue 1 item 14 (direct sampler, MAP)",
     "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
     "mesh": "Queue 1 item 16 (torch.distributed)",
@@ -76,8 +79,10 @@ class RunConfig:
     once).  Knobs of samplers and engines not ported yet keep their fields
     so configurations carry over; :func:`make_problem` raises
     ``NotImplementedError`` for any value that would switch one of them
-    on (the ``direct_*`` and ``coarse_scale``/``coarse_mode`` knobs only act
-    through ``sampler='direct'`` and ``coarse_every``).
+    on (the ``direct_*`` knobs only act through ``sampler='direct'``).
+    ``coarse_every``: a coarse pass of ``coarse_mode`` (one of
+    ``ops.coarse.MODES``) with proposal scale ``coarse_scale`` after every
+    ``coarse_every``-th absolute sweep; None or 0 is off.
     ``engine``: ``'cuda'`` / ``'cuda_tiled'`` (the hand-written kernels)
     run on a CUDA device, ``'torch'`` / ``'torch_tiled'`` (their plain torch
     versions) elsewhere; naming the other device's engine raises.
@@ -277,12 +282,23 @@ REBASELINE_AUTO_BYTES = 2**28
 
 
 def _check_config(config: RunConfig) -> None:
+    from .ops.coarse import MODES
+
     if config.sampler not in ("mh", "gibbs"):
         raise not_ported("sampler", config.sampler)
+    if config.coarse_every and config.positivity:
+        raise ValueError(
+            "coarse_every adds one shared jump per block, which cannot "
+            "respect per-voxel positivity — disable one of the two."
+        )
     if config.positivity:
         raise not_ported("positivity", True)
-    if config.coarse_every:
-        raise not_ported("coarse_every", config.coarse_every)
+    if config.coarse_mode not in MODES:
+        raise ValueError(
+            f"coarse_mode must be one of {MODES}, got {config.coarse_mode!r}")
+    if config.coarse_every is not None and config.coarse_every < 0:
+        raise ValueError(
+            f"coarse_every must be >= 0 (0 = off), got {config.coarse_every}")
     if config.prior_precision == "auto" or config.prior_precision:
         raise not_ported("prior_precision", config.prior_precision)
     if config.lambda_chunk:
@@ -570,16 +586,26 @@ def run_sweeps(
     ``ops.tiled.tiled_segment``).  Burn-in sweeps adapt the per-spaxel MH
     jump scale and stay out of the posterior accumulators.
 
-    With ``chi2_rebaseline_every`` set (auto for full-field gibbs) the
-    running χ² is reset from :func:`full_chi2` at multiples of the
-    absolute sweep counter (:func:`rebaseline_interleave`); the chain
-    itself is untouched.
+    With ``coarse_every`` set, a coarse pattern pass follows every
+    ``coarse_every``-th absolute sweep (:func:`coarse_interleave`, the
+    outer split).  With ``chi2_rebaseline_every`` set (auto for full-field
+    gibbs) the running χ² is reset from :func:`full_chi2` at multiples of
+    the absolute sweep counter (:func:`rebaseline_interleave`, inside); the
+    chain itself is untouched.  Both split at absolute sweeps, so any
+    segmentation of a run, and a resume, is bit-equal to one call.
     """
+    def inner(s, k):
+        return _engine_run_sweeps(problem, s, k)
+
     if problem.config.chi2_rebaseline_every:
-        return rebaseline_interleave(
-            problem, state, n_sweeps,
-            lambda s, k: _engine_run_sweeps(problem, s, k))
-    return _engine_run_sweeps(problem, state, n_sweeps)
+        engine = inner
+
+        def inner(s, k):
+            return rebaseline_interleave(problem, s, k, engine)
+
+    if problem.config.coarse_every:
+        return coarse_interleave(problem, state, n_sweeps, inner)
+    return inner(state, n_sweeps)
 
 
 def _engine_run_sweeps(problem: Problem, state: SamplerState,
@@ -593,6 +619,32 @@ def _engine_run_sweeps(problem: Problem, state: SamplerState,
     gibbs = problem.config.sampler == "gibbs"
     segment = sw.gibbs_segment if gibbs else sw.mh_segment
     return segment(problem, state, n_sweeps).result
+
+
+def _interleave(state: SamplerState, n_sweeps: int, every: int, inner,
+                at_boundary) -> ChainResult:
+    """``inner(state, k)`` segments split where the absolute sweep counter
+    reaches a multiple of ``every``, with ``at_boundary(state)`` there;
+    the segments' traces concatenated (only the last segment's state is
+    kept: a full field's state is 5.6 GB per chain)."""
+    if n_sweeps <= 0:
+        return inner(state, n_sweeps)
+    traces, cur, left = [], state, n_sweeps
+    while left > 0:
+        done = int(cur.sweep.reshape(-1)[0])
+        k = min(left, every - done % every)
+        r = inner(cur, k)
+        cur = r.state
+        if int(cur.sweep.reshape(-1)[0]) % every == 0:
+            cur = at_boundary(cur)
+        traces.append((r.chi2_trace, r.accept_trace, r.flux_trace,
+                       r.monitor_trace))
+        left -= k
+    dim = 0 if state.clean.dim() == 3 else 1     # the traces' sweep axis
+    chi2_t, acc_t, flux_t, mon_t = (torch.cat(parts, dim=dim)
+                                    for parts in zip(*traces))
+    return ChainResult(state=cur, chi2_trace=chi2_t, accept_trace=acc_t,
+                       flux_trace=flux_t, monitor_trace=mon_t)
 
 
 def rebaseline_chi2(problem: Problem, state: SamplerState) -> SamplerState:
@@ -617,27 +669,66 @@ def rebaseline_interleave(problem: Problem, state: SamplerState,
     reaches a multiple of ``chi2_rebaseline_every``, with
     :func:`rebaseline_chi2` there: any segmentation of a run (``Run.run``
     segments, a resume) rebaselines at the same sweeps."""
-    every = int(problem.config.chi2_rebaseline_every)
-    if n_sweeps <= 0:
-        return inner(state, n_sweeps)
-    # only the traces of finished parts are kept: a full field's state is
-    # 5.6 GB per chain, and no part but the last needs its own
-    traces, cur, left = [], state, n_sweeps
-    while left > 0:
-        done = int(cur.sweep.reshape(-1)[0])
-        k = min(left, every - done % every)
-        r = inner(cur, k)
-        cur = r.state
-        if int(cur.sweep.reshape(-1)[0]) % every == 0:
-            cur = rebaseline_chi2(problem, cur)
-        traces.append((r.chi2_trace, r.accept_trace, r.flux_trace,
-                       r.monitor_trace))
-        left -= k
-    dim = 0 if state.clean.dim() == 3 else 1     # the traces' sweep axis
-    chi2_t, acc_t, flux_t, mon_t = (torch.cat(parts, dim=dim)
-                                    for parts in zip(*traces))
-    return ChainResult(state=cur, chi2_trace=chi2_t, accept_trace=acc_t,
-                       flux_trace=flux_t, monitor_trace=mon_t)
+    return _interleave(state, n_sweeps,
+                       int(problem.config.chi2_rebaseline_every), inner,
+                       lambda s: rebaseline_chi2(problem, s))
+
+
+#: (weakref(problem), coarse-pass constants) per (problem id, mode): a
+#: segmented run calls :func:`coarse_interleave` once per segment, and the
+#: constants cost full-field convolutions; the weakref drops the entry with
+#: its problem and guards against a recycled id
+_COARSE_CONST_CACHE: dict = {}
+
+
+def coarse_constants_of(problem: Problem):
+    """The coarse-pass constants of ``problem``'s ``coarse_mode``
+    (``ops.coarse.coarse_constants``), built on first use and cached."""
+    import weakref
+
+    from .ops import coarse
+
+    ckey = (id(problem), problem.config.coarse_mode)
+    entry = _COARSE_CONST_CACHE.get(ckey)
+    if entry is None or entry[0]() is not problem:
+        ref = weakref.ref(problem,
+                          lambda _, k=ckey: _COARSE_CONST_CACHE.pop(k, None))
+        entry = (ref, coarse.coarse_constants(problem,
+                                              problem.config.coarse_mode))
+        _COARSE_CONST_CACHE[ckey] = entry
+    return entry[1]
+
+
+def apply_coarse_pass(problem: Problem, state: SamplerState,
+                      constants) -> SamplerState:
+    """One coarse pass (``ops.coarse.coarse_pass``) on ``state``; a
+    chain-stacked state chain by chain, each under its own key, so a chain
+    is bit-equal alone and in a batch (and one chain's transients are live
+    at a time)."""
+    from . import chains as ch
+    from .ops import coarse
+
+    mult = float(problem.config.coarse_scale)
+    if state.clean.dim() == 3:
+        return coarse.coarse_pass(problem, state, constants, mult)
+    return ch.stack_chains([
+        coarse.coarse_pass(problem, ch.select_chains(state, c), constants,
+                           mult)
+        for c in range(state.clean.shape[0])
+    ])
+
+
+def coarse_interleave(problem: Problem, state: SamplerState, n_sweeps: int,
+                      inner) -> ChainResult:
+    """``inner(state, k)`` segments split at absolute-sweep multiples of
+    ``coarse_every``, with :func:`apply_coarse_pass` there: any
+    segmentation of a run, and a resume, passes at the same sweeps with the
+    same draws (Philox keyed by the absolute sweep, ``ops/philox.py``).
+    The pass changes the state, not the segment's traces."""
+    constants = coarse_constants_of(problem)
+    return _interleave(state, n_sweeps, int(problem.config.coarse_every),
+                       inner,
+                       lambda s: apply_coarse_pass(problem, s, constants))
 
 
 # ---------------------------------------------------------------------------

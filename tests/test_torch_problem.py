@@ -141,7 +141,7 @@ def test_adapt_and_keep_schedules_match():
     "knob, value",
     [
         ("sampler", "gibbs_block"), ("sampler", "direct"),
-        ("positivity", True), ("coarse_every", 8), ("prior_precision", 1e-3),
+        ("positivity", True), ("prior_precision", 1e-3),
         ("lambda_chunk", 4),
     ],
 )

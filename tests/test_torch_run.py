@@ -189,15 +189,22 @@ def test_run_refuses_what_is_not_ported(rng):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         d3.Run(cube, inst, mesh=object(), **kw)
     run = d3.Run(cube, inst, **kw)
-    for call in (run.run_until, run.resume, run.map_estimate):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    # the JAX package enables coarse passes on large blurred fields
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run.map_estimate()
+
+
+def test_run_enables_coarse_passes_on_a_large_field():
+    """As the JAX package does, ``Run`` switches global coarse passes on
+    for MH on a large blurred field (100×100, MUSE f = 17), and
+    ``coarse_every=0`` turns them off."""
     big = d3.Cube.from_data(np.zeros((2, 100, 100), np.float32),
                             variance=np.ones((2, 100, 100), np.float32),
                             crval=4750.0, cdelt=1.25)
-    with pytest.raises(NotImplementedError, match="coarse"):
-        d3.Run(big, d3.MUSE(), device="cpu")
+    run = d3.Run(big, d3.MUSE(), device="cpu")
+    assert run.config.coarse_every == 8 and run.config.coarse_mode == "global"
+    assert run.problem.config.coarse_every == 8
+    off = d3.Run(big, d3.MUSE(), coarse_every=0, device="cpu")
+    assert off.config.coarse_every is None
 
 
 def test_import_leaves_jax_out():
@@ -206,7 +213,8 @@ def test_import_leaves_jax_out():
         "deconv3d_tpu_torch.ops.sweep, deconv3d_tpu_torch.interop, "
         "deconv3d_tpu_torch.ops.tiled, deconv3d_tpu_torch.tile_sweep, "
         "deconv3d_tpu_torch._build, deconv3d_tpu_torch.chains, "
-        "deconv3d_tpu_torch.ops.banded, deconv3d_tpu_torch.ops.philox\n"
+        "deconv3d_tpu_torch.ops.banded, deconv3d_tpu_torch.ops.philox, "
+        "deconv3d_tpu_torch.ops.coarse\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv3d_tpu' or m.startswith('deconv3d_tpu.')]\n"
         "assert not bad, bad\n"
