@@ -344,7 +344,9 @@ def sweep_bound(problem, C, accept):
     and for gibbs qvox and quad_lo, read; clean read and written at the
     committed visits' spaxels only (MH: the accepted ones, gibbs: every
     live visit); LSF, FSF and per-spaxel outputs.  ``accept`` is ignored
-    for gibbs."""
+    for gibbs.  With positivity MH also reads clean at every valid visit
+    and reflects (3 per λ); gibbs' truncated draw adds its mean, σ·z and
+    clamp (6 per λ; the transcendentals of the transform not counted)."""
     f, L = problem.f, problem.L
     S, lw = int(problem.fsf_spec.shape[0]), int(problem.lsf.shape[1])
     valid = float(problem.valid.sum())
@@ -360,11 +362,16 @@ def sweep_bound(problem, C, accept):
         committed = visits * float(accept.float().mean())
         flops += visits * L * (2 * lw + 6) + committed * (
             patch * (2 * S + 1) + L)
+    positivity = bool(problem.config.positivity)
+    if positivity:
+        flops += visits * L * (6 if gibbs else 3)
     Hp, Wp = problem.w_pad.shape[1:]
     spectrum = L * 4
     nbytes = (2 * C * Hp * Wp * spectrum + Hp * Wp * spectrum
               + valid * spectrum * (3 if gibbs else 1)
               + 2 * committed * spectrum
+              + (0 if gibbs or not positivity
+                 else (visits - committed) * spectrum)
               + L * lw * 4 + S * (L + f * f) * 4
               + 2 * C * problem.n_colors * problem.ny * problem.nx * 4)
     t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
@@ -373,12 +380,16 @@ def sweep_bound(problem, C, accept):
             "flops": flops, "bytes": nbytes}
 
 
-def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2):
+def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2,
+                         states=None):
     """A batch of chains through classic K1 (pinned; one launch per sweep)
     against the plain version of the same batch, same injected uniforms, every
-    chain; the ms per batched sweep of both (first calls at this C).
-    Returns the batch's resid error and the plain ms per batched sweep."""
-    states = ch.init_chain_states(problem, n_chains)
+    chain, under ``compare``'s tolerances; the ms per batched sweep of both
+    (first calls at this C).  ``states``: the batch's start (default: the
+    initial states).  Returns the batch's resid error and the plain ms per
+    batched sweep."""
+    if states is None:
+        states = ch.init_chain_states(problem, n_chains)
     L, n_colors, nij = problem.L, problem.n_colors, problem.ny * problem.nx
     per = (L + 1,) if sampler == "mh" else (2, L)
     rng = np.random.default_rng(3)
@@ -395,26 +406,15 @@ def phase_batch_vs_plain(problem, sampler, n_chains=32, n_sweeps=2):
     kern, ms = timed(lambda: classic_of(sampler)(problem, states, n_sweeps,
                                                  u))
     launches = seg.launches - n0
-    ps, ks = plain.result.state, kern.result.state
-    resid_err = float((ps.resid - ks.resid).abs().max())
-    resid_tol = 1e-4 * float(ps.resid.abs().max())
-    clean_err = float((ps.clean - ks.clean).abs().max())
-    clean_tol = 1e-4 * float(ps.clean.abs().max())
-    chi2_rel = float(((ps.chi2 - ks.chi2).abs() / ps.chi2).max())
-    equal = bool(torch.equal(plain.accept, kern.accept))
     emit("batch_vs_plain", sampler=sampler, n_chains=n_chains,
-         sweeps=n_sweeps, launches=launches, accept_or_counts_equal=equal,
-         decisions_or_spaxels=int(kern.accept.numel()),
-         resid_max_abs_err=resid_err, resid_tol=resid_tol,
-         clean_max_abs_err=clean_err, clean_tol=clean_tol,
-         chi2_rel_err=chi2_rel, kernel_ms_per_batched_sweep=ms / n_sweeps,
+         positivity=bool(problem.config.positivity), sweeps=n_sweeps,
+         launches=launches, kernel_ms_per_batched_sweep=ms / n_sweeps,
          plain_ms_per_batched_sweep=plain_ms / n_sweeps)
     check(launches == n_sweeps, "expected one launch per sweep for the batch")
-    check(equal, "accept decisions / voxel counts differ")
-    check(resid_err <= resid_tol, "batched residual differs")
-    check(clean_err <= clean_tol, "batched clean cube differs")
-    check(chi2_rel <= 1e-5, "batched chi2 differs")
-    return {"max_abs_err": resid_err, "plain_ms": plain_ms / n_sweeps}
+    errs = compare(plain, kern, sampler)
+    emit("batch_vs_plain_errors", sampler=sampler, n_chains=n_chains, **errs)
+    return {"max_abs_err": errs["resid_max_abs_err"],
+            "plain_ms": plain_ms / n_sweeps}
 
 
 def barrier_us(problem, sampler, n=2890):
@@ -492,7 +492,8 @@ def phase_resident(sampler, ctx, classic_ms, n_sweeps=4):
     ms_c2 = time_sweeps(lambda n: classic(problem, state, n), n_time)
     ms_r2 = time_sweeps(lambda n: seg(problem, state, n), n_time)
     share = phase_profile(problem, state, sampler, seg=seg,
-                          kernel_name=f"resident_{sampler}_kernel")
+                          kernel_name=f"resident_{sampler}_kernel"
+                          )["kernel_share_of_device"]
     us, blocks, threads, smem = barrier_us(problem, sampler)
     ms = (ms_r1 + ms_r2) / 2
     emit("resident", sampler=sampler,
@@ -524,11 +525,13 @@ def tiled_counter(sampler):
 
 
 def phase_profile(problem, state, sampler, n=100, seg=None,
-                  kernel_name=None):
+                  kernel_name=None, per_sweep=1):
     """``torch.profiler`` over ``n`` post-burn-in sweeps of the wrapper
-    (default: the whole-cube segment of ``sampler``): device time of the
-    kernel and of the torch ops around it, and the card's idle share of the
-    wall time (the profiler's own overhead included, so an upper bound)."""
+    (default: the whole-cube segment of ``sampler``; ``per_sweep`` launches
+    of ``kernel_name`` in each): device time of the kernel and of the torch
+    ops around it, and the card's idle share of the wall time (the
+    profiler's own overhead included, so an upper bound).  Returns the
+    kernel's share of the device time and the ms per sweep of each."""
     from torch.profiler import ProfilerActivity, profile
 
     st = copy_state(state)
@@ -537,27 +540,35 @@ def phase_profile(problem, state, sampler, n=100, seg=None,
     kernel_name = kernel_name or f"{sampler}_sweep_kernel"
     seg(problem, st, 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        seg(problem, st, n)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # CUPTI may drop an activity record now and then (a smoke on the H100
+    # saw 98 of 100 launches), so a trace that misses launches is taken
+    # again once before the check fails
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            seg(problem, st, n)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in on_card if kernel_name in e.name]
+        if len(kern) == n * per_sweep:
+            break
     device_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
-    kern = [e for e in on_card if kernel_name in e.name]
     kernel_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     emit("profile", sampler=sampler, kernel=kernel_name,
-         shape=[problem.L, problem.Y, problem.X], sweeps=n,
+         shape=[problem.L, problem.Y, problem.X], sweeps=n, attempt=attempt,
          wall_ms=wall_ms, device_ms=device_ms, kernel_ms=kernel_ms,
          kernel_launches=len(kern),
          kernel_share_of_device=kernel_ms / max(device_ms, 1e-9),
          other_device_ops_per_sweep=(len(on_card) - len(kern)) / n,
          idle_share=1.0 - device_ms / wall_ms)
-    check(len(kern) == n and kernel_ms > 0,
-          "the profiler did not see one kernel launch per sweep")
-    return kernel_ms / max(device_ms, 1e-9)
+    check(len(kern) == n * per_sweep and kernel_ms > 0,
+          f"the profiler did not see {per_sweep} kernel launches per sweep")
+    return {"kernel_share_of_device": kernel_ms / max(device_ms, 1e-9),
+            "wall_ms": wall_ms / n, "device_ms": device_ms / n,
+            "kernel_ms": kernel_ms / n, "idle_share": 1.0 - device_ms / wall_ms}
 
 
 def chi2_consistency(run, chain=0) -> float:
@@ -567,7 +578,8 @@ def chi2_consistency(run, chain=0) -> float:
 
 
 def segment_of(sampler):
-    return sw.gibbs_segment if sampler == "gibbs" else sw.mh_segment
+    return {"mh": sw.mh_segment, "gibbs": sw.gibbs_segment,
+            "gibbs_block": sw.gibbs_block_segment}[sampler]
 
 
 def phase_main(tmp, sampler="mh"):
@@ -758,30 +770,40 @@ def compare(plain, kern, sampler):
         "decisions_or_voxels": int(plain.accept.numel() if sampler == "mh"
                                    else plain.accept.sum()),
     }
+    if sampler == "mh":
+        out["log_scale_max_abs_err"] = float(
+            (ps.log_scale - ks.log_scale).abs().max())
+    try:
+        compare_checks(out, kern, sampler)
+    except AssertionError:
+        emit("compare_failed", sampler=sampler, **out)
+        raise
+    return out
+
+
+def compare_checks(out, kern, sampler):
     check(out["decisions_or_counts_equal"],
           "accept decisions / voxel counts differ")
     check(out["resid_max_abs_err"] <= out["resid_tol"], "residual differs")
     check(out["clean_max_abs_err"] <= out["clean_tol"], "clean cube differs")
     check(out["chi2_rel_err"] <= 1e-5, "chi2 differs")
     if sampler == "mh":
-        out["log_scale_max_abs_err"] = float(
-            (ps.log_scale - ks.log_scale).abs().max())
         check(out["log_scale_max_abs_err"] <= 1e-6, "log-scales differ")
     else:
         check(out["dchi_max_abs_err"] <= out["dchi_tol"],
               "per-spaxel dchi2 differs")
         check(int(kern.accept.sum()) > 0, "no voxel drawn; check is vacuous")
-    return out
 
 
-def tiled_compare(cube, tile, sampler, n_sweeps, seed):
+def tiled_compare(cube, tile, sampler, n_sweeps, seed, **config):
     """The tiled kernel against its plain version on ``cube`` cut into
     tiles of ``tile`` spaxel blocks: ``n_sweeps`` from one state with the
     same injected uniforms (MH: untied), every decision or voxel count;
     then the in-kernel Philox bits.  Returns the problem, the state, the
-    errors, and the ms per sweep of the compared kernel and plain runs."""
+    errors, and the ms per sweep of the compared kernel and plain runs.
+    ``config``: more ``RunConfig`` fields (positivity)."""
     problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
-        seed=0, sampler=sampler, tile=tile))
+        seed=0, sampler=sampler, tile=tile, **config))
     check(problem.config.engine == "cuda_tiled"
           and problem.config.tile == tile, "engine/tile not resolved")
     state = sm.init_state(problem)
@@ -804,7 +826,7 @@ def tiled_compare(cube, tile, sampler, n_sweeps, seed):
         problem, copy_state(state), n_sweeps, u))
     check(counter.launches - n0 == n_sweeps, "one launch per sweep")
     errs = compare(plain, kern, sampler)
-    emit("tiled_kernel_vs_plain", sampler=sampler,
+    emit("tiled_kernel_vs_plain", sampler=sampler, **config,
          shape=[L, problem.Y, problem.X], f=problem.f, tile=tile,
          lsf_width=int(problem.lsf.shape[1]),
          n_tiles=(problem.ny // tile[0]) * (problem.nx // tile[1]),
@@ -891,7 +913,8 @@ def phase_tiled_kernel(tile=(1, 2)):
                 lambda: tl.tiled_segment_reference(problem, state, 1))[1]
         share = phase_profile(problem, state, sampler, n=n_time,
                               seg=tl.tiled_segment,
-                              kernel_name=f"tiled_{sampler}_kernel")
+                              kernel_name=f"tiled_{sampler}_kernel"
+                              )["kernel_share_of_device"]
         emit("tiled_sweep_time", sampler=sampler,
              shape=[problem.L, problem.Y, problem.X], tile=tile, kernel_ms=ms,
              plain_ms=plain_ms, launches_per_sweep=per_sweep,
@@ -1091,6 +1114,331 @@ def phase_coarse(L=3681):
         check(counts[0] == counts[1] > 0 and counts[2] == counts[3],
               f"{mode} pass accept / proposal counts differ: {counts}")
         check(consistency <= 1e-5, "running chi2 drifted in the pass")
+    return out
+
+
+def positivity_run(sampler, n=400, n_chains=1):
+    """``Run(..., positivity=True)`` on the bench cube for ``n`` sweeps (a
+    burn-in of n/2): every sweep one launch of the sweep kernel with
+    positivity compiled in (the resident kernel for one chain, classic K1
+    for a batch the resident plan does not fit), the chain in the orthant,
+    χ² consistency ≤ 1e-5, MH acceptance after burn-in in [0.15, 0.35]
+    (for n ≥ 400: shorter runs are still in the adaptation's transient),
+    gibbs acceptance exactly 1; sweeps/s of the last n/2."""
+    cube = bench_cube()
+    run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2, seed=0,
+                 sampler=sampler, positivity=True, n_chains=n_chains)
+    check(run.problem.config.engine == "cuda", "Run did not pick the kernel")
+    seg = segment_of(sampler)
+    reset_launches()
+    run.run(n // 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.run(n // 2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"resident": seg.resident_launches, "classic": seg.launches}
+    diag = run.diagnostics()
+    acc_post = float(np.mean(run.trace("accept")[:, n // 2:]))
+    consistency = max(chi2_consistency(run, c) for c in range(n_chains))
+    clean_min = float(run.states.clean.min())
+    kernel = "resident" if n_chains == 1 else "classic"
+    emit("positivity_run", sampler=sampler, n_chains=n_chains,
+         shape=list(cube.shape), sweeps=diag["sweeps"], kernel=kernel,
+         launches=launches, chi2=diag["chi2"], chi2_consistency=consistency,
+         acceptance_post_burn_in=acc_post, clean_min=clean_min,
+         sweeps_per_sec_last_half=(n // 2) / dt)
+    check(launches[kernel] == n and sum(launches.values()) == n,
+          f"positivity {sampler}: launches {launches}, expected {n} "
+          f"{kernel}")
+    check(clean_min >= 0.0, "a positivity chain left the orthant")
+    check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+    if sampler == "gibbs":
+        check(diag["acceptance_rate"] == 1.0 and acc_post == 1.0,
+              "gibbs acceptance is not exactly 1")
+    elif n >= 400:       # a short run is still in the adaptation's transient
+        check(0.15 <= acc_post <= 0.35, "post-burn-in acceptance out of range")
+    if n_chains == 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            run.save(os.path.join(tmp, f"pos_{sampler}"))
+            check(os.path.isfile(os.path.join(tmp, f"pos_{sampler}_clean.fits")),
+                  "save() files missing")
+    accept = torch.as_tensor(run.trace("accept")[:, n // 2:])
+    return run, {"launches": launches[kernel], "rate": (n // 2) / dt,
+                 "shape": list(cube.shape), "n_chains": n_chains,
+                 "bound": sweep_bound(run.problem, n_chains, accept)}
+
+
+def phase_positivity():
+    """``positivity=True`` on the card.  At 30×30×600, from a state 4
+    sweeps in (clean off zero): the resident kernel and classic K1 with
+    positivity against the plain sweep on the same injected uniforms (MH 2
+    sweeps, untied; gibbs 1), under ``compare``'s tolerances, and classic
+    K1 so again at two chains (its ``Run``'s batch) that differ; the two
+    kernels bit-equal on the Philox draws (4 sweeps); ms per sweep of the
+    resident kernel with the flag off and on, in turns (off, on, on, off),
+    and of classic K1 with it on.  The tiled kernel with positivity against
+    its plain version (MH at 34×34×600 in four (1, 1) tiles, gibbs at
+    17×34×600 in two: the plain tiled gibbs sweep runs ~600 torch ops per
+    step) and one tile against the resident kernel, bit for bit.  Then a
+    400-sweep ``Run`` per sampler (the resident kernels' path), and a
+    2-chain ``Run`` per sampler (classic K1's: the resident plan does not
+    fit two chains at this size)."""
+    out = {}
+    cube = bench_cube()
+    for sampler, n_cmp in (("mh", 2), ("gibbs", 1)):
+        seg, classic = segment_of(sampler), classic_of(sampler)
+        problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+            seed=0, sampler=sampler, positivity=True))
+        off = dataclasses.replace(problem, config=dataclasses.replace(
+            problem.config, positivity=False))
+        state = sm.run_sweeps(problem, sm.init_state(problem), 4).state
+        L, nij = problem.L, problem.ny * problem.nx
+        per = (L + 1,) if sampler == "mh" else (2, L)
+        rng = np.random.default_rng(11)
+        u = rng.random((n_cmp, problem.n_colors, nij, *per), dtype=np.float32)
+        u = torch.as_tensor(np.clip(u, 2.0**-24, 1.0 - 2.0**-24)).cuda()
+        if sampler == "mh":
+            u, plain = sw.untie_uniforms(problem, state, n_cmp, u)
+            plain_ms = timed(lambda: sw.mh_segment_reference(
+                problem, state, 1))[1]
+        else:
+            plain, plain_ms = timed(lambda: sw.gibbs_segment_reference(
+                problem, state, n_cmp, u))
+            plain_ms /= n_cmp
+        errs = {}
+        for name, fn in (("resident", seg), ("classic", classic)):
+            kern = fn(problem, copy_state(state), n_cmp, u)
+            torch.cuda.synchronize()
+            errs[name] = compare(plain, kern, sampler)
+        # classic K1 at the C = 2 of its Run below, from two chains 4
+        # sweeps apart from their start: each chain must read its own clean
+        chains = classic(problem, ch.init_chain_states(problem, 2),
+                         4).result.state
+        check(not torch.equal(chains.clean[0], chains.clean[1]),
+              "the two chains did not diverge")
+        batch = phase_batch_vs_plain(problem, sampler, n_chains=2,
+                                     n_sweeps=n_cmp, states=chains)
+        res = seg(problem, copy_state(state), 4)
+        cla = classic(problem, copy_state(state), 4)
+        torch.cuda.synchronize()
+        equal = {name: bool(torch.equal(getattr(res.result.state, name),
+                                        getattr(cla.result.state, name)))
+                 for name in ("resid", "clean", "log_scale", "chi2")}
+        equal["accept_or_live"] = bool(torch.equal(res.accept, cla.accept))
+        moved = res.result.state.clean != state.clean
+        clean_min = float(res.result.state.clean.min())
+        n_time = 50
+        n0 = seg.resident_launches
+        ms_off1 = time_sweeps(lambda n: seg(off, state, n), n_time)
+        ms_on1 = time_sweeps(lambda n: seg(problem, state, n), n_time)
+        ms_on2 = time_sweeps(lambda n: seg(problem, state, n), n_time)
+        ms_off2 = time_sweeps(lambda n: seg(off, state, n), n_time)
+        resident_timed = seg.resident_launches - n0
+        classic_ms = time_sweeps(lambda n: classic(problem, state, n), 20)
+        emit("positivity_kernels", sampler=sampler, shape=list(cube.shape),
+             compared_sweeps=n_cmp, vs_plain=errs, plain_ms=plain_ms,
+             resident_vs_classic_sweeps=4, bit_equal=equal,
+             voxels_moved=int(moved.sum()), clean_min=clean_min,
+             ms_off_on_on_off=[ms_off1, ms_on1, ms_on2, ms_off2],
+             resident_ms=(ms_on1 + ms_on2) / 2,
+             resident_ms_flag_off=(ms_off1 + ms_off2) / 2,
+             classic_ms=classic_ms, resident_launches_timed=resident_timed)
+        check(all(equal.values()), "positivity: resident differs from "
+              f"classic K1: {[k for k, v in equal.items() if not v]}")
+        check(int(moved.sum()) > 0 and clean_min >= 0.0,
+              "positivity kernels left the orthant or moved nothing")
+        check(resident_timed == 4 * (n_time + 1),
+              "the resident kernel did not run the timed sweeps")
+        out[sampler] = {"max_abs_err": errs["resident"]["resid_max_abs_err"],
+                        "ms": (ms_on1 + ms_on2) / 2, "plain_ms": plain_ms,
+                        "ms_flag_off": (ms_off1 + ms_off2) / 2,
+                        "classic_ms": classic_ms,
+                        "classic_max_abs_err":
+                            errs["classic"]["resid_max_abs_err"],
+                        "classic_2_chains": batch}
+        # one tile of the tiled kernel is the whole-cube sweep, positivity on
+        n0 = tiled_counter(sampler).launches
+        one = tl.tiled_segment(problem, copy_state(state), 2,
+                               tile=(problem.ny, problem.nx))
+        two = seg(problem, copy_state(state), 2)
+        torch.cuda.synchronize()
+        one_equal = all(torch.equal(getattr(one.result.state, n_),
+                                    getattr(two.result.state, n_))
+                        for n_ in ("resid", "clean", "chi2"))
+        check(tiled_counter(sampler).launches - n0 == 2 and one_equal,
+              "positivity: one tile of K2 is not the resident sweep")
+        shape = (600, 34, 34) if sampler == "mh" else (600, 17, 34)
+        t0 = time.perf_counter()
+        *_, tiled_kern = tiled_compare(
+            bench_cube(*shape), (1, 1), sampler, 1, 12, positivity=True)
+        emit("positivity_tiled", sampler=sampler, shape=list(shape),
+             tile=[1, 1], one_tile_equals_resident=one_equal,
+             seconds=time.perf_counter() - t0)
+        del problem, off, state, plain, res, cla, one, two, tiled_kern, chains
+    for sampler in ("mh", "gibbs"):
+        run, out[sampler]["path"] = positivity_run(sampler)
+        del run
+        run, out[sampler]["chains"] = positivity_run(sampler, n=64,
+                                                     n_chains=2)
+        # classic K1's ms per batched sweep on that run's state
+        out[sampler]["chains"]["ms"] = time_sweeps(
+            lambda k: classic_of(sampler)(run.problem, run.states, k), 8)
+        del run
+    return out
+
+
+#: the block step on the card against the CPU's (same problem and Philox
+#: draws), of each output's scale: the banded solves amplify the rounding
+#: of lin and linT, which the two devices compute in another order
+BLOCK_TOL = {"resid": 1e-4, "clean": 1e-3, "chi2": 1e-5}
+
+
+def phase_gibbs_block(n=100):
+    """``sampler='gibbs_block'`` on the card.  The banded kernels against
+    their plain loops at this path's shapes (L = 600, lw = 11): the draw
+    for 4 systems (one color of one chain) and 128 (32 chains), the
+    Cholesky for 1156 (the bench's Yc·Xc, once per problem); ms of both.
+    The block sweep on the card against the CPU's on one problem and the
+    Philox draws (30×30×600 with the MUSE FSF cut to 5×5 — 25 colors: the
+    CPU's plain loops take ~12 torch ops per λ row); then ``Run(bench
+    cube, MUSE(), sampler='gibbs_block')`` for ``n`` sweeps → diagnostics
+    → save: one Cholesky launch at set-up, f² = 289 draw launches per
+    sweep, acceptance exactly 1, χ² consistency ≤ 1e-5; sweeps/s and the
+    Cholesky's ms; a profile of 2 of its sweeps (the draws' and the other
+    ops' device time, the idle share); and 16 sweeps of a 32-chain ``Run``
+    (the 128-system draws)."""
+    lam = 4750.0 + 1.25 * np.arange(600)
+    lsf = torch.tensor(d3.MUSE().lsf.bank(lam, cdelt=1.25, width=None),
+                       dtype=torch.float32).cuda()
+    lw = int(lsf.shape[1])
+    rng = np.random.default_rng(13)
+    out = {}
+    for n_sys, parts in ((4, ("sample",)), (128, ("sample",)),
+                         (1156, ("cholesky",))):
+        q = torch.tensor(1.0 + rng.random((n_sys, 600)),
+                         dtype=torch.float32).cuda()
+        bands = bd.precision_bands(lsf, q)
+        R, chol_ms = ms_per_call(lambda: bd.cholesky_banded(bands), 20)
+        R_ref, chol_plain_ms = timed(
+            lambda: bd.cholesky_banded_reference(bands))
+        row = {}
+        if "cholesky" in parts:
+            err, scale = (float((R - R_ref).abs().max()),
+                          float(R_ref.abs().max()))
+            row["cholesky"] = {"max_abs_err": err, "ms": chol_ms,
+                               "plain_ms": chol_plain_ms,
+                               "bound": banded_bound("cholesky", n_sys, 600,
+                                                     lw - 1)}
+            check(err <= BANDED_TOL["cholesky"] * scale,
+                  f"banded Cholesky differs ({n_sys} systems, L = 600)")
+        if "sample" in parts:
+            b, noise = (torch.tensor(rng.standard_normal((n_sys, 600)),
+                                     dtype=torch.float32).cuda()
+                        for _ in range(2))
+            x, ms = ms_per_call(
+                lambda: bd.sample_conditional(R_ref, b, noise), 20)
+            x_ref, plain_ms = timed(
+                lambda: bd.sample_conditional_reference(R_ref, b, noise))
+            err, scale = (float((x - x_ref).abs().max()),
+                          float(x_ref.abs().max()))
+            row["sample"] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms,
+                             "bound": banded_bound("sample", n_sys, 600,
+                                                   lw - 1)}
+            check(err <= BANDED_TOL["sample"] * scale,
+                  f"banded draw differs ({n_sys} systems, L = 600)")
+        out[n_sys] = row
+        emit("banded_block_shapes", L=600, lw=lw, n_systems=n_sys,
+             **{f"{k}_{m}": v[m] if m != "bound" else v[m]["bound_ms"]
+                for k, v in row.items()
+                for m in ("max_abs_err", "ms", "plain_ms", "bound")})
+
+    cube = bench_cube()
+    small = sm.RunConfig(seed=0, sampler="gibbs_block", fsf_size=5)
+    card = sm.make_problem(cube, d3.MUSE(), small)
+    cpu = sm.make_problem(cube.to("cpu"), d3.MUSE(), small, device="cpu")
+    n0 = bd.sample_conditional.launches
+    got = sw.gibbs_block_segment(card, sm.init_state(card), 1)
+    torch.cuda.synchronize()
+    launches = bd.sample_conditional.launches - n0
+    t0 = time.perf_counter()
+    want = sw.gibbs_block_segment_reference(cpu, sm.init_state(cpu), 1)
+    cpu_s = time.perf_counter() - t0
+    errs = {n_: float((getattr(got.result.state, n_).cpu()
+                       - getattr(want.result.state, n_)).abs().max())
+            / float(getattr(want.result.state, n_).abs().max())
+            for n_ in ("resid", "clean")}
+    errs["chi2"] = abs(float(got.result.state.chi2)
+                       - float(want.result.state.chi2)) / float(
+        want.result.state.chi2)
+    emit("block_card_vs_cpu", shape=list(cube.shape), f=card.f,
+         draw_launches=launches, rel_err=errs, rel_tol=BLOCK_TOL,
+         counts_equal=bool(torch.equal(got.accept.cpu(), want.accept)),
+         cpu_sweep_s=cpu_s)
+    check(launches == card.n_colors, "one draw launch per color")
+    check(bool(torch.equal(got.accept.cpu(), want.accept)),
+          "block voxel counts differ")
+    for n_, tol in BLOCK_TOL.items():
+        check(errs[n_] <= tol, f"block sweep on the card differs from the "
+              f"CPU in {n_}")
+    del card, cpu, got, want
+
+    reset_launches()
+    run, setup_ms = timed(lambda: d3.Run(cube, d3.MUSE(), max_iterations=n,
+                                        burn_in=n // 2, seed=0,
+                                        sampler="gibbs_block"))
+    chol_launches = bd.cholesky_banded.launches
+    p = run.problem
+    check(p.config.engine == "cuda" and chol_launches == 1,
+          f"gibbs_block set-up: engine {p.config.engine}, "
+          f"{chol_launches} Cholesky launches")
+    _, chol_ms = ms_per_call(lambda: sm.block_factors(p.lsf, p.quad), 5)
+    run.run(n // 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.run(n // 2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    draws = bd.sample_conditional.launches
+    diag = run.diagnostics()
+    consistency = chi2_consistency(run)
+    with tempfile.TemporaryDirectory() as tmp:
+        run.save(os.path.join(tmp, "block"))
+        saved = os.path.isfile(os.path.join(tmp, "block_clean.fits"))
+    emit("gibbs_block_run", shape=list(cube.shape), sweeps=diag["sweeps"],
+         cholesky_launches=chol_launches, draw_launches=draws,
+         draw_launches_per_sweep=draws / n, cholesky_ms=chol_ms,
+         setup_ms=setup_ms, acceptance=diag["acceptance_rate"],
+         chi2=diag["chi2"], chi2_consistency=consistency,
+         sweeps_per_sec_last_half=(n // 2) / dt)
+    check(draws == n * p.n_colors, f"{draws} draw launches for {n} sweeps")
+    check(diag["acceptance_rate"] == 1.0, "gibbs_block acceptance is not 1")
+    check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+    check(saved, "save() files missing")
+    # where a block sweep's time goes: the draws, the torch ops around them,
+    # and the card's idle share
+    prof = phase_profile(p, run.states, "gibbs_block", n=2,
+                         seg=sw.gibbs_block_segment,
+                         kernel_name="banded_sample_kernel",
+                         per_sweep=p.n_colors)
+    out["path"] = {"draw_launches": draws, "cholesky_launches": chol_launches,
+                   "cholesky_ms": chol_ms, "rate": (n // 2) / dt,
+                   "profile": prof}
+    del run
+    reset_launches()
+    run = d3.Run(cube, d3.MUSE(), max_iterations=16, burn_in=8, seed=0,
+                 sampler="gibbs_block", n_chains=32)
+    run.run(16)
+    torch.cuda.synchronize()
+    draws32 = bd.sample_conditional.launches
+    consistency32 = max(chi2_consistency(run, c) for c in (0, 31))
+    emit("gibbs_block_chains", n_chains=32, sweeps=16, draw_launches=draws32,
+         chi2_consistency=consistency32,
+         acceptance=run.diagnostics()["acceptance_rate"])
+    check(draws32 == 16 * p.n_colors, "one draw launch per color for 32 chains")
+    check(consistency32 <= 1e-5, "32-chain running chi2 drifted")
+    out["chains"] = {"draw_launches": draws32}
     return out
 
 
@@ -1324,6 +1672,8 @@ def main() -> int:
     tiled = phase_tiled_kernel()
     phase_tiled_vs_whole()
     coarse = phase_coarse()
+    positivity = phase_positivity()
+    block = phase_gibbs_block()
     cube = field_cube()
     field = {sampler: phase_full_field(sampler, n, cube)
              for sampler, n in (("gibbs", 16), ("mh", 8))}
@@ -1427,6 +1777,75 @@ def main() -> int:
             "library_ms": None,
             "n_systems_324": other_shape(coarse[324][part]),
         })
+    # positivity: the same sources with the flag compiled in, on the
+    # positivity Runs (resident: one chain; classic K1: two chains)
+    for sampler in ("mh", "gibbs"):
+        pos = positivity[sampler]
+        lines.append({
+            "name": f"resident_{sampler}_kernel<positivity>",
+            "route": "cuda",
+            "source": "deconv3d_tpu_torch/csrc/resident_sweep.cu",
+            "replaces": k1 + (gibbs_lines if sampler == "gibbs" else "")
+                        + " with the JAX package's positivity (jnp engine, "
+                          "deconv3d_tpu/sampler.py:952-959, :1069-1086)",
+            "launches": pos["path"]["launches"],
+            "launches_path": f"positivity (Run {sampler}, 400 sweeps)",
+            "shape": pos["path"]["shape"], "n_chains": 1,
+            "max_abs_err": pos["max_abs_err"], "ms": pos["ms"],
+            "plain_ms": pos["plain_ms"], **bound(pos["path"]["bound"]),
+            "library_ms": None, "ms_flag_off_same_run": pos["ms_flag_off"],
+        })
+        lines.append({
+            "name": f"{sampler}_sweep<positivity>",
+            "route": "cuda",
+            "source": f"deconv3d_tpu_torch/csrc/{sampler}_sweep.cu",
+            "replaces": k1 + (gibbs_lines if sampler == "gibbs" else "")
+                        + " with positivity",
+            "launches": pos["chains"]["launches"],
+            "launches_path": f"positivity (Run {sampler}, 2 chains, "
+                             "64 sweeps)",
+            "shape": pos["chains"]["shape"], "n_chains": 2,
+            "ms": pos["chains"]["ms"], **bound(pos["chains"]["bound"]),
+            "max_abs_err": pos["classic_2_chains"]["max_abs_err"],
+            "plain_ms": pos["classic_2_chains"]["plain_ms"],
+            "max_abs_err_and_plain_ms_at": "2 chains, 600x30x30, 4 sweeps "
+                                           "in",
+            "n_chains_1_600x30x30": {
+                "max_abs_err": pos["classic_max_abs_err"],
+                "ms": pos["classic_ms"], "plain_ms": pos["plain_ms"]},
+            "library_ms": None,
+        })
+    # gibbs_block: the banded kernels at its shapes (L = 600)
+    lines.append({
+        "name": "banded_cholesky<gibbs_block>", "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/banded.cu",
+        "replaces": "deconv3d_tpu/ops/banded.py:77-117 (lax.scan, no "
+                    "Pallas; deconv3d_tpu/sampler.py:696-705)",
+        "launches": block["path"]["cholesky_launches"],
+        "launches_path": "gibbs_block (Run, make_problem)",
+        "shape": [1156, 600, 11],
+        "max_abs_err": block[1156]["cholesky"]["max_abs_err"],
+        "ms": block[1156]["cholesky"]["ms"],
+        "plain_ms": block[1156]["cholesky"]["plain_ms"],
+        **bound(block[1156]["cholesky"]["bound"]), "library_ms": None,
+    })
+    lines.append({
+        "name": "banded_sample_conditional<gibbs_block>", "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/banded.cu",
+        "replaces": "deconv3d_tpu/ops/banded.py:184-192 (lax.scan, no "
+                    "Pallas; deconv3d_tpu/sampler.py:1119-1185)",
+        "launches": block["path"]["draw_launches"],
+        "launches_path": "gibbs_block (Run, 100 sweeps, one per color)",
+        "shape": [4, 600, 11],
+        "max_abs_err": block[4]["sample"]["max_abs_err"],
+        "ms": block[4]["sample"]["ms"], "plain_ms": block[4]["sample"]["plain_ms"],
+        **bound(block[4]["sample"]["bound"]), "library_ms": None,
+        "sweep_profile": block["path"]["profile"],
+        "n_systems_128": {**other_shape(block[128]["sample"]),
+                          "launches": block["chains"]["draw_launches"],
+                          "launches_path": "gibbs_block (Run, 32 chains, "
+                                           "16 sweeps)"},
+    })
     check(all(line["launches"] > 0 for line in lines),
           "a kernel was launched no time on its path")
     print(json.dumps({"kernels": lines}))

@@ -58,17 +58,17 @@ def find_nvcc() -> str:
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: (argtypes, restype) of every C function the sources export
 _SIGNATURES = {
-    "mh_sweep_launch": ([_P] * 15 + [_I] * 9 + [_U, _F, _F, _P], _I),
+    "mh_sweep_launch": ([_P] * 15 + [_I] * 10 + [_U, _F, _F, _P], _I),
     "mh_sweep_scratch_floats": ([_I, ctypes.c_longlong], ctypes.c_longlong),
-    "gibbs_sweep_launch": ([_P] * 16 + [_I] * 10 + [_U, _P], _I),
-    "gibbs_sweep_scratch_floats": ([_I, ctypes.c_longlong],
+    "gibbs_sweep_launch": ([_P] * 16 + [_I] * 11 + [_U, _P], _I),
+    "gibbs_sweep_scratch_floats": ([_I, ctypes.c_longlong, _I],
                                    ctypes.c_longlong),
-    "tiled_mh_launch": ([_P] * 17 + [_I] * 13 + [_U, _F, _F, _P], _I),
-    "tiled_gibbs_launch": ([_P] * 18 + [_I] * 14 + [_U, _P], _I),
+    "tiled_mh_launch": ([_P] * 17 + [_I] * 14 + [_U, _F, _F, _P], _I),
+    "tiled_gibbs_launch": ([_P] * 18 + [_I] * 15 + [_U, _P], _I),
     "task_phase_clocks": ([_P], _I),
-    "resident_mh_launch": ([_P] * 15 + [_I] * 8 + [_U, _F, _F, _P], _I),
+    "resident_mh_launch": ([_P] * 15 + [_I] * 9 + [_U, _F, _F, _P], _I),
     "resident_mh_scratch_floats": ([_I] * 5, ctypes.c_longlong),
-    "resident_gibbs_launch": ([_P] * 16 + [_I] * 8 + [_U, _P], _I),
+    "resident_gibbs_launch": ([_P] * 16 + [_I] * 9 + [_U, _P], _I),
     "resident_gibbs_scratch_floats": ([_I] * 5, ctypes.c_longlong),
     "resident_smem_bytes": ([_I] * 9, ctypes.c_longlong),
     "resident_barrier_launch": ([_I, _I, ctypes.c_longlong, _I, _P], _I),

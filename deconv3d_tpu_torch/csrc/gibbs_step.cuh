@@ -28,6 +28,14 @@
 //             resid -= patch(gacc), the patch streamed through the ring
 //   --- grid barrier ---
 //
+// Positivity (kPos, a compile-time flag: the flag-off code is unchanged)
+// draws each voxel from its conditional truncated to clean >= 0
+// (truncated_jump) from the same two uniforms.  Its mean depends on the
+// voxel's clean, so the window also keeps the uniforms and the step's
+// starting clean (7 arrays, not 5), read from global memory in (b); and
+// since the windows of a spaxel's slabs overlap, (b) writes the slab's
+// jumps to scratch and (c) adds them to clean, after every window is read.
+//
 // A task's arithmetic depends neither on the chain batch nor on the step's
 // extent, nor on lam_b (see mh_step.cuh).
 #pragma once
@@ -60,6 +68,50 @@ __device__ __forceinline__ float gibbs_dlo_term(float ga, float qlo) {
   return __fmul_rn(__fmul_rn(ga, ga), qlo);
 }
 
+// Positivity: z ~ N(0, 1) truncated to z >= alpha from two uniforms, as
+// ops/truncnorm.py transform_uniforms computes it (the inverse CDF for
+// alpha <= 2; above, 4 Newton steps on log Phi(-z) = log Phi(-alpha) +
+// log u_tail), with log Phi(-z) and the hazard phi(z) / Phi(-z) from erfcx,
+// which neither saturates nor cancels in float32 at any alpha.
+constexpr float kTailSwitch = 2.0f;
+constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kSqrt2OverPi = 0.79788456080286536f;
+constexpr float kLog2Pi = 1.8378770664093453f;
+// log Phi(-z), z >= 0
+__device__ __forceinline__ float log_sf(float z) {
+  return __fsub_rn(logf(__fmul_rn(0.5f, erfcxf(__fmul_rn(z, kSqrtHalf)))),
+                   __fmul_rn(0.5f, __fmul_rn(z, z)));
+}
+__device__ __forceinline__ float trunc_normal(float alpha, float u_body,
+                                              float u_tail) {
+  if (alpha > kTailSwitch) {
+    const float t = __fadd_rn(log_sf(alpha), logf(u_tail));
+    const float w2 = __fmul_rn(2.0f, fmaxf(-t, 2.5f));
+    float z = sqrtf(fmaxf(__fsub_rn(__fsub_rn(w2, logf(w2)), kLog2Pi), 0.25f));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float f = __fsub_rn(log_sf(z), t);
+      const float h = __fdiv_rn(kSqrt2OverPi, erfcxf(__fmul_rn(z, kSqrtHalf)));
+      z = fmaxf(__fadd_rn(z, __fdiv_rn(f, fmaxf(h, 1.0e-30f))), 1.0e-3f);
+    }
+    return z;
+  }
+  const float cdf = normcdff(alpha);
+  const float p = __fadd_rn(cdf, __fmul_rn(u_body, __fsub_rn(1.0f, cdf)));
+  return fminf(normcdfinvf(p), __fadd_rn(alpha, 9.0f));   // p may round to 1
+}
+// a live voxel's positivity draw as a jump from its clean `cur`:
+// c' ~ N(mu, 1 / qs) truncated to c' >= 0, mu = cur + linT / qs, and c'
+// clamped at 0, where float32 rounding can land a hair below it
+__device__ __forceinline__ float truncated_jump(float linT, float qs,
+                                                float cur, float u1,
+                                                float u2) {
+  const float sig = rsqrtf(qs);
+  const float mu = __fadd_rn(cur, __fdiv_rn(linT, qs));
+  const float z = trunc_normal(__fdiv_rn(-mu, sig), u1, u2);
+  return __fsub_rn(fmaxf(__fadd_rn(mu, __fmul_rn(sig, z)), 0.0f), cur);
+}
+
 struct GibbsArgs {
   float* resid;            // [C, Hp, Wp, Ls] (the first L of a row are data)
   const float* w;          // [Hp, Wp, Ls]
@@ -76,8 +128,9 @@ struct GibbsArgs {
   float* live_out;         // [C, f*f, nij]
   float* dchi_out;         // [C, f*f, nij]
   float* uniforms_out;     // [C, f*f, nij, 2, L] or null
-  float* scratch;          // [4 * C * spaxels of the largest step * L]:
-                           // lin, gacc, dchi2 terms, quad_lo terms
+  float* scratch;          // [5 * C * spaxels of the largest step * L]:
+                           // lin, gacc, dchi2 terms, quad_lo terms, jumps
+                           // (positivity)
   const int* wave_start;   // [n_waves + 1] into wave_tiles (tiled kernel)
   const int* wave_tiles;   // raster indices of every wave's tiles
   int C, L, Ls, f, ny, nx, S, lw;
@@ -96,18 +149,23 @@ __host__ __device__ inline int gibbs_window(int L, int lw, int lam_b) {
   const int wd = lam_b + gibbs_window_lo(lw) + gibbs_window_hi(lw);
   return wd < L ? wd : L;
 }
+// arrays of phase (b)'s window: lin, quad, qvox, normals/jumps, gacc, and
+// with positivity the second uniforms and the starting clean
+__host__ __device__ inline int gibbs_window_arrays(bool pos) {
+  return pos ? 7 : 5;
+}
 
 // Shared memory of one block: the ring's barriers, FSF images, per-warp
 // pooled partials (two buffers: warp 0 finishes task i while the others
 // fill task i + 1), block sums, Philox keys; then the ring of (a) and (c),
 // which is also (b)'s window: lin, quad, qvox, normals/jumps and gacc, 5 x
-// the window's width.
+// the window's width (7 with positivity).
 struct GibbsShared {
   float* img;              // [S * f * f]
   float* pool;             // [2][nw * S * kChunk]
   float* red;              // [3 * nw]
   uint32_t* key;           // [2 * C]
-  float* ring;             // [max(stages * ring_stage_floats, 5 * window)]
+  float* ring;             // [max(stages * ring_stage_floats, 5|7 * window)]
 };
 
 __host__ __device__ inline size_t gibbs_fixed_floats(int S, int f, int C) {
@@ -135,7 +193,7 @@ __device__ __forceinline__ GibbsShared gibbs_shared(const GibbsArgs& a,
   return s;
 }
 
-template <int kS>
+template <int kS, bool kPos>
 __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
                                            const GibbsShared& sh,
                                            float* smem, PatchMaps& maps,
@@ -163,6 +221,7 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
   float* g_buf = lin_buf + per;
   float* terms = g_buf + per;                     // dchi2 per wavelength
   float* lo_terms = terms + per;                  // its quad_lo part
+  float* jump_buf = lo_terms + per;               // the jumps (positivity)
   auto task = [&](int i) {
     return task_of(static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x),
                    P, nst, st, a.nx, f, Xc);
@@ -220,7 +279,9 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
   float* wq = wlin + wd;                          // quad,
   float* wqv = wq + wd;                           // qvox,
   float* wnj = wqv + wd;                          // normals -> jumps,
-  float* wg = wnj + wd;                           // gacc
+  float* wg = wnj + wd;                           // gacc,
+  float* wu2 = wg + wd;                           // (positivity) u2,
+  float* wcl = wu2 + wd;                          // the starting clean
   for (int t = blockIdx.x; t < spaxels * n_slabs; t += gridDim.x) {
     const int cs = t / n_slabs, slab = t - cs * n_slabs;
     const int ch = cs / nst, ij = st.ij(cs - ch * nst, a.nx);
@@ -253,7 +314,13 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
       wlin[k] = lin0[l];
       wq[k] = a.quad[static_cast<size_t>(sp) * L + l];
       wqv[k] = a.qvox[static_cast<size_t>(sp) * L + l];
-      wnj[k] = box_muller(u1, u2);
+      if (kPos) {
+        wnj[k] = u1;
+        wu2[k] = u2;
+        wcl[k] = a.clean[(static_cast<size_t>(ch) * Yc * Xc + sp) * L + l];
+      } else {
+        wnj[k] = box_muller(u1, u2);
+      }
       wg[k] = 0.0f;
     }
     __syncthreads();
@@ -279,7 +346,9 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
             const int mu = k + half - d;
             linT = band_term(linT, lsfw[mu * lw + d], wlin[mu]);
           }
-          jump = gibbs_jump(linT, fmaxf(q, 1.0e-30f), wnj[k]);
+          jump = kPos ? truncated_jump(linT, fmaxf(q, 1.0e-30f), wcl[k], wnj[k],
+                                       wu2[k])
+                      : gibbs_jump(linT, fmaxf(q, 1.0e-30f), wnj[k]);
         }
         wnj[k] = jump;
       }
@@ -311,7 +380,10 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
           gibbs_dchi_term(ga, wq[k], lin0[l]);
       if (qlo)
         lo_terms[static_cast<size_t>(cs) * L + l] = gibbs_dlo_term(ga, qlo[l]);
-      clean[l] = __fadd_rn(clean[l], wnj[k]);
+      if (kPos)              // other slabs' windows still read clean
+        jump_buf[static_cast<size_t>(cs) * L + l] = wnj[k];
+      else
+        clean[l] = __fadd_rn(clean[l], wnj[k]);
       g_buf[static_cast<size_t>(cs) * L + l] = ga;
     }
     clk.mark(9);                                 // terms, clean, gacc
@@ -389,6 +461,10 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
     const int l = k.l0 + lane;
     const bool valid = a.valid[k.sp] != 0.0f;    // uniform across the block
     const size_t row0 = (static_cast<size_t>(k.ys) * Wp + k.xs) * Ls + l;
+    if (kPos && valid && warp == 0 && l < L) {
+      float* cl = a.clean + (static_cast<size_t>(k.ch) * Yc * Xc + k.sp) * L + l;
+      *cl = __fadd_rn(*cl, jump_buf[static_cast<size_t>(k.cs) * L + l]);
+    }
     if (stages) {
       cp_async_wait(stages - 1);
       if (valid) {
@@ -417,17 +493,19 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
 // Launch `kernel(args, map of the residual, map of the weights)`: the ring's
 // stages (`a->stages` < 0: as many as fit; the ring needs rows padded to 16
 // bytes), the shared memory (the ring and phase (b)'s window share it), and
-// a grid for `a->max_spaxels` (chain, spaxel)s in the largest step.
+// a grid for `a->max_spaxels` (chain, spaxel)s in the largest step; `pos`:
+// the kernel draws with positivity (a wider window).
 template <typename Kernel>
-inline int launch_gibbs(Kernel kernel, GibbsArgs* a, cudaStream_t stream) {
+inline int launch_gibbs(Kernel kernel, GibbsArgs* a, bool pos,
+                        cudaStream_t stream) {
   const int threads = block_threads(a->f);
   const int Hp = a->f - 1 + a->ny * a->f, Wp = a->f - 1 + a->nx * a->f;
   if (a->lam_b < 1 || a->Ls < a->L) return static_cast<int>(cudaErrorInvalidValue);
   const size_t fixed = sizeof(float) * gibbs_fixed_floats(a->S, a->f, a->C);
   const size_t stage =
       sizeof(float) * ring_stage_floats(a->S, a->f, a->lw, threads);
-  const size_t window =
-      sizeof(float) * 5 * static_cast<size_t>(gibbs_window(a->L, a->lw, a->lam_b));
+  const size_t window = sizeof(float) * gibbs_window_arrays(pos) *
+                        static_cast<size_t>(gibbs_window(a->L, a->lw, a->lam_b));
   size_t optin = 0;
   if (const int e = smem_optin(&optin)) return e;
   if (fixed + window > optin) return static_cast<int>(cudaErrorInvalidValue);

@@ -52,7 +52,7 @@ namespace cg = cooperative_groups;
 
 namespace deconv3d {
 
-template <int kS>
+template <int kS, bool kPos>
 __global__ void __launch_bounds__(kMaxThreads)
     gibbs_sweep_kernel(GibbsArgs a, const __grid_constant__ CUtensorMap map_r,
                        const __grid_constant__ CUtensorMap map_w) {
@@ -62,7 +62,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   cg::grid_group grid = cg::this_grid();
   TaskClocks clk(smem);
   for (int c = 0; c < a.f * a.f; ++c)
-    gibbs_step<kS>(a, sh, smem, maps, Step::whole(c, a.f, a.ny, a.nx), grid, clk);
+    gibbs_step<kS, kPos>(a, sh, smem, maps, Step::whole(c, a.f, a.ny, a.nx),
+                         grid, clk);
   clk.flush();
 }
 
@@ -71,16 +72,19 @@ __global__ void __launch_bounds__(kMaxThreads)
 extern "C" {
 
 // Floats of scratch a step over `spaxels` (chain, spaxel)s needs (lin,
-// gacc, and the per-wavelength dchi2 and quad_lo terms).
-long long gibbs_sweep_scratch_floats(int L, long long spaxels) {
-  return 4LL * spaxels * L;
+// gacc, the per-wavelength dchi2 and quad_lo terms; with `positivity` the
+// jumps too).
+long long gibbs_sweep_scratch_floats(int L, long long spaxels,
+                                     int positivity) {
+  return (positivity ? 5LL : 4LL) * spaxels * L;
 }
 
 // Launch one sweep of C chains on `stream`; the rows of `resid` and `w`
 // hold `Ls` >= L floats; `stages` ring stages (< 0: as many as fit, 0:
-// synchronous loads), `lam_b` wavelengths per slab of phase
-// (b).  Returns a cudaError_t (0 on success), checked right after the
-// launch; the kernel itself runs asynchronously.
+// synchronous loads), `lam_b` wavelengths per slab of phase (b);
+// `positivity` draws every voxel truncated to clean >= 0.  Returns a
+// cudaError_t (0 on success), checked right after the launch; the kernel
+// itself runs asynchronously.
 int gibbs_sweep_launch(float* resid, const float* w, const float* quad,
                        const float* quad_lo, const float* qvox, float* clean,
                        const float* valid,
@@ -89,8 +93,7 @@ int gibbs_sweep_launch(float* resid, const float* w, const float* quad,
                        float* live_out, float* dchi_out, float* uniforms_out,
                        float* scratch, int C, int L, int Ls, int f, int ny,
                        int nx, int S, int lw, int stages, int lam_b,
-                       unsigned sweep,
-                       void* stream) {
+                       int positivity, unsigned sweep, void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, ny, nx)) return e;
   GibbsArgs a{resid, w, quad, quad_lo, qvox, clean, valid, spec, imgs, lsf, keys,
@@ -98,8 +101,11 @@ int gibbs_sweep_launch(float* resid, const float* w, const float* quad,
               nullptr, C, L, Ls, f, ny, nx, S, lw, ny, nx, 1, stages, lam_b,
               C * ny * nx, sweep};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return S == 1 ? launch_gibbs(gibbs_sweep_kernel<1>, &a, st)
-                : launch_gibbs(gibbs_sweep_kernel<kMaxRank>, &a, st);
+  return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
+    return launch_gibbs(
+        gibbs_sweep_kernel<decltype(rank)::value, decltype(pos)::value>, &a,
+        pos, st);
+  });
 }
 
 }  // extern "C"

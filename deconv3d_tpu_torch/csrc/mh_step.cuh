@@ -19,6 +19,11 @@
 //            of a batch streamed through the ring
 //   --- grid barrier ---
 //
+// Positivity (kPos, a compile-time flag: the flag-off code is unchanged)
+// reflects each proposed spectrum into the positive orthant before dchi2:
+// jump = |clean + J| - clean at every wavelength of the chunk and its halo,
+// read from the spaxel's clean, which only its own visit changes.
+//
 // A task's arithmetic depends neither on the chain batch nor on the step's
 // extent, so a chain computes the same bits alone or in a batch, and a
 // spaxel's visit the same bits in a tile as in the whole field.
@@ -43,6 +48,11 @@ __device__ __forceinline__ float mh_jump(float u, float scale, float v) {
 __device__ __forceinline__ float mh_share(float g, float q, float lin) {
   return __fsub_rn(__fmul_rn(__fmul_rn(g, g), q),
                    __fmul_rn(__fmul_rn(2.0f, g), lin));
+}
+// positivity: the reflected proposal |cur + jump| - cur (a symmetric
+// folded density: no Metropolis correction)
+__device__ __forceinline__ float reflect(float jump, float cur) {
+  return __fsub_rn(fabsf(__fadd_rn(cur, jump)), cur);
 }
 // Robbins-Monro: log_scale + adapt (accept - target) valid
 __device__ __forceinline__ float log_scale_step(float ls, float adapt,
@@ -116,7 +126,7 @@ __device__ __forceinline__ MhShared mh_shared(const MhArgs& a, float* smem,
   return s;
 }
 
-template <int kS>
+template <int kS, bool kPos>
 __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
                                         float* smem, PatchMaps& maps,
                                         const Step& st,
@@ -194,6 +204,7 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
       const uint32_t k0 = sh.key[2 * k.ch], k1 = sh.key[2 * k.ch + 1];
       const float scale =
           expf(a.log_scale[static_cast<size_t>(k.ch) * Yc * Xc + k.sp]);
+      const float* cl = a.clean + (static_cast<size_t>(k.ch) * Yc * Xc + k.sp) * L;
       for (int q = lane; q < njump; q += 32) {
         const int m = k.l0 - half + q;
         float jump = 0.0f;
@@ -204,6 +215,7 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
           if (a.uniforms_out && q >= half && q < half + kChunk)
             a.uniforms_out[ubase + m] = u;
           jump = mh_jump(u, scale, v);
+          if (kPos) jump = reflect(jump, cl[m]);
         }
         jump_s[q] = jump;
       }

@@ -58,7 +58,7 @@ namespace cg = cooperative_groups;
 
 namespace deconv3d {
 
-template <int kS>
+template <int kS, bool kPos>
 __global__ void __launch_bounds__(kMaxThreads)
     mh_sweep_kernel(MhArgs a, const __grid_constant__ CUtensorMap map_r,
                     const __grid_constant__ CUtensorMap map_w) {
@@ -68,7 +68,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   cg::grid_group grid = cg::this_grid();
   TaskClocks clk(smem);
   for (int c = 0; c < a.f * a.f; ++c)
-    mh_step<kS>(a, sh, smem, maps, Step::whole(c, a.f, a.ny, a.nx), grid, clk);
+    mh_step<kS, kPos>(a, sh, smem, maps, Step::whole(c, a.f, a.ny, a.nx), grid,
+                      clk);
   clk.flush();
 }
 
@@ -86,17 +87,17 @@ long long mh_sweep_scratch_floats(int L, long long spaxels) {
 
 // Launch one sweep of C chains on `stream`; the rows of `resid` and `w`
 // hold `Ls` >= L floats; `stages` ring stages (< 0: as many as fit, 0:
-// synchronous loads).  Returns a cudaError_t (0 on
-// success), checked right after the launch; the kernel itself runs
-// asynchronously.
+// synchronous loads); `positivity` reflects every proposal into clean >= 0.
+// Returns a cudaError_t (0 on success), checked right after the launch; the
+// kernel itself runs asynchronously.
 int mh_sweep_launch(float* resid, const float* w, const float* quad,
                     float* clean, float* log_scale, const float* valid,
                     const float* spec, const float* imgs, const float* lsf,
                     const unsigned* keys, const float* uniforms,
                     float* accept_out, float* dchi_out, float* uniforms_out,
                     float* scratch, int C, int L, int Ls, int f, int ny, int nx,
-                    int S, int lw, int stages, unsigned sweep, float adapt,
-                    float target, void* stream) {
+                    int S, int lw, int stages, int positivity, unsigned sweep,
+                    float adapt, float target, void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, ny, nx)) return e;
   MhArgs a{resid, w, quad, clean, log_scale, valid, spec, imgs, lsf, keys,
@@ -105,8 +106,11 @@ int mh_sweep_launch(float* resid, const float* w, const float* quad,
            target};
   const long long spaxels = static_cast<long long>(C) * ny * nx;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return S == 1 ? launch_mh(mh_sweep_kernel<1>, &a, spaxels, st)
-                : launch_mh(mh_sweep_kernel<kMaxRank>, &a, spaxels, st);
+  return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
+    return launch_mh(
+        mh_sweep_kernel<decltype(rank)::value, decltype(pos)::value>, &a,
+        spaxels, st);
+  });
 }
 
 }  // extern "C"

@@ -55,6 +55,14 @@
 //   Both modes build every color's geometry table once per launch, and
 //   kS = 1 compiles the rank-1 FSF (MUSE's) without the rank loop.
 //
+//   Positivity (kPos, compile-time; the flag-off code is unchanged) needs
+//   each proposal's or draw's clean, over the halo and the window too,
+//   which belong to other blocks' slabs.  A spaxel's clean changes only at
+//   its own visit and global clean is written only after the sweep, so
+//   every block reads the visit's starting clean there: MH reflects the
+//   jumps of its slab and halo, gibbs keeps the window's clean and second
+//   uniforms beside it (7 window arrays, not 5) for truncated_jump.
+//
 // What bounds it.  The chain of f^2 dependent color steps -- not bytes or
 // flops: at 30x30x600 a sweep moves ~26 MB (MH) and does ~0.6 GFLOP, ~9 us
 // of the card's bandwidth or float32 rate.  Each step pays one grid barrier
@@ -71,6 +79,7 @@
 //   MH    + C Yc Xc + Yc Xc lam_b + lam_b lw + cs (lam_b + lw - 1)
 //         + 33 cs P + 2 cs
 //   gibbs + wd lw + 5 cs wd + 3 nw,   wd = min(L, lam_b + 2(lw-1) + lw(lw-1))
+//         (+ 2 cs wd with positivity)
 // MUSE 30x30x600 at lam_b = 5 (120 blocks): 198 KB (MH), 176 KB (gibbs) of
 // the 227 KB a block may opt in to.  The wrapper launches this kernel only
 // where the plan fits (ops/resident.py plan_slabs) and classic K1
@@ -126,7 +135,8 @@ struct ResidentLayout {
 };
 
 __host__ __device__ inline ResidentLayout resident_layout(
-    bool gibbs, int C, int f, int ny, int nx, int L, int S, int lw, int lb) {
+    bool gibbs, bool pos, int C, int f, int ny, int nx, int L, int S, int lw,
+    int lb) {
   const size_t nw = f < kMaxWarps ? f : kMaxWarps;
   const size_t cs = static_cast<size_t>(C) * ny * nx;
   const size_t Hp = f - 1 + ny * f, Wp = f - 1 + nx * f;
@@ -158,7 +168,8 @@ __host__ __device__ inline ResidentLayout resident_layout(
     const int wd = lb + window_lo_margin(lw) + window_hi_margin(lw);
     o.wd = wd < L ? wd : L;
     o.lsf = n;   n += static_cast<size_t>(o.wd) * lw;
-    o.win = n;   n += 5 * cs * o.wd;           // lin, quad, qvox, jumps, gacc
+    o.win = n;                                 // lin, quad, qvox, jumps, gacc
+    n += gibbs_window_arrays(pos) * cs * o.wd; // (+ u2, clean: positivity)
     o.red = n;   n += 3 * nw;                  // the tail's warp sums
   }
   o.total = n;
@@ -368,8 +379,9 @@ __device__ __forceinline__ void slab_commit(const Resident& g, float* smem,
   }
 }
 
-// kS: a compile-time bound on the FSF rank (1, or kMaxRank for any S).
-template <int kS>
+// kS: a compile-time bound on the FSF rank (1, or kMaxRank for any S);
+// kPos: positivity.
+template <int kS, bool kPos>
 __global__ void __launch_bounds__(kResidentThreads, 1)
     resident_mh_kernel(ResidentArgs a) {
   extern __shared__ float smem[];
@@ -377,7 +389,8 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   cg::grid_group grid = cg::this_grid();
   const Resident g(a);
   const ResidentLayout o =
-      resident_layout(false, a.C, a.f, a.ny, a.nx, a.L, a.S, a.lw, a.lam_b);
+      resident_layout(false, kPos, a.C, a.f, a.ny, a.nx, a.L, a.S, a.lw,
+                      a.lam_b);
   const uint32_t* key = reinterpret_cast<const uint32_t*>(smem + o.key);
   const int* geo_all = reinterpret_cast<const int*>(smem + o.geo);
   float *cls = smem + o.cl, *spec_s = smem + o.spec;
@@ -429,6 +442,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
           a.uniforms_out[ubase + m] = u;
         const float scale = expf(lsmap[e.ch * g.Yc * g.Xc + e.sp]);
         jump = mh_jump(u, scale, vt[cs]);
+        if (kPos)
+          jump = reflect(jump, a.clean[(static_cast<size_t>(e.ch) * g.Yc * g.Xc +
+                                        e.sp) * L + m]);
       }
       jmp[cs * jst + k] = jump;
     }
@@ -522,7 +538,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   PHASE_CLOCKS_END;
 }
 
-template <int kS>
+template <int kS, bool kPos>
 __global__ void __launch_bounds__(kResidentThreads, 1)
     resident_gibbs_kernel(ResidentArgs a) {
   extern __shared__ float smem[];
@@ -530,7 +546,8 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   cg::grid_group grid = cg::this_grid();
   const Resident g(a);
   const ResidentLayout o =
-      resident_layout(true, a.C, a.f, a.ny, a.nx, a.L, a.S, a.lw, a.lam_b);
+      resident_layout(true, kPos, a.C, a.f, a.ny, a.nx, a.L, a.S, a.lw,
+                      a.lam_b);
   const uint32_t* key = reinterpret_cast<const uint32_t*>(smem + o.key);
   const int* geo_all = reinterpret_cast<const int*>(smem + o.geo);
   float *cls = smem + o.cl, *spec_s = smem + o.spec;
@@ -541,7 +558,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   float* wq = wlin + static_cast<size_t>(g.ncs) * wd;    // quad,
   float* wqv = wq + static_cast<size_t>(g.ncs) * wd;     // qvox,
   float* wnj = wqv + static_cast<size_t>(g.ncs) * wd;    // normals -> jumps,
-  float* wg = wnj + static_cast<size_t>(g.ncs) * wd;     // gacc
+  float* wg = wnj + static_cast<size_t>(g.ncs) * wd;     // gacc,
+  float* wu2 = wg + static_cast<size_t>(g.ncs) * wd;     // (positivity) u2,
+  float* wcl = wu2 + static_cast<size_t>(g.ncs) * wd;    // starting clean
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwb = nt >> 5;
   const int L = g.L, half = g.half, lw = g.lw, nx = a.nx;
@@ -602,7 +621,13 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       wlin[wi] = lins[static_cast<size_t>(cs) * L + l];
       wq[wi] = a.quad[static_cast<size_t>(e.sp) * L + l];
       wqv[wi] = a.qvox[static_cast<size_t>(e.sp) * L + l];
-      wnj[wi] = box_muller(u1, u2);
+      if (kPos) {
+        wnj[wi] = u1;
+        wu2[wi] = u2;
+        wcl[wi] = a.clean[(static_cast<size_t>(e.ch) * g.Yc * g.Xc + e.sp) * L + l];
+      } else {
+        wnj[wi] = box_muller(u1, u2);
+      }
       wg[wi] = 0.0f;
     }
     __syncthreads();
@@ -616,6 +641,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
         if (on[cs] == 0.0f) continue;
         float *wl = wlin + cs * wd, *q_ = wq + cs * wd, *qv = wqv + cs * wd;
         float *nj = wnj + cs * wd, *ga = wg + cs * wd;
+        const float *u2_ = wu2 + cs * wd, *cl_ = wcl + cs * wd;
         // phase ph draws window index first + i lw, first = (ph - wlo) mod
         // lw; at window index k its update reads the phase voxel k - half +
         // r, r = (ph - (wlo + k - half)) mod lw: both step by one per phase
@@ -634,7 +660,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
 #pragma unroll 4
               for (int d = d0; d < d1; ++d, lp -= lw - 1, --np)
                 linT = band_term(linT, *lp, *np);
-              jump = gibbs_jump(linT, fmaxf(q, 1.0e-30f), nj[k]);
+              jump = kPos ? truncated_jump(linT, fmaxf(q, 1.0e-30f), cl_[k],
+                                           nj[k], u2_[k])
+                          : gibbs_jump(linT, fmaxf(q, 1.0e-30f), nj[k]);
             }
             nj[k] = jump;
           }
@@ -760,35 +788,19 @@ inline int launch_exact(Kernel kernel, void** params, int blocks, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kS>
-struct PickMh {
-  static auto kernel() { return resident_mh_kernel<kS>; }
-};
-template <int kS>
-struct PickGibbs {
-  static auto kernel() { return resident_gibbs_kernel<kS>; }
-};
-
 template <typename Kernel>
 inline int launch_resident(Kernel kernel, ResidentArgs* a, bool gibbs,
-                           cudaStream_t stream) {
+                           bool pos, cudaStream_t stream) {
   if (const int e = check_dims(a->C, a->L, a->f, a->ny, a->nx, a->S, a->lw,
                                a->ny, a->nx))
     return e;
   if (a->lam_b < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const ResidentLayout o = resident_layout(gibbs, a->C, a->f, a->ny, a->nx,
-                                           a->L, a->S, a->lw, a->lam_b);
+  const ResidentLayout o = resident_layout(gibbs, pos, a->C, a->f, a->ny,
+                                           a->nx, a->L, a->S, a->lw, a->lam_b);
   const int nw = a->f < kMaxWarps ? a->f : kMaxWarps;
   void* params[] = {a};
   return launch_exact(kernel, params, (a->L + a->lam_b - 1) / a->lam_b,
                       32 * nw, o.total * sizeof(float), stream);
-}
-
-template <template <int> class Pick>
-inline int launch_ranked(ResidentArgs* a, bool gibbs, cudaStream_t stream) {
-  return a->S == 1
-             ? launch_resident(Pick<1>::kernel(), a, gibbs, stream)
-             : launch_resident(Pick<kMaxRank>::kernel(), a, gibbs, stream);
 }
 
 }  // namespace deconv3d
@@ -818,30 +830,38 @@ long long resident_gibbs_scratch_floats(int C, int L, int f, int ny, int nx) {
 }
 
 // Dynamic shared memory (bytes) of one resident block; ops/resident.py
-// smem_bytes must agree.
-long long resident_smem_bytes(int gibbs, int C, int f, int ny, int nx, int L,
+// smem_bytes must agree.  `mode`: bit 0 gibbs (else MH), bit 1 positivity.
+long long resident_smem_bytes(int mode, int C, int f, int ny, int nx, int L,
                               int S, int lw, int lam_b) {
   return static_cast<long long>(
-      deconv3d::resident_layout(gibbs != 0, C, f, ny, nx, L, S, lw, lam_b).total *
+      deconv3d::resident_layout((mode & 1) != 0, (mode & 2) != 0, C, f, ny, nx,
+                                L, S, lw, lam_b).total *
       sizeof(float));
 }
 
-// Launch one sweep of C chains on `stream` over ceil(L / lam_b) blocks.
-// Returns a cudaError_t (0 on success), checked right after the launch.
+// Launch one sweep of C chains on `stream` over ceil(L / lam_b) blocks;
+// `positivity` as in mh_sweep_launch / gibbs_sweep_launch.  Returns a
+// cudaError_t (0 on success), checked right after the launch.
 int resident_mh_launch(float* resid, const float* w, const float* quad,
                        float* clean, float* log_scale, const float* valid,
                        const float* spec, const float* imgs, const float* lsf,
                        const unsigned* keys, const float* uniforms,
                        float* accept_out, float* dchi_out, float* uniforms_out,
                        float* scratch, int C, int L, int f, int ny, int nx,
-                       int S, int lw, int lam_b, unsigned sweep, float adapt,
-                       float target, void* stream) {
+                       int S, int lw, int lam_b, int positivity,
+                       unsigned sweep, float adapt, float target,
+                       void* stream) {
   using namespace deconv3d;
   ResidentArgs a{resid, w, quad, nullptr, nullptr, clean, log_scale, valid,
                  spec, imgs, lsf, keys, uniforms, accept_out, dchi_out,
                  uniforms_out, scratch, C, L, f, ny, nx, S, lw, lam_b, sweep,
                  adapt, target};
-  return launch_ranked<PickMh>(&a, false, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_variant(a.S, positivity != 0, [&](auto rank, auto pos) {
+    return launch_resident(
+        resident_mh_kernel<decltype(rank)::value, decltype(pos)::value>, &a,
+        false, pos, st);
+  });
 }
 
 int resident_gibbs_launch(float* resid, const float* w, const float* quad,
@@ -851,13 +871,18 @@ int resident_gibbs_launch(float* resid, const float* w, const float* quad,
                           const unsigned* keys, const float* uniforms,
                           float* live_out, float* dchi_out, float* uniforms_out,
                           float* scratch, int C, int L, int f, int ny, int nx,
-                          int S, int lw, int lam_b, unsigned sweep,
-                          void* stream) {
+                          int S, int lw, int lam_b, int positivity,
+                          unsigned sweep, void* stream) {
   using namespace deconv3d;
   ResidentArgs a{resid, w, quad, quad_lo, qvox, clean, nullptr, valid, spec,
                  imgs, lsf, keys, uniforms, live_out, dchi_out, uniforms_out,
                  scratch, C, L, f, ny, nx, S, lw, lam_b, sweep, 0.0f, 0.0f};
-  return launch_ranked<PickGibbs>(&a, true, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_variant(a.S, positivity != 0, [&](auto rank, auto pos) {
+    return launch_resident(
+        resident_gibbs_kernel<decltype(rank)::value, decltype(pos)::value>,
+        &a, true, pos, st);
+  });
 }
 
 // n grid barriers on `blocks` blocks of `threads` threads holding `smem`

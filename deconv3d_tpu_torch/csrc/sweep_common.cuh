@@ -32,6 +32,7 @@
 #include <dlfcn.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace deconv3d {
 
@@ -302,6 +303,21 @@ __device__ __forceinline__ void ring_init(float* smem, PatchMaps& m) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int s = 0; s < kMaxStages; ++s) m.uses[s] = 0;
+}
+
+// The instantiation a launcher takes, for every sweep kernel: rank 1
+// (MUSE's) or any rank up to kMaxRank, positivity compiled in or not.
+// `launch(rank, pos)` gets std::integral_constant tags; the kernel is
+// `kernel<decltype(rank)::value, decltype(pos)::value>`.
+template <typename Launch>
+inline int launch_variant(int S, bool pos, Launch&& launch) {
+  using One = std::integral_constant<int, 1>;
+  using Any = std::integral_constant<int, kMaxRank>;
+  if (pos)
+    return S == 1 ? launch(One{}, std::true_type{})
+                  : launch(Any{}, std::true_type{});
+  return S == 1 ? launch(One{}, std::false_type{})
+                : launch(Any{}, std::false_type{});
 }
 
 // Geometry checks shared by every launch (0 = fine).

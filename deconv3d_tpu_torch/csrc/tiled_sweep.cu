@@ -59,7 +59,7 @@ namespace cg = cooperative_groups;
 
 namespace deconv3d {
 
-template <int kS>
+template <int kS, bool kPos>
 __global__ void __launch_bounds__(kMaxThreads)
     tiled_mh_kernel(MhArgs a, const __grid_constant__ CUtensorMap map_r,
                     const __grid_constant__ CUtensorMap map_w) {
@@ -73,13 +73,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int t0 = a.wave_start[wv];           // wave, the colors in order
     const int n = a.wave_start[wv + 1] - t0;   // over all its tiles
     for (int c = 0; c < n_colors; ++c)
-      mh_step<kS>(a, sh, smem, maps,
+      mh_step<kS, kPos>(a, sh, smem, maps,
               Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n), grid, clk);
   }
   clk.flush();
 }
 
-template <int kS>
+template <int kS, bool kPos>
 __global__ void __launch_bounds__(kMaxThreads)
     tiled_gibbs_kernel(GibbsArgs a, const __grid_constant__ CUtensorMap map_r,
                        const __grid_constant__ CUtensorMap map_w) {
@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int t0 = a.wave_start[wv];
     const int n = a.wave_start[wv + 1] - t0;
     for (int c = 0; c < n_colors; ++c)
-      gibbs_step<kS>(a, sh, smem, maps,
+      gibbs_step<kS, kPos>(a, sh, smem, maps,
                  Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n), grid,
                  clk);
   }
@@ -128,8 +128,9 @@ int task_phase_clocks(unsigned long long* out) {
 // in the order of the schedule `wave_start` [n_waves + 1] / `wave_tiles`
 // (device ints; at most `max_tiles` tiles in a wave); the rows of `resid`
 // and `w` hold `Ls` >= L floats; `scratch` holds
-// mh_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats.  Returns a
-// cudaError_t (0 on success), checked right after the launch.
+// mh_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats;
+// `positivity` as in mh_sweep_launch.  Returns a cudaError_t (0 on success),
+// checked right after the launch.
 int tiled_mh_launch(float* resid, const float* w, const float* quad,
                     float* clean, float* log_scale, const float* valid,
                     const float* spec, const float* imgs, const float* lsf,
@@ -138,8 +139,8 @@ int tiled_mh_launch(float* resid, const float* w, const float* quad,
                     float* scratch, const int* wave_start,
                     const int* wave_tiles, int C, int L, int Ls, int f, int ny,
                     int nx, int S, int lw, int nyt, int nxt, int n_waves,
-                    int max_tiles, int stages, unsigned sweep, float adapt,
-                    float target, void* stream) {
+                    int max_tiles, int stages, int positivity, unsigned sweep,
+                    float adapt, float target, void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, nyt, nxt)) return e;
   if (const int e = check_schedule(wave_start, wave_tiles, n_waves, max_tiles))
@@ -150,14 +151,19 @@ int tiled_mh_launch(float* resid, const float* w, const float* quad,
            sweep, adapt, target};
   const long long spaxels = static_cast<long long>(C) * max_tiles * nyt * nxt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return S == 1 ? launch_mh(tiled_mh_kernel<1>, &a, spaxels, st)
-                : launch_mh(tiled_mh_kernel<kMaxRank>, &a, spaxels, st);
+  return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
+    return launch_mh(
+        tiled_mh_kernel<decltype(rank)::value, decltype(pos)::value>, &a,
+        spaxels, st);
+  });
 }
 
 // Launch one tiled exact-Gibbs sweep of C chains, as tiled_mh_launch;
 // `lam_b` wavelengths per slab of phase (b); `scratch` holds
-// gibbs_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats.
-// Returns a cudaError_t (0 on success).
+// gibbs_sweep_scratch_floats(L, C * max_tiles * nyt * nxt,
+// positivity) floats;
+// `positivity` as in gibbs_sweep_launch.  Returns a cudaError_t (0 on
+// success).
 int tiled_gibbs_launch(float* resid, const float* w, const float* quad,
                        const float* quad_lo, const float* qvox, float* clean,
                        const float* valid, const float* spec,
@@ -167,9 +173,8 @@ int tiled_gibbs_launch(float* resid, const float* w, const float* quad,
                        float* scratch, const int* wave_start,
                        const int* wave_tiles, int C, int L, int Ls, int f,
                        int ny, int nx, int S, int lw, int nyt, int nxt, int n_waves,
-                       int max_tiles, int stages, int lam_b,
-                       unsigned sweep,
-                       void* stream) {
+                       int max_tiles, int stages, int lam_b, int positivity,
+                       unsigned sweep, void* stream) {
   using namespace deconv3d;
   if (const int e = check_dims(C, L, f, ny, nx, S, lw, nyt, nxt)) return e;
   if (const int e = check_schedule(wave_start, wave_tiles, n_waves, max_tiles))
@@ -179,8 +184,11 @@ int tiled_gibbs_launch(float* resid, const float* w, const float* quad,
               wave_start, wave_tiles, C, L, Ls, f, ny, nx, S, lw, nyt, nxt,
               n_waves, stages, lam_b, C * max_tiles * nyt * nxt, sweep};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return S == 1 ? launch_gibbs(tiled_gibbs_kernel<1>, &a, st)
-                : launch_gibbs(tiled_gibbs_kernel<kMaxRank>, &a, st);
+  return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
+    return launch_gibbs(
+        tiled_gibbs_kernel<decltype(rank)::value, decltype(pos)::value>, &a,
+        pos, st);
+  });
 }
 
 }  // extern "C"

@@ -21,11 +21,12 @@ from .cube import torch_dtype
 _PROBLEM_INTS = ("L", "Y", "X", "f", "ny", "nx")
 _PROBLEM_TENSORS = (
     "fsf", "lsf", "data_pad", "w_pad", "quad", "valid", "monitor_idx",
-    "fsf_spec", "fsf_imgs", "qvox", "quad_lo",
+    "fsf_spec", "fsf_imgs", "qvox", "quad_lo", "chol",
 )
-#: leaves that may be None (``qvox`` and ``quad_lo`` exist for
-#: ``sampler='gibbs'`` only; the JAX package has no ``quad_lo``)
-_OPTIONAL = ("qvox", "quad_lo")
+#: leaves that may be None (``qvox`` exists for ``sampler='gibbs'``,
+#: ``quad_lo`` for ``'gibbs'`` and ``'gibbs_block'`` — the JAX package has
+#: none — and ``chol`` for ``'gibbs_block'``)
+_OPTIONAL = ("qvox", "quad_lo", "chol")
 
 
 def untiled_layout(qt: np.ndarray, ny: int, nx: int, f: int, tile,

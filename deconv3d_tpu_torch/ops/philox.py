@@ -18,7 +18,9 @@ Counter layout of the MH sweep (one 4-word block per counter):
 word ``λ & 3`` of the block is the jump uniform of wavelength λ (stream 0);
 word 0 of the stream-1 block at λ = 0 is the accept uniform.  The exact-Gibbs
 sweep draws its Box-Muller pair (u1, u2) of every (color, spaxel, λ) from
-streams 2 and 3 in the same layout.
+streams 2 and 3 in the same layout (with positivity the same pair feeds the
+truncated-normal transform, ``ops/truncnorm.py``), the ``gibbs_block``
+sweep its pair from streams 7 and 8.
 
 The coarse pattern passes (``ops/coarse.py``), which run after the sweeps
 of absolute sweep ``s`` (a multiple of ``coarse_every``), key their draws
@@ -59,6 +61,9 @@ STREAM_NORMAL_U2 = 3
 STREAM_PASS_U1 = 4
 STREAM_PASS_U2 = 5
 STREAM_PASS_ACCEPT = 6
+#: stream ids of the gibbs_block sweep's Box-Muller pairs
+STREAM_BLOCK_U1 = 7
+STREAM_BLOCK_U2 = 8
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -155,15 +160,25 @@ def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
 
 
 def gibbs_sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int,
-                         L: int, device=None) -> torch.Tensor:
+                         L: int, device=None,
+                         streams=(STREAM_NORMAL_U1, STREAM_NORMAL_U2)
+                         ) -> torch.Tensor:
     """The Box-Muller pairs of one exact-Gibbs sweep: ``[n_colors, nij, 2,
     L]`` float32, ``[:, :, 0]`` = u1 (stream 2), ``[:, :, 1]`` = u2 (stream
     3).  The normal of voxel λ is ``sqrt(−2 log u1) · cos(2π u2)``; u1 is
     never 0, so ``log u1`` is finite."""
     return torch.stack([
         _lambda_uniforms(key, sweep, n_colors, nij, L, stream, device)
-        for stream in (STREAM_NORMAL_U1, STREAM_NORMAL_U2)
+        for stream in streams
     ], dim=2)
+
+
+def block_sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int,
+                         L: int, device=None) -> torch.Tensor:
+    """The Box-Muller pairs of one ``gibbs_block`` sweep, as
+    :func:`gibbs_sweep_uniforms` from streams 7 and 8."""
+    return gibbs_sweep_uniforms(key, sweep, n_colors, nij, L, device,
+                                (STREAM_BLOCK_U1, STREAM_BLOCK_U2))
 
 
 def pass_slot(entry: int, j: int) -> int:

@@ -62,11 +62,12 @@ def window_margins(lw: int) -> Tuple[int, int]:
 
 
 def smem_bytes(mode: str, C: int, f: int, ny: int, nx: int, L: int, S: int,
-               lw: int, lam_b: int) -> int:
+               lw: int, lam_b: int, positivity: bool = False) -> int:
     """Dynamic shared memory of one resident block (the layout of
     ``csrc/resident_sweep.cu::resident_layout``): the slabs of resid (C
     chains), weights, clean (C chains) and, for MH, quad, plus one color's
-    working set."""
+    working set; with ``positivity`` the gibbs window keeps two arrays
+    more (the second uniforms and the starting clean)."""
     nw = min(f, _MAX_WARPS)
     nij = ny * nx
     cs = C * nij                           # (chain, spaxel) of a color
@@ -92,13 +93,14 @@ def smem_bytes(mode: str, C: int, f: int, ny: int, nx: int, L: int, S: int,
         wd = min(L, lam_b + lo + hi)
         n += (wd * lw                      # LSF rows of the window
               + 5 * cs * wd                # lin, quad, qvox, jumps, gacc
+              + 2 * cs * wd * positivity   # u2, starting clean
               + 3 * nw)                    # the tail's warp sums
     return 4 * n
 
 
 def plan_slabs(C: int, f: int, ny: int, nx: int, L: int, S: int, lw: int,
                mode: str, n_sm: int = H100_SMS,
-               smem_optin: int = H100_SMEM_OPTIN
+               smem_optin: int = H100_SMEM_OPTIN, positivity: bool = False
                ) -> Optional[Tuple[int, int]]:
     """(λ_b, blocks): the slab width and block count of the resident
     kernel on a card of ``n_sm`` SMs and ``smem_optin`` bytes of shared
@@ -110,7 +112,8 @@ def plan_slabs(C: int, f: int, ny: int, nx: int, L: int, S: int, lw: int,
     if not 1 <= S <= 8 or lw < 1 or lw % 2 == 0:
         return None
     lam_b = -(-L // n_sm)
-    if smem_bytes(mode, C, f, ny, nx, L, S, lw, lam_b) > smem_optin:
+    if smem_bytes(mode, C, f, ny, nx, L, S, lw, lam_b,
+                  positivity) > smem_optin:
         return None
     return lam_b, -(-L // lam_b)
 
@@ -133,12 +136,14 @@ def sweep_kernel(tile, classic: bool, plan) -> str:
 def windowed_phases_reference(lin0: torch.Tensor, q: torch.Tensor,
                               qv: torch.Tensor, normal: torch.Tensor,
                               live: torch.Tensor, lsf: torch.Tensor, a: int,
-                              b: int, margins: Optional[Tuple[int, int]] = None):
+                              b: int, margins: Optional[Tuple[int, int]] = None,
+                              clean0: Optional[torch.Tensor] = None):
     """The gibbs λ-phases as a resident block runs them for its slab
     [a, b): the full-spectrum loop (``ops.sweep.gibbs_phases``) over the
     window [a − left, b + right) ∩ [0, L) alone.  Returns (gacc, emitted)
     of the slab; with the default ``margins`` (:func:`window_margins`) they
-    equal the full loop's bit for bit."""
+    equal the full loop's bit for bit.  ``clean0`` (positivity) and
+    ``normal`` as in ``gibbs_phases``."""
     from .sweep import gibbs_phases
 
     L, lw = lsf.shape
@@ -146,5 +151,6 @@ def windowed_phases_reference(lin0: torch.Tensor, q: torch.Tensor,
     lo, hi = max(0, a - left), min(L, b + right)
     gacc, emitted = gibbs_phases(
         lin0[..., lo:hi], q[..., lo:hi], qv[..., lo:hi], normal[..., lo:hi],
-        live[..., lo:hi], lsf[lo:hi], lam0=lo)
+        live[..., lo:hi], lsf[lo:hi], lam0=lo,
+        clean0=None if clean0 is None else clean0[..., lo:hi])
     return gacc[..., a - lo:b - lo], emitted[..., a - lo:b - lo]

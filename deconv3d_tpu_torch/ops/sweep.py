@@ -47,8 +47,9 @@ from typing import List, Optional, Tuple
 import torch
 
 from .. import chains as ch
+from .. import convolve as cv
 from .. import sampler as sm
-from . import philox, resident
+from . import banded, philox, resident, truncnorm
 
 
 @dataclasses.dataclass
@@ -105,6 +106,13 @@ class _SweepState:
     # ops/resident.py sweep_kernel) and the resident kernel's (λ_b, blocks)
     kernel: str = "classic"
     plan: Optional[Tuple[int, int]] = None
+    # config.positivity: MH reflects each proposal into the positive
+    # orthant, gibbs draws each voxel from its truncated conditional
+    positivity: bool = False
+    # [f², C, ny, nx, L, lw] every color's banded Cholesky factors, one
+    # copy per chain, and [L, L] the dense LSF matrix (gibbs_block)
+    chol: Optional[torch.Tensor] = None
+    band: Optional[torch.Tensor] = None
 
     @property
     def C(self) -> int:
@@ -249,6 +257,11 @@ def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
             uc = _at_rows(k, u[:, c], by0, bx0)
             draw = torch.clamp(torch.tan(pi * (uc[..., :L] - 0.5)), -1e3, 1e3)
             jumps = torch.exp(ls)[..., None] * draw * v[..., None]
+            if k.positivity:
+                # reflective proposal c' = |c + J|: its folded density is
+                # symmetric, so the Metropolis ratio needs no correction
+                cur = _at(k, k.clean, cy, cx, by0, bx0)
+                jumps = torch.abs(cur + jumps) - cur
             g = _lsf_band(jumps, k.lsf)
             dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)        # [C,nyt,nxt]
             accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
@@ -259,15 +272,33 @@ def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
             _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
 
 
+def truncated_jump(linT: torch.Tensor, qs: torch.Tensor, cur: torch.Tensor,
+                   u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """A voxel's positivity draw as a jump from its current value ``cur``:
+    c' ~ N(μ, σ²) truncated to c' ≥ 0, μ = cur + linT/qs, σ = qs^−½, from
+    the uniform pair (u1, u2) (``ops/truncnorm.py``).  c' is clamped at 0,
+    where float32 rounding of μ + σ·z can land a hair below it, so the
+    chain never leaves the orthant (``csrc/gibbs_step.cuh``
+    ``truncated_jump`` computes the same)."""
+    sig = torch.rsqrt(qs)
+    mu = cur + linT / qs
+    z = truncnorm.transform_uniforms(-mu / sig, u1, u2)
+    return torch.clamp(mu + sig * z, min=0.0) - cur
+
+
 def gibbs_phases(lin0: torch.Tensor, q: torch.Tensor, qv: torch.Tensor,
                  normal: torch.Tensor, live: torch.Tensor, lsf: torch.Tensor,
-                 lam0: int = 0):
+                 lam0: int = 0, clean0: Optional[torch.Tensor] = None):
     """The ``lw`` λ-phases of one gibbs step over the wavelengths
     ``lam0 .. lam0 + n − 1`` (the last axis of every tensor; ``lsf`` holds
     their rows): phase ph draws the live voxels λ ≡ ph (mod lw) from
     N(linT/qvox, 1/qvox) and updates lin ← lin − g·quad.  Wavelengths
-    outside the range count as absent, as outside the spectrum.  Returns
-    (gacc, emitted): the summed g and the drawn jumps."""
+    outside the range count as absent, as outside the spectrum.  With
+    ``clean0``, the step's starting clean (positivity), ``normal`` holds
+    the uniform pairs ``[..., 2, n]`` instead and each draw is
+    :func:`truncated_jump` (a voxel's clean is ``clean0`` until its own
+    phase draws it).  Returns (gacc, emitted): the summed g and the drawn
+    jumps."""
     n, lw = lsf.shape
     phase = (lam0 + torch.arange(n, device=lin0.device)) % lw
     qs = torch.clamp(qv, min=1e-30)
@@ -276,7 +307,13 @@ def gibbs_phases(lin0: torch.Tensor, q: torch.Tensor, qv: torch.Tensor,
     emitted = torch.zeros_like(lin)
     for ph in range(lw):
         sel = live * (phase == ph).to(lin0.dtype)
-        jumps = sel * (_lsf_band_T(lin, lsf) / qs + normal * torch.rsqrt(qs))
+        if clean0 is None:
+            jumps = sel * (_lsf_band_T(lin, lsf) / qs
+                           + normal * torch.rsqrt(qs))
+        else:
+            tj = truncated_jump(_lsf_band_T(lin, lsf), qs, clean0,
+                                normal[..., 0, :], normal[..., 1, :])
+            jumps = torch.where(sel > 0, tj, torch.zeros_like(tj))
         g = _lsf_band(jumps, lsf)
         lin = lin - g * q
         gacc = gacc + g
@@ -287,15 +324,18 @@ def gibbs_phases(lin0: torch.Tensor, q: torch.Tensor, qv: torch.Tensor,
 def slab_phases_reference(lin0: torch.Tensor, q: torch.Tensor,
                           qv: torch.Tensor, normal: torch.Tensor,
                           live: torch.Tensor, lsf: torch.Tensor, lam_b: int,
-                          margins: Optional[Tuple[int, int]] = None):
+                          margins: Optional[Tuple[int, int]] = None,
+                          clean0: Optional[torch.Tensor] = None):
     """The λ-phases as the kernels' phase (b) runs them (``csrc/
     gibbs_step.cuh``): slab by slab of ``lam_b`` wavelengths, each over its
     own window alone (``ops.resident.windowed_phases_reference``), the
     slabs' results side by side.  With the default ``margins`` it returns
-    :func:`gibbs_phases`' (gacc, emitted) bit for bit for any ``lam_b``."""
+    :func:`gibbs_phases`' (gacc, emitted) bit for bit for any ``lam_b``,
+    with positivity (``clean0``) or without."""
     L = lsf.shape[0]
     parts = [resident.windowed_phases_reference(
-        lin0, q, qv, normal, live, lsf, a, min(L, a + lam_b), margins)
+        lin0, q, qv, normal, live, lsf, a, min(L, a + lam_b), margins,
+        clean0=clean0)
         for a in range(0, L, lam_b)]
     return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
 
@@ -303,8 +343,8 @@ def slab_phases_reference(lin0: torch.Tensor, q: torch.Tensor,
 def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
                        live_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
     """One exact-Gibbs sweep with the Box-Muller pairs ``u`` ``[C, n_colors,
-    nij, 2, L]``, in the step order of :func:`_mh_sweep_torch`; updates
-    ``k`` in place.
+    nij, 2, L]`` (with positivity the pairs of :func:`truncated_jump`), in
+    the step order of :func:`_mh_sweep_torch`; updates ``k`` in place.
 
     Per step: lin once from the residual, then the ``lw`` λ-phases, each
     drawing the voxels λ ≡ phase (mod lw) from N(linT/qvox, 1/qvox) and
@@ -325,10 +365,16 @@ def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
             q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
             qv = _at(k, k.qvox[None], cy, cx, by0, bx0)[0]
             uc = _at_rows(k, u[:, c], by0, bx0)                   # [C,..,2,L]
-            normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) * torch.cos(
-                two_pi * uc[..., 1, :])
             live_all = v[..., None] * (qv > 0).to(dt)             # [.., L]
-            gacc, emitted = gibbs_phases(lin0, q, qv, normal, live_all, k.lsf)
+            if k.positivity:
+                gacc, emitted = gibbs_phases(
+                    lin0, q, qv, uc, live_all, k.lsf,
+                    clean0=_at(k, k.clean, cy, cx, by0, bx0))
+            else:
+                normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) \
+                    * torch.cos(two_pi * uc[..., 1, :])
+                gacc, emitted = gibbs_phases(lin0, q, qv, normal, live_all,
+                                             k.lsf)
             dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)
             if k.quad_lo is not None:
                 qlo = _at(k, k.quad_lo[None], cy, cx, by0, bx0)[0]
@@ -337,6 +383,52 @@ def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
             _at(k, k.clean, cy, cx, by0, bx0)[...] += emitted
             _at_rows(k, live_out[:, c], by0, bx0)[...] = live_all.sum(dim=-1)
             _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
+
+
+def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
+                 dchi_out: torch.Tensor, sample) -> None:
+    """One ``gibbs_block`` sweep with the Box-Muller pairs ``u`` ``[C,
+    n_colors, nij, 2, L]``; updates ``k`` in place (the JAX package's
+    ``_make_block_gibbs_step``).
+
+    Per color: lin from the residual, linT = Mᵀ lin, and every (chain,
+    spaxel)'s spectrum jump drawn at once from its exact conditional
+    N(A⁻¹ linT, A⁻¹), A = RᵀR, by ``sample(R, linT, noise)`` — the banded
+    draw kernel (``ops.banded.sample_conditional``, one launch for the
+    color) or its plain loop; then g = M·jump, Δχ² (with its quad_lo part,
+    as exact Gibbs sums it), the residual commit and clean += jump.  The
+    LSF products are matmuls with the dense LSF matrix M of
+    ``convolve.lsf_matrix`` (``k.band``; ``v @ M`` is :func:`_lsf_band_T`,
+    ``v @ M.T`` :func:`_lsf_band`): one launch where the band loops take
+    2·lw, since the step's launches, not its draw, take most of a color's
+    time on the card; the matmul does L/lw times the band's flops, which
+    costs nothing at L = 600.  ``k.chol`` holds the factors once per chain
+    (made once per segment).  The voxels drawn are valid·L, as the JAX
+    package counts them.
+    """
+    f, C, L = k.f, k.C, k.spec.shape[1]
+    noise = (torch.sqrt(-2.0 * torch.log(u[..., 0, :])) * torch.cos(
+        (2.0 * math.pi) * u[..., 1, :])).transpose(0, 1).contiguous()
+    # noise: [f², C, nij, L]
+    with cv.no_tf32():
+        for c in range(f * f):
+            cy, cx = divmod(c, f)
+            rblk, lin = _color_lin(k, cy, cx, 0, 0)           # [C,ny,nx,L]
+            v = _at(k, k.valid[None], cy, cx, 0, 0)[0]        # [ny,nx]
+            q = _at(k, k.quad[None], cy, cx, 0, 0)[0]         # [ny,nx,L]
+            draw = sample(k.chol[c], (lin @ k.band).contiguous(),
+                          noise[c].view(C, k.ny, k.nx, L))
+            # masked spaxels have sqrt(EPS) pivots: their draws are discarded
+            jumps = torch.where(v[..., None] > 0, draw, torch.zeros_like(draw))
+            g = jumps @ k.band.T
+            dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)    # [C,ny,nx]
+            if k.quad_lo is not None:
+                qlo = _at(k, k.quad_lo[None], cy, cx, 0, 0)[0]
+                dchi = dchi + (g * g * qlo).sum(dim=-1)
+            _commit(k, rblk, g)
+            _at(k, k.clean, cy, cx, 0, 0)[...] += jumps
+            live_out[:, c] = (v * L).reshape(1, -1)
+            dchi_out[:, c] = dchi.reshape(C, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -402,11 +494,12 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     if k.kernel == "resident":
         n_scratch = getattr(lib, f"resident_{mode}_scratch_floats")(
             C, L, f, ny, nx)
-        dims = (C, L, f, ny, nx, S, lw, k.plan[0])
+        dims = (C, L, f, ny, nx, S, lw, k.plan[0], int(k.positivity))
     else:
-        scratch_floats = (lib.mh_sweep_scratch_floats if mode == "mh"
-                          else lib.gibbs_sweep_scratch_floats)
-        n_scratch = scratch_floats(L, k.max_spaxels)       # the largest step's
+        n_scratch = (                                      # the largest step's
+            lib.mh_sweep_scratch_floats(L, k.max_spaxels) if mode == "mh"
+            else lib.gibbs_sweep_scratch_floats(L, k.max_spaxels,
+                                                int(k.positivity)))
         extra = (k.stages,)
         if k.tile is not None:
             waves = k.schedule()
@@ -422,7 +515,7 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
                 L, k.max_spaxels,
                 torch.cuda.get_device_properties(dev).multi_processor_count)
             extra = (*extra, lam_b)
-        dims = (C, L, Ls, f, ny, nx, S, lw, *extra)
+        dims = (C, L, Ls, f, ny, nx, S, lw, *extra, int(k.positivity))
     if k.scratch is None or k.scratch.numel() < n_scratch:
         k.scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     return lib, pointers, dims
@@ -553,7 +646,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     f, ny, nx, L = p.f, p.ny, p.nx, p.L
     C = states.clean.shape[0]
     n_colors, nij = p.n_colors, ny * nx
-    per = (L + 1,) if mode == "mh" else (2, L)
+    per = (L + 1,) if mode == "mh" else (2, L)      # gibbs, gibbs_block
     if uniforms is not None and tuple(uniforms.shape) != (
         n_sweeps, C, n_colors, nij, *per
     ):
@@ -571,26 +664,33 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     if mode == "gibbs" and p.qvox is None:
         raise ValueError("a gibbs segment needs problem.qvox "
                          "(make_problem with sampler='gibbs')")
+    if mode == "gibbs_block" and p.chol is None:
+        raise ValueError("a gibbs_block segment needs problem.chol "
+                         "(make_problem with sampler='gibbs_block')")
     # the kernels are float32-only (_check_cuda); the plain versions run in
     # the problem's dtype, float64 included
     dt, f32 = p.data_pad.dtype, torch.float32
     plan, kernel = None, "classic"
-    if counter is not None:
+    if mode == "gibbs_block":
+        kernel = "block"                 # torch ops and the banded kernels
+    elif counter is not None:
         if tile is None and not classic:
             plan = resident.plan_slabs(C, f, ny, nx, L, p.fsf_spec.shape[0],
                                        int(p.lsf.shape[1]), mode,
-                                       *resident.device_limits(dev))
+                                       *resident.device_limits(dev),
+                                       positivity=bool(cfg.positivity))
         kernel = resident.sweep_kernel(tile, classic, plan)
     # classic K1 and the tiled kernel read padded rows (_SweepState)
     rows = (_lambda_last_padded
-            if counter is not None and kernel != "resident" else _lambda_last)
+            if counter is not None and kernel in ("classic", "tiled")
+            else _lambda_last)
     k = _SweepState(
         resid=rows(states.resid.to(dt)),
         w=rows(p.w_pad),
         quad=_lambda_last(p.quad),
         qvox=_lambda_last(p.qvox) if mode == "gibbs" else None,
         quad_lo=(_lambda_last(p.quad_lo)
-                 if mode == "gibbs" and p.quad_lo is not None else None),
+                 if mode != "mh" and p.quad_lo is not None else None),
         clean=_lambda_last(states.clean.to(dt)),
         log_scale=states.log_scale.to(dt).clone(),
         valid=p.valid.to(dt).contiguous(),
@@ -600,6 +700,13 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
         target=float(cfg.target_acceptance), tile=tile, waves=waves,
         stages=stages, lam_b=lam_b, kernel=kernel, plan=plan,
+        positivity=bool(cfg.positivity),
+        chol=None if mode != "gibbs_block" else p.chol.view(
+            ny, f, nx, f, L, -1).permute(1, 3, 0, 2, 4, 5).reshape(
+            n_colors, 1, ny, nx, L, -1).to(dt).expand(
+            -1, C, -1, -1, -1, -1).contiguous(),
+        band=None if mode != "gibbs_block" else torch.as_tensor(
+            cv.lsf_matrix(p.lsf.cpu().numpy()), dtype=dt, device=dev),
     )
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
     adapt = sm.adapt_schedule(ids, cfg).tolist()
@@ -623,7 +730,11 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         torch.empty((n_sweeps, C, n_colors, nij, *per), dtype=dt, device=dev)
         if record_uniforms else None
     )
-    draws = philox.sweep_uniforms if mode == "mh" else philox.gibbs_sweep_uniforms
+    draws = {"mh": philox.sweep_uniforms, "gibbs": philox.gibbs_sweep_uniforms,
+             "gibbs_block": philox.block_sweep_uniforms}[mode]
+    # gibbs_block's per-color draw: the banded kernel, or its plain loop
+    sample = (banded.sample_conditional if counter is not None
+              else banded.sample_conditional_reference)
     chi2_t, flux_t, mon_tr = [], [], []
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
@@ -631,7 +742,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         if counter is not None and mode == "mh":
             _mh_sweep_cuda(k, sweep0 + s, adapt[s], u, accept[s], dchi[s],
                            u_out, counter)
-        elif counter is not None:
+        elif counter is not None and mode == "gibbs":
             _gibbs_sweep_cuda(k, sweep0 + s, u, accept[s], dchi[s], u_out,
                               counter)
         else:
@@ -644,8 +755,10 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                 u_out.copy_(u)
             if mode == "mh":
                 _mh_sweep_torch(k, adapt[s], u, accept[s], dchi[s])
-            else:
+            elif mode == "gibbs":
                 _gibbs_sweep_torch(k, u, accept[s], dchi[s])
+            else:
+                _block_sweep(k, u, accept[s], dchi[s], sample)
         # committed Δχ² summed in a fixed order, then the Kahan update
         committed = dchi[s].double()
         if mode == "mh":
@@ -666,7 +779,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     n_valid = float(p.valid.sum())
     acc_sweep = accept.sum(dim=(2, 3)).T                        # [C, n_sweeps]
     n_acc = acc_sweep.sum(dim=1).to(f32)
-    if mode == "gibbs":
+    if mode != "mh":
         # proposals == exact draws == accepted voxels
         n_prop = n_acc
         acc_trace = torch.ones_like(acc_sweep)
@@ -786,6 +899,35 @@ def gibbs_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
 
 gibbs_segment.launches = 0
 gibbs_segment.resident_launches = 0
+
+
+def gibbs_block_segment_reference(problem: sm.Problem,
+                                  state: sm.SamplerState, n_sweeps: int,
+                                  uniforms: Optional[torch.Tensor] = None,
+                                  record_uniforms: bool = False) -> Segment:
+    """``n_sweeps`` ``gibbs_block`` sweeps in plain torch, the per-color
+    draw on the plain banded loops (``ops.banded.
+    sample_conditional_reference``), on whatever device the problem lives
+    on.  ``uniforms`` ``[n_sweeps, (C,) n_colors, nij, 2, L]`` (the
+    Box-Muller pairs) replaces the Philox draws."""
+    return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
+                        mode="gibbs_block")
+
+
+def gibbs_block_segment(problem: sm.Problem, state: sm.SamplerState,
+                        n_sweeps: int,
+                        uniforms: Optional[torch.Tensor] = None,
+                        record_uniforms: bool = False) -> Segment:
+    """``n_sweeps`` ``gibbs_block`` sweeps.  On a CUDA device each color's
+    draw is one launch of ``banded_sample_kernel`` (``csrc/banded.cu``)
+    for every (chain, spaxel) of the color, counted by
+    ``ops.banded.sample_conditional.launches`` (f² per sweep); lin, linT,
+    Δχ² and the commits are torch ops, as the JAX package computes them in
+    jnp.  Only for tensors on the CPU does the draw run the plain loops."""
+    use = _use_kernel(problem, state, "gibbs_block_segment")
+    return _run_segment(problem, state, n_sweeps, uniforms, record_uniforms,
+                        mode="gibbs_block",
+                        counter=gibbs_block_segment if use else None)
 
 
 #: injected accept decisions closer than this to their threshold

@@ -10,9 +10,11 @@ Counterpart of ``deconv3d_tpu/run.py`` for the single-device path:
 ``max_iterations`` counts full sweeps (all spaxels), not single spaxel
 visits.  The run lives on ``device`` (default: the first CUDA device when
 there is one, else the CPU); on a CUDA device every sweep goes through a
-hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``), one launch
-per sweep for all ``n_chains`` chains: the whole-cube kernel, or on a
-field whose residual and weights exceed the 1 GiB window budget
+hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``, with or
+without ``positivity``), one launch per sweep for all ``n_chains`` chains
+(``'gibbs_block'``: one launch of the banded draw kernel per color): the
+whole-cube kernel, or on a field whose residual and weights exceed the
+1 GiB window budget
 (``ops/tiled.py::WINDOW_BUDGET_BYTES``; a full MUSE field) the tiled one
 (``engine``, ``tile``: ``sampler.resolve_engine``; the resolved engine is
 ``config.engine`` and in ``diagnostics()``).  As in the JAX package, MH on
@@ -294,7 +296,7 @@ class Run:
             if not self.config.coarse_every:
                 hints.append("coarse_every=8 (global pattern passes)")
             if self.config.sampler == "mh":
-                hints.append("sampler='gibbs'")
+                hints.append("sampler='gibbs' or 'gibbs_block'")
             hints.append("a longer run")
             logger.warning(
                 "post-burn-in monitor-voxel ESS is %.1f over %d kept "
@@ -361,8 +363,9 @@ class Run:
                 logger.warning(
                     "run_until hit max_sweeps=%d without converging: %s — "
                     "raise max_sweeps or loosen the criteria; if the FSF "
-                    "blur is heavy, coarse_every=8 attacks exactly the "
-                    "slow-mixing modes", max_sweeps, d,
+                    "blur is heavy, sampler='gibbs_block' and/or "
+                    "coarse_every=8 attack exactly the slow-mixing modes",
+                    max_sweeps, d,
                 )
                 return d
             self.run(min(check_every, remaining))

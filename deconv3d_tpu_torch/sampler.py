@@ -1,8 +1,8 @@
 """MH-within-Gibbs sampler core on torch — color-decomposed sweeps.
 
-PyTorch counterpart of ``deconv3d_tpu/sampler.py`` for ``sampler='mh'``
-and ``sampler='gibbs'``, with any number of chains per kernel launch.  The
-scheme is the JAX package's:
+PyTorch counterpart of ``deconv3d_tpu/sampler.py`` for ``sampler='mh'``,
+``'gibbs'`` and ``'gibbs_block'``, with any number of chains per kernel
+launch.  The scheme is the JAX package's:
 
   * The FSF footprint is ``f×f`` (odd).  Spaxels whose (y, x) offsets are
     both multiples of ``f`` have disjoint likelihood patches, so their
@@ -15,7 +15,13 @@ scheme is the JAX package's:
   * ``'mh'`` proposes a Cauchy jump of each spaxel's whole spectrum;
     ``'gibbs'`` draws every voxel from its exact Gaussian conditional
     (precision ``qvox``), the wavelengths of one spaxel in ``lw`` phases
-    (voxels ``lw`` apart have disjoint LSF footprints).
+    (voxels ``lw`` apart have disjoint LSF footprints); ``'gibbs_block'``
+    draws every spaxel's whole spectrum from its exact conditional through
+    the banded Cholesky factor of its precision (``Problem.chol``,
+    ``ops/banded.py``).
+  * ``positivity=True`` (``'mh'``, ``'gibbs'``) restricts the posterior to
+    clean ≥ 0: MH reflects each proposal, c' = |c + J|, gibbs draws each
+    voxel from its one-sided truncated normal (``ops/truncnorm.py``).
   * With ``coarse_every`` set (``Run`` sets 8 for MH on large blurred
     fields), a coarse pattern pass (``ops/coarse.py``) follows every
     ``coarse_every``-th absolute sweep (:func:`coarse_interleave`).
@@ -24,10 +30,14 @@ Every engine builds the *kernel-engine problem* of the JAX package: weights
 rounded to bfloat16 values before ``quad`` and χ², and the FSF replaced by
 its low-rank reconstruction Σ_s spec_s ⊗ img_s.  The engine follows the
 device: on a CUDA device every sweep runs a hand-written kernel, on the
-CPU its plain torch version.  Two scans of the spaxels, each an engine
-per device: the whole-cube one (colors over the whole field; ``'cuda'``,
-``csrc/mh_sweep.cu`` / ``csrc/gibbs_sweep.cu``, and ``'torch'``,
-``ops/sweep.py``) and the tiled one for fields whose residual and weights
+CPU its plain torch version.  With positivity that is the w̃-weighted
+posterior truncated to clean ≥ 0 — the JAX package runs positivity on its
+jnp engine, whose exact weights and full FSF give the exact-weight one.
+Two scans of the spaxels, each an engine per device: the whole-cube one
+(colors over the whole field; ``'cuda'``, ``csrc/mh_sweep.cu`` /
+``csrc/gibbs_sweep.cu``, and ``'torch'``, ``ops/sweep.py``;
+``'gibbs_block'`` runs only here, its per-color draw on
+``csrc/banded.cu``) and the tiled one for fields whose residual and weights
 exceed the 1 GiB window budget (``ops/tiled.py::WINDOW_BUDGET_BYTES``;
 tiles in wavefront order, all colors per tile; ``'cuda_tiled'``,
 ``csrc/tiled_sweep.cu``, and ``'torch_tiled'``, ``ops/tiled.py``).  All
@@ -52,8 +62,7 @@ from .instruments import Instrument
 
 #: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
 _NOT_PORTED = {
-    "sampler": "Queue 1 item 10 (gibbs_block), 14 (direct)",
-    "positivity": "Queue 1 item 9 (positivity)",
+    "sampler": "Queue 1 item 14 (direct)",
     "prior_precision": "Queue 1 item 14 (direct sampler, MAP)",
     "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
     "mesh": "Queue 1 item 16 (torch.distributed)",
@@ -94,6 +103,8 @@ class RunConfig:
     ``chi2_rebaseline_every``: None → 8 for gibbs with more than 2**28 B
     of clean cube, else 0 (off); an int works on every engine
     (:func:`rebaseline_interleave`).
+    ``positivity``: clean ≥ 0 (``'mh'``, ``'gibbs'``; not with
+    ``coarse_every`` or ``'gibbs_block'``).
     """
 
     max_iterations: int = 1000
@@ -188,6 +199,9 @@ class Problem:
     # [L, Yc, Xc] float64 quad − quad, the rounding's remainder (gibbs;
     # None counts as zero)
     quad_lo: Optional[torch.Tensor] = None
+    # [Yc, Xc, L, lw] upper banded Cholesky factor of every spaxel's
+    # spectrum precision Mᵀ diag(quad) M (gibbs_block)
+    chol: Optional[torch.Tensor] = None
     config: RunConfig = RunConfig()
 
     @property
@@ -276,23 +290,38 @@ def _quad_conv(w_pad: torch.Tensor, fsf: torch.Tensor) -> torch.Tensor:
 #: the sweep engines: (whole-cube, tiled) on a CUDA device and elsewhere
 ENGINES = ("cuda", "cuda_tiled", "torch", "torch_tiled")
 
+#: the ported samplers; the tiled engines run the first two
+SAMPLERS = ("mh", "gibbs", "gibbs_block")
+
 #: clean-cube bytes above which the auto rule switches the χ² rebaseline on
 #: (the JAX package's big-field gate)
 REBASELINE_AUTO_BYTES = 2**28
 
 
 def _check_config(config: RunConfig) -> None:
+    """The JAX package's refusals (``deconv3d_tpu/sampler.py:395-411``, in
+    its order), then what the port has not reached yet."""
     from .ops.coarse import MODES
 
-    if config.sampler not in ("mh", "gibbs"):
-        raise not_ported("sampler", config.sampler)
+    if config.sampler == "gibbs_block" and config.positivity:
+        raise ValueError(
+            "gibbs_block draws whole spectra jointly; a positivity-"
+            "truncated multivariate conditional has no closed form — use "
+            "sampler='gibbs' (exact truncated-normal voxel draws) or 'mh'."
+        )
     if config.coarse_every and config.positivity:
         raise ValueError(
             "coarse_every adds one shared jump per block, which cannot "
             "respect per-voxel positivity — disable one of the two."
         )
-    if config.positivity:
-        raise not_ported("positivity", True)
+    if config.sampler == "direct" and config.positivity:
+        raise ValueError(
+            "sampler='direct' draws from the exact joint Gaussian; the "
+            "positivity-truncated joint has no closed form — use "
+            "sampler='gibbs' (exact truncated-normal voxel draws)."
+        )
+    if config.sampler not in SAMPLERS:
+        raise not_ported("sampler", config.sampler)
     if config.coarse_mode not in MODES:
         raise ValueError(
             f"coarse_mode must be one of {MODES}, got {config.coarse_mode!r}")
@@ -347,6 +376,10 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
     ms gibbs; PERF.md §6, ``python -m
     deconv3d_tpu_torch.tile_sweep``).  A tiled engine without
     ``config.tile`` plans one (:func:`ops.tiled.plan_tiles`).
+    ``'gibbs_block'`` stays on the whole-cube engine (its conditional
+    draws are batched over a color's spaxels); naming a tiled engine or a
+    tile for it raises, as the JAX package's ``pallas_tiled`` does
+    (``deconv3d_tpu/sampler.py:514-523``).
     """
     from .ops import tiled
 
@@ -355,11 +388,18 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
     if budget is None:
         budget = tiled.WINDOW_BUDGET_BYTES
     tile, engine = config.tile, config.engine
+    if config.sampler == "gibbs_block" and (engine == tiled_engine
+                                            or tile is not None):
+        raise ValueError(
+            f"engine '{tiled_engine}' and tile support sampler='mh' and "
+            f"'gibbs'; sampler='gibbs_block' runs on engine '{whole}'")
     if engine == "auto":
         Hp, Wp = f - 1 + ny * f, f - 1 + nx * f
         big = Hp * Wp * L * 8 > budget
-        if tile is not None or (device.type == "cuda" and big
-                                and tiled.plan_tiles(f, ny, nx, L, budget)):
+        if config.sampler == "gibbs_block":
+            engine = whole
+        elif tile is not None or (device.type == "cuda" and big
+                                  and tiled.plan_tiles(f, ny, nx, L, budget)):
             engine = tiled_engine
         else:
             engine = whole
@@ -390,6 +430,20 @@ def auto_rebaseline_every(sampler: str, clean_bytes: int) -> int:
     whole-cube kernels run them too (``engine='cuda'`` pinned), so the rule
     holds on every engine."""
     return 8 if sampler == "gibbs" and clean_bytes > REBASELINE_AUTO_BYTES else 0
+
+
+def block_factors(lsf: torch.Tensor, quad: torch.Tensor) -> torch.Tensor:
+    """``Problem.chol`` of ``sampler='gibbs_block'``: the upper banded
+    Cholesky factor ``[Yc, Xc, L, lw]`` of every spaxel's spectrum
+    precision Mᵀ diag(quad) M, ``quad`` ``[L, Yc, Xc]`` (the JAX package's
+    ``make_problem``, ``deconv3d_tpu/sampler.py:696-705``).  quad is
+    constant, so this runs once per problem, on a CUDA device as one
+    launch of ``csrc/banded.cu`` for all Yc·Xc systems; a sweep only
+    solves."""
+    from .ops import banded
+
+    return banded.cholesky_banded(banded.precision_bands(
+        lsf, quad.movedim(0, -1).contiguous()).contiguous())
 
 
 def make_problem(
@@ -485,14 +539,17 @@ def make_problem(
         )
 
     lsf = torch.as_tensor(lsf_np, dtype=dtype, device=device)
-    qvox = quad_lo = None
+    qvox = quad_lo = chol = None
     if config.sampler == "gibbs":
         # conditional precision of one voxel: Σ_μ M[μ,λ]² quad[μ], from the
         # bf16-valued-weight quad as the kernel engines build it
         from .ops.banded import precision_diag
 
         qvox = precision_diag(lsf, quad)
+    if config.sampler in ("gibbs", "gibbs_block"):
         quad_lo = (quad64 - quad.double()).to(dtype)
+    if config.sampler == "gibbs_block":
+        chol = block_factors(lsf, quad)
 
     return Problem(
         L=L, Y=Y, X=X, f=f, ny=ny, nx=nx,
@@ -507,6 +564,7 @@ def make_problem(
         fsf_imgs=fsf_imgs,
         qvox=qvox,
         quad_lo=quad_lo,
+        chol=chol,
         config=config,
     )
 
@@ -583,8 +641,11 @@ def run_sweeps(
     On a CUDA device every sweep is one kernel launch for the whole batch;
     on the CPU the kernel's plain torch version runs
     (``ops.sweep.mh_segment`` / ``gibbs_segment``, or on a tiled engine
-    ``ops.tiled.tiled_segment``).  Burn-in sweeps adapt the per-spaxel MH
-    jump scale and stay out of the posterior accumulators.
+    ``ops.tiled.tiled_segment``).  ``'gibbs_block'``
+    (``ops.sweep.gibbs_block_segment``) runs per color one launch of the
+    banded draw kernel for the whole batch, the rest in torch ops.  Burn-in
+    sweeps adapt the per-spaxel MH jump scale and stay out of the posterior
+    accumulators.
 
     With ``coarse_every`` set, a coarse pattern pass follows every
     ``coarse_every``-th absolute sweep (:func:`coarse_interleave`, the
@@ -616,8 +677,8 @@ def _engine_run_sweeps(problem: Problem, state: SamplerState,
         return tiled.tiled_segment(problem, state, n_sweeps).result
     from .ops import sweep as sw
 
-    gibbs = problem.config.sampler == "gibbs"
-    segment = sw.gibbs_segment if gibbs else sw.mh_segment
+    segment = {"mh": sw.mh_segment, "gibbs": sw.gibbs_segment,
+               "gibbs_block": sw.gibbs_block_segment}[problem.config.sampler]
     return segment(problem, state, n_sweeps).result
 
 

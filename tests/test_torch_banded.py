@@ -237,3 +237,43 @@ def test_banded_kernels_match_plain_on_card(L, lw, batch):
                                atol=SAMPLE_TOL * float(x_ref.abs().max()))
     assert (bd.cholesky_banded.launches - n0[0],
             bd.sample_conditional.launches - n0[1]) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_block_sweep_on_card_matches_cpu():
+    """``sampler='gibbs_block'`` on the card: the factors are one Cholesky
+    launch, every color's draw one banded draw launch (f² per sweep), and
+    the sweep matches the CPU's on the same problem and Philox draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the banded kernels have no CPU mode")
+    import deconv3d_tpu_torch as d3
+    from deconv3d_tpu_torch import instruments as ins
+    from deconv3d_tpu_torch import sampler as sm
+    from deconv3d_tpu_torch.ops import sweep as sw
+
+    gen = np.random.default_rng(2)
+    data = (0.1 * gen.standard_normal((16, 6, 6))).astype(np.float32)
+    data[8, 3, 3] += 5.0
+    cube = d3.Cube.from_data(data, variance=np.full_like(data, 0.01),
+                             crval=4750.0, cdelt=1.25)
+    inst = ins.Instrument(fsf=ins.GaussianFSF(fwhm=0.5),
+                          lsf=ins.GaussianLSF(fwhm=2.0), pixel_scale=0.2)
+    cfg = sm.RunConfig(fsf_size=5, lsf_width=5, sampler="gibbs_block",
+                       seed=4)
+    n_chol = bd.cholesky_banded.launches
+    p_gpu = sm.make_problem(cube.to("cuda"), inst, cfg)
+    assert bd.cholesky_banded.launches - n_chol == 1
+    p_cpu = sm.make_problem(cube, inst, cfg)
+    np.testing.assert_allclose(p_gpu.chol.cpu().numpy(), p_cpu.chol.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    n0 = bd.sample_conditional.launches
+    got = sw.gibbs_block_segment(p_gpu, sm.init_state(p_gpu), 2)
+    want = sw.gibbs_block_segment_reference(p_cpu, sm.init_state(p_cpu), 2)
+    assert bd.sample_conditional.launches - n0 == 2 * p_gpu.n_colors
+    for name in ("resid", "clean"):
+        w = getattr(want.result.state, name)
+        np.testing.assert_allclose(
+            getattr(got.result.state, name).cpu().numpy(), w.numpy(),
+            rtol=0, atol=1e-4 * float(w.abs().max()), err_msg=name)
+    np.testing.assert_allclose(float(got.result.state.chi2),
+                               float(want.result.state.chi2), rtol=1e-5)

@@ -140,8 +140,7 @@ def test_adapt_and_keep_schedules_match():
 @pytest.mark.parametrize(
     "knob, value",
     [
-        ("sampler", "gibbs_block"), ("sampler", "direct"),
-        ("positivity", True), ("prior_precision", 1e-3),
+        ("sampler", "direct"), ("prior_precision", 1e-3),
         ("lambda_chunk", 4),
     ],
 )

@@ -14,6 +14,8 @@ marked ``gpu`` decide inside their body whether there is a card; they run
 without JAX: ``pytest --noconftest -m gpu``.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,19 @@ FIELD_300 = dict(BENCH, ny=18, nx=18, L=3681)            # 300×300×3681
 def test_the_bench_fits_an_h100(mode):
     assert rs.plan_slabs(C=1, mode=mode, **BENCH, **H100) == (5, 120)
     assert rs.smem_bytes(mode, 1, lam_b=5, **BENCH) <= H100["smem_optin"]
+
+
+@pytest.mark.parametrize("mode", ["mh", "gibbs"])
+def test_the_bench_fits_an_h100_with_positivity(mode):
+    """Positivity adds nothing to an MH block (the halo's clean is read
+    from global memory) and 2 window arrays to a gibbs block: the bench
+    still fits at λ_b = 5 (181 KB gibbs)."""
+    assert rs.plan_slabs(C=1, mode=mode, **BENCH, **H100,
+                         positivity=True) == (5, 120)
+    off = rs.smem_bytes(mode, 1, lam_b=5, **BENCH)
+    on = rs.smem_bytes(mode, 1, lam_b=5, **BENCH, positivity=True)
+    cs, wd = 4, 5 + 20 + 110
+    assert on - off == (0 if mode == "mh" else 4 * 2 * cs * wd)
 
 
 @pytest.mark.parametrize("mode", ["mh", "gibbs"])
@@ -167,7 +182,7 @@ def test_phase_clock_labels_match_the_kernel_markers():
 # ---------------------------------------------------------------------------
 
 def _make_toy(seed=42, L=16, Y=6, X=6, fsf_size=5, sampler="mh",
-              device="cpu"):
+              device="cpu", **config):
     gen = np.random.default_rng(seed)
     truth = np.zeros((L, Y, X))
     truth[L // 2, Y // 2, X // 2] = 5.0
@@ -183,7 +198,7 @@ def _make_toy(seed=42, L=16, Y=6, X=6, fsf_size=5, sampler="mh",
                              crval=4750.0, cdelt=1.25, dtype=np.float32,
                              device=device)
     cfg = sm.RunConfig(fsf_size=fsf_size, lsf_width=5, dtype=np.float32,
-                       seed=4, sampler=sampler)
+                       seed=4, sampler=sampler, **config)
     return sm.make_problem(cube, inst, cfg)
 
 
@@ -276,7 +291,56 @@ def test_resident_smem_formula_is_the_kernels_on_card():
                        (1, dict(BENCH, f=5, ny=4, nx=3, S=3, lw=5, L=200))):
             args = (geo["f"], geo["ny"], geo["nx"], geo["L"], geo["S"],
                     geo["lw"])
-            for lam_b in (1, 5):
+            for lam_b, pos in itertools.product((1, 5), (False, True)):
                 assert lib.resident_smem_bytes(
-                    int(mode == "gibbs"), C, *args, lam_b) == rs.smem_bytes(
-                    mode, C, *args, lam_b), (mode, C, geo, lam_b)
+                    int(mode == "gibbs") | 2 * pos, C, *args,
+                    lam_b) == rs.smem_bytes(
+                    mode, C, *args, lam_b, pos), (mode, C, geo, lam_b, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["mh", "gibbs"])
+@pytest.mark.parametrize("n_chains", [1, 2])
+def test_positivity_kernels_match_on_card(sampler, n_chains):
+    """With positivity (from a start at the data, negative voxels
+    included) the resident kernel, classic K1 and the tiled kernel in one
+    tile are bit-equal on the Philox draws and keep the orthant, and the
+    resident kernel matches the plain sweep on injected uniforms (MH
+    untied; the tolerances of the classic kernels' tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernels have no CPU mode")
+    from deconv3d_tpu_torch.ops import tiled
+
+    kw = dict(sampler=sampler, positivity=True, initial="data")
+    p = _make_toy(device="cuda", **kw)
+    states = ch.init_chain_states(p, n_chains)
+    seg = sw.mh_segment if sampler == "mh" else sw.gibbs_segment
+    n0 = seg.resident_launches
+    res = seg(p, states, 3)
+    cla = seg(p, states, 3, _classic=True)
+    one = tiled.tiled_segment(p, states, 3, tile=(p.ny, p.nx))
+    torch.cuda.synchronize()
+    assert seg.resident_launches - n0 == 3
+    for name in ("resid", "clean", "chi2"):
+        a = getattr(res.result.state, name)
+        assert torch.equal(a, getattr(cla.result.state, name)), name
+        assert torch.equal(a, getattr(one.result.state, name)), name
+    moved = res.result.state.clean != states.clean
+    assert bool(moved.any()) and float(res.result.state.clean[moved].min()) >= 0
+    cpu_p = _make_toy(**kw)
+    cpu_s = sm.init_state(cpu_p)
+    per = (p.L + 1,) if sampler == "mh" else (2, p.L)
+    u = torch.rand((2, p.n_colors, p.ny * p.nx, *per),
+                   generator=torch.Generator().manual_seed(1)).clamp(
+        2.0**-24, 1 - 2.0**-24)
+    if sampler == "mh":
+        u, ref = sw.untie_uniforms(cpu_p, cpu_s, 2, u)
+    else:
+        ref = sw.gibbs_segment_reference(cpu_p, cpu_s, 2, u)
+    got = seg(p, sm.init_state(p), 2, u.cuda())
+    assert torch.equal(got.accept.cpu(), ref.accept)
+    for name in ("resid", "clean"):
+        want = getattr(ref.result.state, name)
+        np.testing.assert_allclose(
+            getattr(got.result.state, name).cpu().numpy(), want.numpy(),
+            rtol=0, atol=1e-4 * float(want.abs().max()), err_msg=name)

@@ -183,10 +183,6 @@ def test_run_refuses_what_is_not_ported(rng):
     cube, inst = _make_toy(rng, dtype=np.float32)
     kw = dict(fsf_size=5, lsf_width=5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d3.Run(cube, inst, sampler="gibbs_block", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d3.Run(cube, inst, sampler="gibbs", positivity=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         d3.Run(cube, inst, mesh=object(), **kw)
     run = d3.Run(cube, inst, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
