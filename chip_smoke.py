@@ -96,6 +96,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    324 (one color of the full field); ms of both.  Then one global and one
    ``soft`` anchor pass on 68×68×600 on the card and on the CPU from one
    state with the same Philox draws: resid, clean, χ², counts.
+13. direct — the direct sampler and the MAP (``ops/direct.py``): the
+   banded solve kernel (``csrc/banded.cu`` ``banded_solve_kernel``)
+   against its plain version on the preconditioner factors of the bench
+   cube (dense, 480 frequencies, L = 600; ``torch.cholesky_solve`` on the
+   dense factors beside it) and of 60×60×3681 (1,860 frequencies);
+   ``map_estimate`` on the bench cube ('auto' τ, tol 1e-6) with the true
+   float64 residual of the card's solution taken on the host (≤ 2 tol)
+   and a profile of its CG iterations; 300 draws on an 8×6×6 toy against
+   its dense float64 posterior (z-scores, σ ratio, every solve
+   converged); ``Run(bench cube, MUSE(), sampler='direct',
+   prior_precision='auto')`` for 20 draws → diagnostics → save (draws/s,
+   χ² consistency, flags; the solve kernel's launches there are the
+   ``kernels`` line's).  After ``full_field``, on its cube: the direct
+   sampler at 300×300×3681 (τ = 1e-3, tol 1e-5, at most 600 iterations):
+   the preconditioner resolves to radial, the kernel against its plain
+   version on its 256 factors and 90,600 columns, one ``map_estimate`` and
+   2 draws (iterations, s per draw, peak memory, a profile of 3 CG
+   iterations).
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
@@ -105,7 +123,8 @@ sweep and bound (:func:`sweep_bound`) on its own path — ``main`` /
 from its comparison phase, at the shape it names; the tiled ones with
 their tile, schedule, waves, the widest wave's tiles, steps and
 ``previous_ms``; the banded ones with their launches on the default MH
-flow of ``full_field`` and their ms at that flow's shapes), the
+flow of ``full_field`` and their ms at that flow's shapes; the banded
+solve with its launches on the ``direct`` run), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -124,7 +143,9 @@ import torch
 
 import deconv3d_tpu_torch as d3
 from deconv3d_tpu_torch import _build, chains as ch, sampler as sm
+from deconv3d_tpu_torch import convolve as cv
 from deconv3d_tpu_torch.ops import banded as bd, coarse as co
+from deconv3d_tpu_torch.ops import direct as td
 from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
 from deconv3d_tpu_torch.tile_sweep import field_cube
 
@@ -518,6 +539,7 @@ def reset_launches():
         seg.launches = seg.resident_launches = 0
     tl.tiled_mh.launches = tl.tiled_gibbs.launches = 0
     bd.cholesky_banded.launches = bd.sample_conditional.launches = 0
+    bd.banded_solve.launches = 0
 
 
 def tiled_counter(sampler):
@@ -1017,6 +1039,18 @@ def banded_bound(kind, n_sys, L, p):
             "flops": flops, "bytes": nbytes}
 
 
+def cholesky_library_ms(bands):
+    """ms of ``torch.linalg.cholesky`` on the dense matrices of ``bands``
+    (the same function as the banded Cholesky: its lower factor is Rᵀ),
+    one call after a warm-up, CUDA events."""
+    A = dense_bands(bands)
+    with cv.no_tf32():
+        torch.linalg.cholesky(A)
+        ms = timed(lambda: torch.linalg.cholesky(A))[1]
+    del A
+    return ms
+
+
 def ms_per_call(fn, n):
     """``fn()`` (after a warm-up call) and its mean ms over ``n`` calls
     between CUDA events."""
@@ -1045,6 +1079,7 @@ def phase_coarse(L=3681):
         R, chol_ms = ms_per_call(lambda: bd.cholesky_banded(bands), 20)
         R_ref, chol_plain_ms = timed(
             lambda: bd.cholesky_banded_reference(bands))
+        chol_lib_ms = cholesky_library_ms(bands) if n_sys == 4 else None
         b, noise = (torch.tensor(rng.standard_normal((n_sys, L)),
                                  dtype=torch.float32).cuda()
                     for _ in range(2))
@@ -1059,11 +1094,13 @@ def phase_coarse(L=3681):
         out[n_sys] = {
             "cholesky": {"max_abs_err": errs["cholesky"], "ms": chol_ms,
                          "plain_ms": chol_plain_ms,
+                         "library_ms": chol_lib_ms,
                          "bound": banded_bound("cholesky", n_sys, L, lw - 1)},
             "sample": {"max_abs_err": errs["sample"], "ms": ms,
                        "plain_ms": plain_ms,
                        "bound": banded_bound("sample", n_sys, L, lw - 1)}}
         emit("banded_kernel_vs_plain", L=L, lw=lw, n_systems=n_sys,
+             cholesky_library_ms=chol_lib_ms,
              **{f"{k}_{n}": v[n] if n != "bound" else v[n]["bound_ms"]
                 for k, v in out[n_sys].items()
                 for n in ("max_abs_err", "ms", "plain_ms", "bound")},
@@ -1328,6 +1365,7 @@ def phase_gibbs_block(n=100):
                           float(R_ref.abs().max()))
             row["cholesky"] = {"max_abs_err": err, "ms": chol_ms,
                                "plain_ms": chol_plain_ms,
+                               "library_ms": cholesky_library_ms(bands),
                                "bound": banded_bound("cholesky", n_sys, 600,
                                                      lw - 1)}
             check(err <= BANDED_TOL["cholesky"] * scale,
@@ -1439,6 +1477,370 @@ def phase_gibbs_block(n=100):
     check(draws32 == 16 * p.n_colors, "one draw launch per color for 32 chains")
     check(consistency32 <= 1e-5, "32-chain running chi2 drifted")
     out["chains"] = {"draw_launches": draws32}
+    return out
+
+
+#: the solve kernel against its plain version, float32, of the output's
+#: scale: the banded draw's tolerance (two solves amplify rounding by the
+#: system's condition)
+SOLVE_TOL = 1e-3
+
+
+def dense_upper(R):
+    """Dense upper factors ``[n, L, L]`` of banded ones ``[n, L, W]``."""
+    L, W = R.shape[-2:]
+    U = torch.zeros((*R.shape[:-2], L, L), dtype=R.dtype, device=R.device)
+    for k in range(W):
+        U += torch.diag_embed(R[..., : L - k, k], offset=k)
+    return U
+
+
+def dense_bands(bands):
+    """Dense symmetric matrices ``[n, L, L]`` of upper bands ``[n, L, W]``."""
+    U = dense_upper(bands)
+    return U + U.transpose(-1, -2) - torch.diag_embed(bands[..., 0])
+
+
+def solve_bound(L, n, n_factors, p):
+    """The least time one banded solve launch could take: the columns read
+    (b), z written and read back, x written, the factors and their index
+    read once, against the HBM rate; flops per column and row 2·(2p + 1)
+    (a division 1, an fma 2; both solves).  Its latency form: 2·L
+    dependent steps."""
+    W = p + 1
+    nbytes = 4 * L * n * 4 + n_factors * L * W * 4 + n * 4
+    flops = 2 * (2 * p + 1) * L * n
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "latency_steps": 2 * L}
+
+
+def solve_vs_plain(problem, label, prior_precision=None, library=False):
+    """``banded_solve`` on the preconditioner factors of ``problem``'s
+    solves under ``prior_precision`` (default the config's; the shape its
+    CG iterations give the kernel: the real view of an rfft2 cube,
+    λ-major) against its plain version: error, ms of both (the kernel per
+    launch over 20, CUDA events), the bound; with ``library`` the time of
+    ``torch.cholesky_solve`` on the dense factors, same right-hand
+    sides."""
+    mode = td._resolve_precond_mode(problem)
+    if prior_precision == "auto":
+        prior_precision = td.suggest_prior_precision(problem)
+    state = td._precond_state(problem, mode, td._precond_tau(
+        problem, td._tau(problem, prior_precision)))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    r = torch.randn((problem.L, problem.Y, problem.X), generator=gen,
+                    device="cuda")
+    b = torch.view_as_real(torch.fft.rfft2(r)).reshape(problem.L, -1)
+    x, ms = ms_per_call(lambda: bd.banded_solve(state.R, state.fidx, b), 20)
+    want, plain_ms = timed(lambda: bd.solve_banded_reference(
+        state.R, state.fidx, b))
+    err, scale = float((x - want).abs().max()), float(want.abs().max())
+    L, n = b.shape
+    out = {"shape": [L, n], "mode": mode, "factors": int(state.R.shape[0]),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound": solve_bound(L, n, int(state.R.shape[0]),
+                                int(state.R.shape[-1]) - 1),
+           "library_ms": None}
+    if library:
+        U = dense_upper(state.R)
+        rhs = b.T.reshape(-1, 2, L).transpose(1, 2).contiguous()
+        with cv.no_tf32():
+            lib, out["library_ms"] = timed(lambda: torch.cholesky_solve(
+                rhs, U, upper=True))
+            lib, out["library_ms"] = timed(lambda: torch.cholesky_solve(
+                rhs, U, upper=True))
+        out["library_max_abs_err"] = float(
+            (lib.transpose(1, 2).reshape(n, L).T - want).abs().max())
+        del U, lib
+    emit("banded_solve_vs_plain", label=label, **{
+        k: v for k, v in out.items() if k != "bound"},
+        bound_ms=out["bound"]["bound_ms"], bound_by=out["bound"]["bound_by"],
+        latency_steps=out["bound"]["latency_steps"],
+        tol=SOLVE_TOL * scale)
+    check(err <= SOLVE_TOL * scale,
+          f"banded solve kernel differs from its plain version ({label})")
+    return out
+
+
+class PCGRecorder:
+    """Wraps ``ops.direct.pcg``: each solve's iterations, relative
+    residual and ms (CUDA events), and the solve kernel's launches."""
+
+    def __init__(self):
+        self.solves, self._pcg = [], td.pcg
+
+    def __enter__(self):
+        def recording(A, Minv, b, tol, maxiter):
+            n0 = bd.banded_solve.launches
+            res, ms = timed(lambda: self._pcg(A, Minv, b, tol, maxiter))
+            self.solves.append({"iterations": res.iterations,
+                                "rel_residual": res.rel_residual, "ms": ms,
+                                "solve_launches":
+                                    bd.banded_solve.launches - n0})
+            return res
+
+        td.pcg = recording
+        return self
+
+    def __exit__(self, *exc):
+        td.pcg = self._pcg
+
+
+def profile_cg(fn, label):
+    """``torch.profiler`` over ``fn()`` (CG iterations): device ms by kind
+    — the banded solve kernel, cuFFT, matmuls (the LSF matrix), the rest
+    (elementwise and reductions) — and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"solve": 0.0, "fft": 0.0, "matmul": 0.0, "other": 0.0}
+    count = dict.fromkeys(kinds, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = ("solve" if "banded_solve" in name
+                else "fft" if "fft" in name
+                else "matmul" if "gemm" in name or "cutlass" in name
+                else "other")
+        kinds[kind] += e.time_range.elapsed_us() / 1e3
+        count[kind] += 1
+    device_ms = sum(kinds.values())
+    out = {"wall_ms": wall_ms, "device_ms": device_ms, "device_ms_by": kinds,
+           "launches_by": count, "idle_share": 1.0 - device_ms / wall_ms}
+    emit("cg_profile", label=label, **out)
+    return out
+
+
+def toy_posterior(problem):
+    """The dense float64 posterior (mean, σ) of a small direct problem on
+    the host: A = KᵀWK + τI with K from unit voxels through the port's
+    ``convolve_cube`` (the problem's banks, float64)."""
+    p = problem
+    fsf, lsf = p.fsf.double().cpu(), p.lsf.double().cpu()
+    n = p.L * p.Y * p.X
+    eye = torch.eye(n, dtype=torch.float64).reshape(n, p.L, p.Y, p.X)
+    K = torch.stack([d3.convolve_cube(e, fsf, lsf, spatial="direct")
+                     .reshape(-1) for e in eye], dim=1).numpy()
+    h = p.f // 2
+    w = p.w_pad[:, h : h + p.Y, h : h + p.X].double().cpu().numpy().ravel()
+    d = p.data_pad[:, h : h + p.Y, h : h + p.X].double().cpu().numpy().ravel()
+    cov = np.linalg.inv(K.T @ (w[:, None] * K)
+                        + float(p.config.prior_precision) * np.eye(n))
+    return cov @ (K.T @ (w * d)), np.sqrt(np.diag(cov))
+
+
+def phase_direct(tmp, n_oracle=300, n_draws=20):
+    """The direct sampler and the MAP on the card (``ops/direct.py``).
+    (a) ``banded_solve`` against its plain version on the preconditioner
+    factors of the bench cube (dense mode: 480 frequencies, 960 columns,
+    L = 600; the library's ``torch.cholesky_solve`` on the dense factors
+    beside it) and of 60×60×3681 (1,860 frequencies).  (b)
+    ``map_estimate`` on the bench cube ('auto' τ, tol 1e-6): iterations,
+    ms per iteration, the recurrence's and the float64 residual, and the
+    true relative residual of the card's solution from the port's operator
+    in float64 on the host (≤ 2 tol); a profile of its CG iterations.  (c)
+    A toy whose dense posterior is computable (8×6×6): ``n_oracle`` draws
+    through ``Run(sampler='direct')`` against the float64 posterior —
+    mean and σ z-scores, every solve converged.  (d) ``Run(bench cube,
+    MUSE(), sampler='direct', prior_precision='auto')`` for ``n_draws``
+    draws → diagnostics → save: draws/s, χ² consistency, the flags, the
+    solve kernel's launches (the ``kernels`` line's)."""
+    out = {}
+    cube = bench_cube()
+    run = d3.Run(cube, d3.MUSE(), seed=0)
+    p = run.problem
+    out["dense_600"] = solve_vs_plain(p, "bench 30x30x600", "auto",
+                                      library=True)
+    big = d3.Run(bench_cube(L=3681, Y=60, X=60), d3.MUSE(), seed=0,
+                 sampler="direct", prior_precision="auto")
+    out["dense_3681"] = solve_vs_plain(big.problem, "60x60x3681")
+    del big
+
+    # (b) the MAP of the MCMC run's problem
+    reset_launches()
+    with PCGRecorder() as rec:
+        m, ms = timed(lambda: run.map_estimate(prior_precision="auto",
+                                               tol=1e-6))
+    launches = bd.banded_solve.launches
+    res = run.last_map_result
+    pc = dataclasses.replace(
+        p, valid=p.valid.cpu(), **{n_: getattr(p, n_).cpu().double()
+                                   for n_ in ("fsf", "lsf", "data_pad",
+                                              "w_pad")})
+    tau = run.last_map_prior_precision
+    A64 = td.make_normal_operator(pc, tau)
+    b64 = td.apply_KT(pc, td._d_in(pc) * td._w_in(pc)) * td._free_mask(pc)
+    x64 = m.data.cpu().double()
+    true_rel = float((b64 - A64(x64)).norm() / b64.norm())
+    with cv.no_tf32():
+        A, M = td.make_normal_operator(p, tau), td.make_preconditioner(
+            p, prior_precision=tau)
+        b = td.apply_KT(p, td._d_in(p) * td._w_in(p)) * td._free_mask(p)
+        prof = profile_cg(lambda: td.pcg(A, M, b, 0.0, 50),
+                          "50 CG iterations, 30x30x600")
+    del A, M, b
+    out["map"] = {"iterations": res.iterations, "ms": ms,
+                  "ms_per_iteration": sum(r["ms"] for r in rec.solves)
+                  / max(res.iterations, 1),
+                  "rel_residual": res.rel_residual,
+                  "true_rel_residual_host_f64": true_rel,
+                  "solves": rec.solves, "solve_launches": launches,
+                  "profile": prof, "tau": tau}
+    emit("direct_map", shape=list(cube.shape), **{
+        k: v for k, v in out["map"].items() if k != "profile"})
+    check(res.rel_residual <= 1e-6 and res.iterations <= 500,
+          f"bench MAP did not converge: {res.rel_residual} after "
+          f"{res.iterations}")
+    check(true_rel <= 2e-6, f"the MAP's float64 residual {true_rel:.3e} "
+          "exceeds 2 tol")
+    check(launches >= res.iterations, "the MAP's CG bypassed the kernel")
+    del run, pc, A64, b64, x64
+
+    # (c) draw statistics against the dense posterior of a toy
+    gen = np.random.default_rng(5)
+    L, Y, X = 8, 6, 6
+    lam = 4750.0 + 1.25 * np.arange(L)
+    inst = d3.Instrument(fsf=d3.GaussianFSF(fwhm=0.25),
+                         lsf=d3.GaussianLSF(fwhm=1.0), pixel_scale=0.2)
+    truth = np.zeros((L, Y, X), np.float32)
+    truth[L // 2, Y // 2, X // 2] = 4.0
+    conv = d3.convolve_cube(
+        torch.tensor(truth), inst.fsf.bank(lam, size=3, pixel_scale=0.2),
+        inst.lsf.bank(lam, cdelt=1.25, width=3)).numpy()
+    data = (conv + 0.5 * gen.standard_normal(conv.shape)).astype(np.float32)
+    toy = d3.Cube.from_data(data, variance=np.full_like(data, 0.25),
+                            crval=4750.0, cdelt=1.25, device="cuda")
+    orun = d3.Run(toy, inst, max_iterations=n_oracle, sampler="direct",
+                  fsf_size=3, lsf_width=3, seed=7, prior_precision=0.5)
+    t0 = time.perf_counter()
+    orun.run()
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    mean, sig = toy_posterior(orun.problem)
+    dc = orun.deconvolved_cube()
+    pm = dc.data.double().cpu().numpy().ravel()
+    ps = np.sqrt(dc.variance.double().cpu().numpy().ravel())
+    z = (pm - mean) / (sig / np.sqrt(n_oracle))
+    flags = orun.trace("accept")
+    out["oracle"] = {"draws": n_oracle, "mean_abs_z": float(np.abs(z).mean()),
+                     "max_abs_z": float(np.abs(z).max()),
+                     "median_std_ratio": float(np.median(ps / sig)),
+                     "flags_min": float(flags.min()), "seconds": oracle_s}
+    emit("direct_oracle", shape=[L, Y, X], **out["oracle"])
+    check(out["oracle"]["mean_abs_z"] < 2.0 and out["oracle"]["max_abs_z"]
+          < 5.5, "direct draws' mean is off the analytic posterior")
+    check(abs(out["oracle"]["median_std_ratio"] - 1.0) < 0.15,
+          "direct draws' spread is off the analytic posterior")
+    check(flags.min() == 1.0, "a toy draw did not converge")
+    del orun
+
+    # (d) the slice's main path: Run(sampler='direct') on the bench cube
+    run = d3.Run(cube, d3.MUSE(), max_iterations=n_draws, seed=0,
+                 sampler="direct", prior_precision="auto")
+    check(run.config.engine == "cuda", f"engine {run.config.engine}")
+    run.states
+    reset_launches()
+    with PCGRecorder() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = bd.banded_solve.launches
+    diag = run.diagnostics()
+    consistency = chi2_consistency(run)
+    run.save(os.path.join(tmp, "direct"))
+    saved = os.path.isfile(os.path.join(tmp, "direct_clean.fits"))
+    iters = [r["iterations"] for r in rec.solves]
+    out["path"] = {"launches": launches, "draws": n_draws,
+                   "draws_per_sec": n_draws / dt,
+                   "iterations_per_draw": iters,
+                   "ms_per_iteration": sum(r["ms"] for r in rec.solves)
+                   / max(sum(iters), 1),
+                   "chi2_consistency": consistency,
+                   "flags": run.trace("accept")[0].tolist(),
+                   "mode": td._resolve_precond_mode(run.problem)}
+    emit("direct_run", shape=list(cube.shape), chi2=diag["chi2"],
+         acceptance=diag["acceptance_rate"], **out["path"])
+    check(all(f == 1.0 for f in out["path"]["flags"]),
+          "a bench draw did not converge")
+    check(consistency <= 1e-5, "direct chi2 is not the from-scratch one")
+    check(launches >= sum(iters) > 0,
+          "the draws' CG bypassed the solve kernel")
+    check(saved, "save() files missing")
+    return out
+
+
+def phase_direct_field(cube):
+    """The full MUSE field (300×300×3681, the cube of ``full_field``) in
+    the direct sampler, as the JAX package's full-field record ran it:
+    τ = 1e-3, tol 1e-5, 600 iterations at most.  The preconditioner must
+    resolve to the radial mode; ``banded_solve`` against its plain version
+    on its factors (90,600 columns over 256); one ``map_estimate`` and a
+    2-draw ``Run(sampler='direct')``: iterations, seconds per draw, peak
+    memory, a profile of 3 CG iterations."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = d3.Run(cube, d3.MUSE(), max_iterations=2, seed=0, sampler="direct",
+                 prior_precision=1e-3, direct_tol=1e-5, direct_maxiter=600)
+    run.states
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p = run.problem
+    mode = td._resolve_precond_mode(p)
+    check(mode == "banded_radial", f"the full field resolved to {mode}")
+    out = {"radial_3681": solve_vs_plain(p, "300x300x3681 radial")}
+    reset_launches()
+    with PCGRecorder() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.map_estimate()
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        res = run.last_map_result
+        t0 = time.perf_counter()
+        run.run()
+        torch.cuda.synchronize()
+        draws_s = time.perf_counter() - t0
+    launches = bd.banded_solve.launches
+    peak = torch.cuda.max_memory_allocated()
+    flags = run.trace("accept")[0].tolist()
+    draws = rec.solves[-2:]
+    with cv.no_tf32():
+        b = td.apply_KT(p, td._d_in(p) * td._w_in(p)) * td._free_mask(p)
+        A, M = td.make_normal_operator(p), td.make_preconditioner(p)
+        prof = profile_cg(lambda: td.pcg(A, M, b, 0.0, 3),
+                          "3 CG iterations, 300x300x3681")
+    del A, M, b
+    out.update({
+        "setup_s": setup_s, "mode": mode, "map_s": map_s,
+        "map_iterations": res.iterations, "map_rel_residual": res.rel_residual,
+        "draw_iterations": [d["iterations"] for d in draws],
+        "draw_rel_residuals": [d["rel_residual"] for d in draws],
+        "s_per_draw": draws_s / 2, "flags": flags, "solves": rec.solves,
+        "solve_launches": launches,
+        "peak_bytes": peak, "profile": prof,
+        "ms_per_iteration": sum(d["ms"] for d in rec.solves)
+        / max(sum(d["iterations"] for d in rec.solves), 1)})
+    emit("direct_full_field", shape=list(cube.shape), **{
+        k: v for k, v in out.items() if k not in ("radial_3681", "profile")})
+    check(res.rel_residual <= 1e-5 and res.iterations <= 600,
+          f"the full-field MAP: rel {res.rel_residual} after "
+          f"{res.iterations}")
+    check(all(d["rel_residual"] <= 1e-5 and d["iterations"] <= 600
+              for d in draws) and flags == [1.0, 1.0],
+          f"a full-field draw did not converge: {draws}")
+    check(launches >= sum(d["iterations"] for d in rec.solves) > 0,
+          "the full field's CG bypassed the solve kernel")
     return out
 
 
@@ -1674,9 +2076,12 @@ def main() -> int:
     coarse = phase_coarse()
     positivity = phase_positivity()
     block = phase_gibbs_block()
+    with tempfile.TemporaryDirectory() as tmp:
+        direct = phase_direct(tmp)
     cube = field_cube()
     field = {sampler: phase_full_field(sampler, n, cube)
              for sampler, n in (("gibbs", 16), ("mh", 8))}
+    direct["field"] = phase_direct_field(cube)
     del cube
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
@@ -1774,7 +2179,7 @@ def main() -> int:
             "shape": [n_sys, 3681, 11],
             "max_abs_err": at["max_abs_err"], "ms": at["ms"],
             "plain_ms": at["plain_ms"], **bound(at["bound"]),
-            "library_ms": None,
+            "library_ms": at.get("library_ms"),
             "n_systems_324": other_shape(coarse[324][part]),
         })
     # positivity: the same sources with the flag compiled in, on the
@@ -1827,7 +2232,8 @@ def main() -> int:
         "max_abs_err": block[1156]["cholesky"]["max_abs_err"],
         "ms": block[1156]["cholesky"]["ms"],
         "plain_ms": block[1156]["cholesky"]["plain_ms"],
-        **bound(block[1156]["cholesky"]["bound"]), "library_ms": None,
+        **bound(block[1156]["cholesky"]["bound"]),
+        "library_ms": block[1156]["cholesky"]["library_ms"],
     })
     lines.append({
         "name": "banded_sample_conditional<gibbs_block>", "route": "cuda",
@@ -1845,6 +2251,32 @@ def main() -> int:
                           "launches": block["chains"]["draw_launches"],
                           "launches_path": "gibbs_block (Run, 32 chains, "
                                            "16 sweeps)"},
+    })
+    # the direct sampler's preconditioner solves: launches on the slice's
+    # main path (Run(sampler='direct') on the bench cube), the rest at its
+    # shape (dense mode, 480 frequencies); the other shapes beside it
+    d600 = direct["dense_600"]
+    lines.append({
+        "name": "banded_solve", "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/banded.cu",
+        "replaces": "deconv3d_tpu/ops/banded.py:120-181 (lax.scan, no "
+                    "Pallas; the preconditioner's solves, "
+                    "deconv3d_tpu/ops/direct.py:397-400, :548-549)",
+        "launches": direct["path"]["launches"],
+        "launches_path": "direct (Run(sampler='direct'), bench cube, "
+                         f"{direct['path']['draws']} draws)",
+        "shape": d600["shape"], "factors": d600["factors"],
+        "mode": d600["mode"],
+        "max_abs_err": d600["max_abs_err"], "ms": d600["ms"],
+        "plain_ms": d600["plain_ms"], **bound(d600["bound"]),
+        "latency_steps": d600["bound"]["latency_steps"],
+        "library_ms": d600["library_ms"],
+        "library_is": "torch.cholesky_solve on the dense factors",
+        "dense_3681x3720": other_shape(direct["dense_3681"]),
+        "radial_3681x90600": {
+            **other_shape(direct["field"]["radial_3681"]),
+            "launches": direct["field"]["solve_launches"],
+            "launches_path": "direct full field (1 map_estimate, 2 draws)"},
     })
     check(all(line["launches"] > 0 for line in lines),
           "a kernel was launched no time on its path")

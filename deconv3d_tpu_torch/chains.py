@@ -217,6 +217,25 @@ def max_chain_batch(problem: sm.Problem, n_chains: int) -> int:
     return int(max(1, min(n_chains, fit)))
 
 
+def _check_direct_chains(problem: sm.Problem, n_chains: int) -> None:
+    """The JAX package's refusal of several direct chains at full-field
+    scale (``deconv3d_tpu/chains.py:297-335``), with the card's free memory
+    as the threshold in place of the v5e's 6 GiB PCG budget: the chains'
+    draws run one after the other, so one draw's working set
+    (``ops.direct.draw_bytes``) must fit beside the states."""
+    from .ops.direct import draw_bytes
+
+    free = device_free_bytes(problem.device)
+    if n_chains > 1 and free is not None and draw_bytes(problem) > free:
+        raise ValueError(
+            "n_chains > 1 with sampler='direct' at full-field scale: each "
+            "chain holds cube-size accumulators the PCG's memory does not "
+            "have beside them — and direct draws are iid (every draw is one "
+            "full ESS unit; R-hat across chains is trivially 1), so chains "
+            "add nothing a longer single run doesn't.  Use n_chains=1 with "
+            "more max_iterations.")
+
+
 def run_chains(
     problem: sm.Problem,
     n_chains: int,
@@ -230,12 +249,16 @@ def run_chains(
     one kernel launch per sweep for all chains), or one per group of
     :func:`max_chain_batch` chains where the batch would not fit the card.
     Each chain keeps its Philox key (:func:`chain_key`), so it draws the
-    same numbers in any batch.
+    same numbers in any batch.  ``sampler='direct'`` draws chain by chain
+    (``ops.direct.direct_run_sweeps``); several chains raise where one
+    draw's working set does not fit the card beside their states.
     """
     if mesh is not None:
         raise sm.not_ported("mesh", mesh)
     if n_sweeps is None:
         n_sweeps = problem.config.max_iterations
+    if problem.config.sampler == "direct":
+        _check_direct_chains(problem, n_chains)
     if states is None:
         states = init_chain_states(problem, n_chains)
     cb = max_chain_batch(problem, n_chains)

@@ -1,17 +1,21 @@
-// Banded Cholesky factor and conditional Gaussian draw on Hopper, one
-// thread per banded SPD system.
+// Banded Cholesky factor, conditional Gaussian draw and preconditioner
+// solve on Hopper, one thread per banded SPD system.
 //
 // Replaces the lax.scan recurrences of deconv3d_tpu/ops/banded.py (no
-// Pallas kernel there): cholesky_banded (:77-117) and sample_conditional
+// Pallas kernel there): cholesky_banded (:77-117), sample_conditional
 // (:184-192, the forward solve of :120-151 and the backward solve of
-// :154-181).  Band storage as there: bands[sys, l, k] = A[l, l+k] for
-// k = 0..P (P = lw - 1 <= 10), zero past the matrix edge.
+// :154-181), and the two solves of the direct sampler's Fourier-banded
+// preconditioner (deconv3d_tpu/ops/direct.py:397-400, :548-549).  Band
+// storage as there: bands[sys, l, k] = A[l, l+k] for k = 0..P
+// (P = lw - 1 <= 10), zero past the matrix edge.
 //
 //   cholesky:  A = R^T R,  R[l, l+k] at out[sys, l, k]
 //              R[l,l]   = sqrt(max((A[l,l] - sum_m R[l-m,l]^2)(1+jitter), eps))
 //              R[l,l+k] = (A[l,l+k] - sum_m R[l-m,l] R[l-m,l+k]) / R[l,l]
 //   sample:    R^T z = b  (forward),  R x = z + noise  (backward)
 //              -> x ~ N(A^-1 b, A^-1) for standard-normal noise
+//   solve:     R^T z = b,  R x = z  -> x = A^-1 b, for lambda-major
+//              columns that name their factor (banded_solve_kernel below)
 //
 // Design.  Every step l depends on the P steps before it, so a system is
 // one sequential chain of L steps: one thread walks it with what the next
@@ -185,6 +189,61 @@ __global__ void __launch_bounds__(kWarp)
   }
 }
 
+// x = R^-1 R^-T b for n right-hand-side columns that share factors: column
+// c solves against R[fidx[c]] (the preconditioner of the direct sampler:
+// one factor per spatial frequency, or per radial bin of frequencies).
+// The columns are lambda-major, b[l, c] (the real view of an rfft2 cube,
+// [L, Y, X//2+1, 2]): one thread per column, each step's b and out loads
+// coalesced across the warp.  z, the forward solve, is kept in `out` and
+// read back in reverse by the same thread, so b and out may be one buffer.
+// A factor row is W contiguous floats, read through the read-only cache:
+// columns of one factor (real and imaginary parts, the frequencies of one
+// bin) share it.
+template <int P>
+__global__ void __launch_bounds__(128)
+    banded_solve_kernel(const float* __restrict__ R,
+                        const int* __restrict__ fidx, const float* b,
+                        float* out, int n, int L) {
+  constexpr int W = P + 1;
+  constexpr int H = P > 0 ? P : 1;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  const float* Rc = R + static_cast<long long>(__ldg(fidx + c)) * L * W;
+
+  // forward: R^T z = b, right-looking as in banded_sample_kernel
+  float acc[H];
+#pragma unroll
+  for (int k = 0; k < H; ++k) acc[k] = 0.f;
+#pragma unroll 4
+  for (int l = 0; l < L; ++l) {
+    const float* row = Rc + static_cast<long long>(l) * W;
+    const long long at = static_cast<long long>(l) * n + c;
+    const float z = (b[at] - (P > 0 ? acc[0] : 0.f)) / __ldg(row);
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      acc[k] = (k + 1 < P ? acc[k + 1] : 0.f) + __ldg(row + k + 1) * z;
+    out[at] = z;
+  }
+
+  // backward: R x = z from the last row up, hist[m] = x[l+1+m]
+  float hist[H];
+#pragma unroll
+  for (int m = 0; m < H; ++m) hist[m] = 0.f;
+#pragma unroll 4
+  for (int l = L - 1; l >= 0; --l) {
+    const float* row = Rc + static_cast<long long>(l) * W;
+    const long long at = static_cast<long long>(l) * n + c;
+    float s = out[at];
+#pragma unroll
+    for (int m = 1; m <= P; ++m) s -= __ldg(row + m) * hist[m - 1];
+    const float x = s / __ldg(row);
+#pragma unroll
+    for (int m = P - 1; m > 0; --m) hist[m] = hist[m - 1];
+    if (P > 0) hist[0] = x;
+    out[at] = x;
+  }
+}
+
 template <int P>
 int launch_cholesky(const float* bands, float* out, int n_sys, int L,
                     float jitter, cudaStream_t st) {
@@ -200,6 +259,15 @@ int launch_sample(const float* R, const float* b, const float* noise,
   const int blocks = (n_sys + kWarp - 1) / kWarp;
   banded_sample_kernel<P><<<blocks, kWarp, 0, st>>>(R, b, noise, out, n_sys,
                                                     L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int launch_solve(const float* R, const int* fidx, const float* b, float* out,
+                 int n, int L, cudaStream_t st) {
+  constexpr int kThreads = 128;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  banded_solve_kernel<P><<<blocks, kThreads, 0, st>>>(R, fidx, b, out, n, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,6 +312,18 @@ int banded_sample_launch(const float* R, const float* b, const float* noise,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   BANDED_DISPATCH(launch_sample, R, b, noise, out, n_sys, L, st)
+}
+
+// x = R^-1 R^-T b for `n` lambda-major columns b [L, n] -> out [L, n]
+// (may be b itself), column c against the factor R[fidx[c]] of R
+// [n_factors, L, p + 1], on `stream`.
+int banded_solve_launch(const float* R, const int* fidx, const float* b,
+                        float* out, int n, int L, int p, void* stream) {
+  using namespace deconv3d_banded;
+  if (n < 1 || L < 1 || p < 0 || p > kMaxP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  BANDED_DISPATCH(launch_solve, R, fidx, b, out, n, L, st)
 }
 
 }  // extern "C"

@@ -21,12 +21,14 @@ from .cube import torch_dtype
 _PROBLEM_INTS = ("L", "Y", "X", "f", "ny", "nx")
 _PROBLEM_TENSORS = (
     "fsf", "lsf", "data_pad", "w_pad", "quad", "valid", "monitor_idx",
-    "fsf_spec", "fsf_imgs", "qvox", "quad_lo", "chol",
+    "fsf_spec", "fsf_imgs", "qvox", "quad_lo", "chol", "quad_mean",
 )
 #: leaves that may be None (``qvox`` exists for ``sampler='gibbs'``,
 #: ``quad_lo`` for ``'gibbs'`` and ``'gibbs_block'`` — the JAX package has
-#: none — and ``chol`` for ``'gibbs_block'``)
-_OPTIONAL = ("qvox", "quad_lo", "chol")
+#: none —, ``chol`` for ``'gibbs_block'``; a direct problem has no
+#: ``quad`` and no low-rank factors, but ``quad_mean``)
+_OPTIONAL = ("quad", "fsf_spec", "fsf_imgs", "qvox", "quad_lo", "chol",
+             "quad_mean")
 
 
 def untiled_layout(qt: np.ndarray, ny: int, nx: int, f: int, tile,
@@ -74,6 +76,25 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
                 np.float64 if fdt == torch.float64 else np.float32), fdt
         kw[n] = torch.tensor(arr, dtype=dtype, device=device)
     return sm.Problem(config=config, **kw)
+
+
+#: the JAX package's engines → the port's CPU engines
+_ENGINES = {"jnp": "torch", "pallas": "torch", "pallas_tiled": "torch_tiled"}
+
+
+def config_from_mapping(d: Mapping) -> sm.RunConfig:
+    """Port RunConfig from a mapping of the JAX package's RunConfig fields
+    (``dataclasses.asdict`` of a resolved config): the fields the port has,
+    its engines mapped to the port's CPU ones.  A JAX ``make_problem`` has
+    resolved ``prior_precision`` and ``direct_precond_tau`` to floats; they
+    carry across as such."""
+    names = {f.name for f in dataclasses.fields(sm.RunConfig)}
+    kw = {k: v for k, v in d.items() if k in names}
+    if "engine" in kw:
+        kw["engine"] = _ENGINES.get(kw["engine"], kw["engine"])
+    if kw.get("tile") is not None:
+        kw["tile"] = tuple(int(t) for t in kw["tile"])
+    return sm.RunConfig(**kw)
 
 
 def problem_to_numpy(problem: sm.Problem) -> dict:

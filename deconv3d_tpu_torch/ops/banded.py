@@ -11,9 +11,11 @@ through a banded Cholesky A = RᵀR and two triangular solves.
 Band storage: ``bands[..., l, k]`` holds A[l, l+k] for k = 0..p (zero past
 the matrix edge).  Every routine is batched over leading dims.  The
 ``*_reference`` functions and the solves are plain torch loops over λ
-(the JAX package's ``lax.scan``s); :func:`cholesky_banded` and
-:func:`sample_conditional` run them on CPU tensors and, on CUDA tensors,
-the kernels of ``csrc/banded.cu`` (one thread per system), which a
+(the JAX package's ``lax.scan``s); :func:`cholesky_banded`,
+:func:`sample_conditional` and :func:`banded_solve` (x = A⁻¹b for
+λ-major columns that share factors: the direct sampler's
+preconditioner) run them on CPU tensors and, on CUDA tensors, the
+kernels of ``csrc/banded.cu`` (one thread per system or column), which a
 failed build or launch does not turn into the plain loop: it raises.
 """
 
@@ -140,6 +142,38 @@ def sample_conditional_reference(R: torch.Tensor, b: torch.Tensor,
     return solve_banded(R, solve_transposed_banded(R, b) + noise)
 
 
+def solve_banded_reference(R: torch.Tensor, fidx: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """x = R⁻¹ R⁻ᵀ b for the λ-major columns of ``b`` ``[L, n]``, column j
+    against the factor ``R[fidx[j]]`` of ``R`` ``[n_factors, L, p+1]``:
+    the solves of the direct sampler's preconditioner
+    (``solve_banded(R, solve_transposed_banded(R, b))`` on ``R[fidx]``),
+    plain torch.  Each step gathers its factor rows, so no per-column copy
+    of the factors is made."""
+    L, W = R.shape[-2:]
+    p = W - 1
+    fidx = fidx.to(device=R.device, dtype=torch.int64)
+    n = b.shape[1]
+    acc = b.new_zeros((n, p))
+    z = torch.empty_like(b)
+    for l in range(L):
+        Rl = R[:, l][fidx]                               # [n, W]
+        zl = (b[l] - (acc[:, 0] if p else 0.0)) / Rl[:, 0]
+        if p:
+            acc = (torch.nn.functional.pad(acc[:, 1:], (0, 1))
+                   + Rl[:, 1:] * zl[:, None])
+        z[l] = zl
+    hist = b.new_zeros((n, p))
+    x = torch.empty_like(b)
+    for l in range(L - 1, -1, -1):
+        Rl = R[:, l][fidx]
+        xl = (z[l] - (Rl[:, 1:] * hist).sum(dim=-1)) / Rl[:, 0]
+        if p:
+            hist = torch.cat([xl[:, None], hist[:, :-1]], dim=-1)
+        x[l] = xl
+    return x
+
+
 # ---------------------------------------------------------------------------
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -226,3 +260,37 @@ def sample_conditional(R: torch.Tensor, b: torch.Tensor,
 
 
 sample_conditional.launches = 0
+
+
+def banded_solve(R: torch.Tensor, fidx: torch.Tensor, b: torch.Tensor,
+                 out=None) -> torch.Tensor:
+    """x = R⁻¹ R⁻ᵀ b for λ-major columns ``b`` ``[L, n]`` against shared
+    factors (:func:`solve_banded_reference`): on CUDA tensors one launch of
+    ``banded_solve_kernel`` (``csrc/banded.cu``, one thread per column),
+    counted by ``banded_solve.launches``, into ``out`` (default a new
+    tensor; ``b`` itself solves in place); on CPU tensors the plain loops.
+    ``fidx`` is int32 on the kernel's path."""
+    if R.device.type == "cpu" and b.device.type == "cpu":
+        x = solve_banded_reference(R, fidx, b)
+        if out is None:
+            return x
+        return out.copy_(x)
+    p = _bandwidth(R)
+    L, n = b.shape
+    _kernel_input("R", R, R.shape)
+    _kernel_input("b", b, (R.shape[-2], n))
+    if out is None:
+        out = torch.empty_like(b)
+    _kernel_input("out", out, b.shape)
+    if fidx.device != R.device or fidx.dtype != torch.int32 \
+            or tuple(fidx.shape) != (n,):
+        raise ValueError(f"fidx must be int32 [{n}] on {R.device}, got "
+                         f"{fidx.dtype} {tuple(fidx.shape)} on {fidx.device}")
+    if not (R.device == b.device == out.device):
+        raise ValueError("R, b and out must lie on one CUDA device")
+    _launch("banded_solve_launch", R, fidx.contiguous(), b, out, n, L, p)
+    banded_solve.launches += 1
+    return out
+
+
+banded_solve.launches = 0

@@ -34,7 +34,10 @@ The global pass draws the normal of pattern j's spectrum entry λ at anchor
 0, the anchor passes the normal of (λ, anchor I·nx + J); both by
 Box-Muller, sqrt(−2 log u1)·cos(2π u2), u1 from stream 4 and u2 from
 stream 5, word ``λ & 3`` as above.  An anchor pass's accept uniform is
-word 0 of the stream-6 block at λ = 0.  Keying by the absolute sweep makes
+word 0 of the stream-6 block at λ = 0.  The direct sampler's draw at
+absolute sweep s takes one normal per voxel of the cube
+(:func:`cube_normals`), counter (λ >> 2, s, 0, stream << 24 | y·X + x):
+z from streams 9 and 10, the ridge prior's z2 from 11 and 12.  Keying by the absolute sweep makes
 any segmentation of a run, and any resume, draw the identical numbers (the
 tiled TPU kernel keys its streams the same way,
 ``deconv3d_tpu/ops/pallas_tiled.py``; the JAX package folds the absolute
@@ -64,6 +67,16 @@ STREAM_PASS_ACCEPT = 6
 #: stream ids of the gibbs_block sweep's Box-Muller pairs
 STREAM_BLOCK_U1 = 7
 STREAM_BLOCK_U2 = 8
+#: stream ids of the direct sampler's draws: the data perturbation z and
+#: the ridge prior's z2
+STREAM_DRAW_U1 = 9
+STREAM_DRAW_U2 = 10
+STREAM_PRIOR_U1 = 11
+STREAM_PRIOR_U2 = 12
+
+#: λ-planes of Philox blocks per chunk of :func:`cube_normals` (bounds its
+#: int64 temporaries at a full MUSE field)
+NORMALS_CHUNK_L = 256
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -196,6 +209,37 @@ def pass_normals(key: int, sweep: int, slots, n_anchor: int, L: int,
               for stream in (STREAM_PASS_U1, STREAM_PASS_U2))
     two_pi = torch.tensor(2.0 * torch.pi, dtype=torch.float32)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+
+
+def cube_normals(key: int, sweep: int, streams, L: int, Y: int, X: int,
+                 device=None, dtype=torch.float32) -> torch.Tensor:
+    """Box-Muller normals of a whole ``[L, Y, X]`` cube, one per voxel:
+    sqrt(−2 log u1)·cos(2π u2) with u1, u2 from ``streams`` = (s1, s2),
+    word ``λ & 3`` of the block at counter (λ >> 2, sweep, 0, s << 24 |
+    y·X + x) — the layout of :func:`_slot_uniforms` with one slot and the
+    spaxels as rows (Y·X < 2²⁴).  Each block is computed once for its four
+    λs, :data:`NORMALS_CHUNK_L` λs at a time; the normals take ``dtype``."""
+    if Y * X >= 1 << 24:
+        raise ValueError(f"{Y}x{X} spaxels exceed the 24-bit row field")
+    dev = torch.device(device) if device is not None else None
+    ij = torch.arange(Y * X, dtype=torch.int64, device=dev)
+    kw = key_words(key)
+    out = torch.empty((L, Y, X), dtype=dtype, device=dev)
+    two_pi = torch.tensor(2.0 * torch.pi, dtype=torch.float32)
+    for lo in range(0, L, NORMALS_CHUNK_L):
+        hi = min(L, lo + NORMALS_CHUNK_L)
+        q = torch.arange(lo >> 2, (hi + 3) >> 2, dtype=torch.int64,
+                         device=dev)[:, None]
+        u = []
+        for stream in streams:
+            words = philox4x32((q, sweep & M32, 0, (stream << 24) | ij), kw)
+            # [blocks, 4, Y·X] → λ-major rows 4·block + word
+            bits = torch.stack(torch.broadcast_tensors(*words), dim=1)
+            u.append(bits_to_uniform(bits.reshape(-1, Y * X))
+                     [lo - 4 * (lo >> 2): hi - 4 * (lo >> 2)])
+        z = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos(two_pi * u[1])
+        out[lo:hi] = z.reshape(hi - lo, Y, X).to(dtype)
+    return out
 
 
 def pass_accept_uniforms(key: int, sweep: int, slots, n_anchor: int,

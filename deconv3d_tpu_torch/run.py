@@ -12,7 +12,9 @@ visits.  The run lives on ``device`` (default: the first CUDA device when
 there is one, else the CPU); on a CUDA device every sweep goes through a
 hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``, with or
 without ``positivity``), one launch per sweep for all ``n_chains`` chains
-(``'gibbs_block'``: one launch of the banded draw kernel per color): the
+(``'gibbs_block'``: one launch of the banded draw kernel per color;
+``'direct'``: independent exact draws by PCG, ``ops/direct.py``, whose
+preconditioner solves launch the banded solve kernel): the
 whole-cube kernel, or on a field whose residual and weights exceed the
 1 GiB window budget
 (``ops/tiled.py::WINDOW_BUDGET_BYTES``; a full MUSE field) the tiled one
@@ -21,7 +23,8 @@ whole-cube kernel, or on a field whose residual and weights exceed the
 a large blurred field interleaves global coarse pattern passes
 (``coarse_every=8``; ``coarse_every=0`` turns them off).  ``run_until``
 samples until R̂ / ESS targets hold, ``resume`` restarts from a checkpoint
-bit-exactly.  Meshes and ``map_estimate`` are not ported yet and raise.
+bit-exactly, ``map_estimate`` solves for the MAP on any run.  Meshes are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -82,6 +85,13 @@ class Run:
         coarse_mode: str = "global",
         tile: Optional[tuple] = None,
         chi2_rebaseline_every: Optional[int] = None,
+        direct_tol: float = 1e-6,
+        direct_maxiter: int = 500,
+        direct_precond: str = "banded",
+        direct_radial_bins: int = 256,
+        direct_precond_scale: bool = False,
+        direct_spatial: str = "auto",
+        prior_precision: "float | str" = 0.0,
         device=None,
     ):
         if mesh is not None:
@@ -140,6 +150,13 @@ class Run:
             coarse_mode=coarse_mode,
             tile=None if tile is None else tuple(tile),
             chi2_rebaseline_every=chi2_rebaseline_every,
+            direct_tol=direct_tol,
+            direct_maxiter=direct_maxiter,
+            direct_precond=direct_precond,
+            direct_radial_bins=direct_radial_bins,
+            direct_precond_scale=direct_precond_scale,
+            direct_spatial=direct_spatial,
+            prior_precision=prior_precision,
         )
         self.problem = sm.make_problem(cube, self.instrument, self.config,
                                        device=self.device)
@@ -174,10 +191,9 @@ class Run:
                 "a posterior mean to localise sources in a fixed-length "
                 "run.  Coarse passes are NOT auto-enabled at this size — "
                 "the JAX package measured a wall-clock ESS/s loss there.  "
-                "Pass coarse_every=8 with a long run if you need MCMC "
-                "uncertainties here (map_estimate() and sampler='direct', "
-                "the point estimates, are not ported yet: ROADMAP.md, "
-                "Queue 1 item 14).",
+                "Use map_estimate() or sampler='direct' for point "
+                "estimates, or coarse_every=8 with a long run if you need "
+                "MCMC uncertainties here.",
                 self.problem.f, self.problem.Y, self.problem.X,
             )
         if self.config.coarse_every == 0:
@@ -186,6 +202,9 @@ class Run:
         self._states = None
         self._traces = {"chi2": [], "accept": [], "flux": [], "monitor": []}
         self._last_result: Optional[ch.MultiChainResult] = None
+        #: the last map_estimate's PCGResult and resolved τ
+        self.last_map_result = None
+        self.last_map_prior_precision = None
 
     def _set_config(self, **changes) -> None:
         self.config = dataclasses.replace(self.config, **changes)
@@ -195,7 +214,8 @@ class Run:
 
     @property
     def states(self) -> sm.SamplerState:
-        """Chain states (leading chain axis), allocated on first use."""
+        """Chain states (leading chain axis), allocated on first use: a
+        solve-only use (``map_estimate``, the ``map`` command) builds none."""
         if self._states is None:
             self._states = ch.init_chain_states(self.problem, self.n_chains)
         return self._states
@@ -237,6 +257,8 @@ class Run:
                 r = mc.result
                 self._traces["chi2"].append(r.chi2_trace.cpu().numpy())
                 self._traces["accept"].append(r.accept_trace.cpu().numpy())
+                if self.config.sampler == "direct":
+                    self._warn_unconverged(self._traces["accept"][-1])
                 self._traces["flux"].append(r.flux_trace.cpu().numpy())
                 self._traces["monitor"].append(r.monitor_trace.cpu().numpy())
                 writer.write(
@@ -267,11 +289,37 @@ class Run:
         self._warn_if_undermixed()
         return self
 
+    def _warn_unconverged(self, flags: np.ndarray) -> None:
+        """For ``sampler='direct'`` the accept trace carries each draw's
+        convergence flag: unconverged draws bias the accumulators, so a
+        segment that has any says so, with a ridge hint on a flat prior."""
+        n_bad = int(np.sum(flags < 1.0))
+        if not n_bad:
+            return
+        hint = ""
+        if not self.config.prior_precision:
+            from .ops.direct import suggest_prior_precision
+
+            hint = (
+                "; if the flat-prior posterior is near-improper under this "
+                "blur, a weak ridge restores convergence: prior_precision="
+                f"{suggest_prior_precision(self.problem):.2e} (or 'auto' — "
+                "see ops/direct.suggest_prior_precision)")
+        logger.warning(
+            "%d/%d direct draws in this segment did NOT reach direct_tol "
+            "within direct_maxiter=%d iterations — their error biases the "
+            "posterior accumulators; raise direct_maxiter or loosen "
+            "direct_tol%s", n_bad, flags.size, self.config.direct_maxiter,
+            hint)
+
     def _warn_if_undermixed(self) -> None:
         """Warn when the post-burn-in monitor-voxel ESS is ≪ the sample
         count: a chain can equilibrate in χ² while its voxels barely
         decorrelate, and the posterior mean of such a run has not averaged
-        over the blur-null modes.  Needs ≥ 100 post-burn-in sweeps."""
+        over the blur-null modes.  Needs ≥ 100 post-burn-in sweeps; iid
+        direct draws skip it (every draw is one full ESS unit)."""
+        if self.config.sampler == "direct":
+            return
         burn = self.config.resolved_burn_in()
         try:
             mon = self.trace("monitor")          # [C, n, K]
@@ -297,7 +345,8 @@ class Run:
                 hints.append("coarse_every=8 (global pattern passes)")
             if self.config.sampler == "mh":
                 hints.append("sampler='gibbs' or 'gibbs_block'")
-            hints.append("a longer run")
+            hints.append("sampler='direct' (independent exact draws)")
+            hints.append("map_estimate() for a deterministic point estimate")
             logger.warning(
                 "post-burn-in monitor-voxel ESS is %.1f over %d kept "
                 "sweeps (%.1f%%): the chain is equilibrated in chi² but "
@@ -420,11 +469,55 @@ class Run:
         logger.info("resumed at sweep %s", meta.get("sweeps_done"))
         return self
 
-    def map_estimate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Run.map_estimate is not ported to deconv3d_tpu_torch yet: see "
-            "ROADMAP.md, Queue 1 item 14"
-        )
+    def map_estimate(self, tol: Optional[float] = None,
+                     maxiter: Optional[int] = None,
+                     prior_precision: "float | str | None" = None) -> Cube:
+        """MAP (= posterior mean of the linear-Gaussian model) by PCG.
+
+        Deterministic and sampler-independent: solves A c = Kᵀ W d with the
+        preconditioned CG of the direct sampler
+        (``ops.direct.posterior_mean``) on this run's problem — no chains,
+        no burn-in.  ``tol`` / ``maxiter`` default to ``direct_tol`` /
+        ``direct_maxiter``.  ``prior_precision`` τ > 0 adds the ridge prior
+        c ~ N(0, τ⁻¹I) for this solve only (``'auto'``: 1e-4 of the mean
+        weight, ``ops.direct.suggest_prior_precision``): under heavy blur
+        the flat-prior operator is near-singular and CG stalls.  The
+        solve's iterations and relative residual are kept in
+        ``last_map_result``, the τ it used in
+        ``last_map_prior_precision``; a solve that stops short of ``tol``
+        warns.
+        """
+        if self.config.positivity:
+            # the unconstrained Gaussian optimum is not the MAP of the
+            # truncated model
+            raise ValueError(
+                "map_estimate() solves the unconstrained Gaussian model; "
+                "with positivity=True its optimum (negative voxels "
+                "included) is not the constrained model's MAP. Use the "
+                "MCMC posterior mean (deconvolved_cube) instead."
+            )
+        from .ops.direct import posterior_mean, suggest_prior_precision
+
+        if prior_precision == "auto":
+            prior_precision = suggest_prior_precision(self.problem)
+            logger.info("map_estimate prior_precision='auto' -> %.3e",
+                        prior_precision)
+        self.last_map_prior_precision = (
+            prior_precision if prior_precision is not None
+            else self.config.prior_precision)
+        res = posterior_mean(self.problem, tol=tol, maxiter=maxiter,
+                             prior_precision=prior_precision)
+        self.last_map_result = res
+        if res.rel_residual > (tol if tol is not None
+                               else self.config.direct_tol):
+            logger.warning(
+                "map_estimate did not converge: rel_residual %.2e after "
+                "%d iterations — raise maxiter or loosen tol",
+                res.rel_residual, res.iterations)
+        return Cube.from_data(
+            res.x, crval=self.cube.crval, cdelt=self.cube.cdelt,
+            crpix=self.cube.crpix, dtype=self.config.dtype,
+            header=self.cube.header)
 
     # -- results -------------------------------------------------------------
 

@@ -25,10 +25,15 @@ launch.  The scheme is the JAX package's:
   * With ``coarse_every`` set (``Run`` sets 8 for MH on large blurred
     fields), a coarse pattern pass (``ops/coarse.py``) follows every
     ``coarse_every``-th absolute sweep (:func:`coarse_interleave`).
+  * ``'direct'`` (``ops/direct.py``) draws independent exact samples of
+    the whole cube's Gaussian posterior by perturb-and-solve PCG; one
+    sweep is one draw.  Its problem keeps the exact weights and the full
+    FSF (the JAX package runs it on its jnp engine).
 
-Every engine builds the *kernel-engine problem* of the JAX package: weights
-rounded to bfloat16 values before ``quad`` and χ², and the FSF replaced by
-its low-rank reconstruction Σ_s spec_s ⊗ img_s.  The engine follows the
+Every sweep engine builds the *kernel-engine problem* of the JAX package:
+weights rounded to bfloat16 values before ``quad`` and χ², and the FSF
+replaced by its low-rank reconstruction Σ_s spec_s ⊗ img_s (``'direct'``
+keeps both exact).  The engine follows the
 device: on a CUDA device every sweep runs a hand-written kernel, on the
 CPU its plain torch version.  With positivity that is the w̃-weighted
 posterior truncated to clean ≥ 0 — the JAX package runs positivity on its
@@ -59,11 +64,10 @@ import torch
 from . import convolve as cv
 from .cube import Cube, torch_dtype
 from .instruments import Instrument
+from .metrics import logger
 
 #: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
 _NOT_PORTED = {
-    "sampler": "Queue 1 item 14 (direct)",
-    "prior_precision": "Queue 1 item 14 (direct sampler, MAP)",
     "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
     "mesh": "Queue 1 item 16 (torch.distributed)",
 }
@@ -104,7 +108,15 @@ class RunConfig:
     of clean cube, else 0 (off); an int works on every engine
     (:func:`rebaseline_interleave`).
     ``positivity``: clean ≥ 0 (``'mh'``, ``'gibbs'``; not with
-    ``coarse_every`` or ``'gibbs_block'``).
+    ``coarse_every``, ``'gibbs_block'`` or ``'direct'``).
+    ``direct_*`` and ``prior_precision``: the PCG of ``sampler='direct'``
+    and of ``Run.map_estimate`` (``ops/direct.py``): stop tolerance,
+    iteration cap, preconditioner (``'banded'``, ``'banded_radial'``,
+    ``'jacobi'``), radial bins, the diagonal scaling, the M-side ridge
+    (``'auto'``: 1e-2 of the mean weight), the spatial convolution
+    (``'auto'``: FFT); ``prior_precision`` τ ≥ 0 (or ``'auto'``: 1e-4 of
+    the mean weight) adds the ridge prior c ~ N(0, τ⁻¹I), direct only.
+    ``make_problem`` resolves both ``'auto'``s to floats.
     """
 
     max_iterations: int = 1000
@@ -146,6 +158,9 @@ class RunConfig:
     def resolved_burn_in(self) -> int:
         if self.burn_in is not None:
             return self.burn_in
+        if self.sampler == "direct":
+            # iid draws: a burn-in would discard exact samples for nothing
+            return 0
         return self.max_iterations // 2
 
 
@@ -186,15 +201,18 @@ class Problem:
     f: int                          # FSF footprint (odd)
     ny: int                         # ceil(Y / f)
     nx: int                         # ceil(X / f)
-    fsf: torch.Tensor               # [L, f, f] low-rank reconstruction
+    # [L, f, f] the low-rank reconstruction (the full bank for 'direct')
+    fsf: torch.Tensor
     lsf: torch.Tensor               # [L, lw]
     data_pad: torch.Tensor          # [L, Hp, Wp]
-    w_pad: torch.Tensor             # [L, Hp, Wp] bf16-valued 1/variance
-    quad: torch.Tensor              # [L, Yc, Xc]  Σ_{dy,dx} F² w per spaxel
+    # [L, Hp, Wp] 1/variance, bf16-valued (exact for sampler='direct')
+    w_pad: torch.Tensor
+    # [L, Yc, Xc]  Σ_{dy,dx} F² w per spaxel (None for sampler='direct')
+    quad: Optional[torch.Tensor]
     valid: torch.Tensor             # [Yc, Xc] bool
     monitor_idx: torch.Tensor       # [K] flat indices into clean
-    fsf_spec: torch.Tensor          # [S, L]
-    fsf_imgs: torch.Tensor          # [S, f, f]
+    fsf_spec: Optional[torch.Tensor]  # [S, L] (None for sampler='direct')
+    fsf_imgs: Optional[torch.Tensor]  # [S, f, f]
     qvox: Optional[torch.Tensor] = None   # [L, Yc, Xc] voxel precision (gibbs)
     # [L, Yc, Xc] float64 quad − quad, the rounding's remainder (gibbs;
     # None counts as zero)
@@ -202,6 +220,8 @@ class Problem:
     # [Yc, Xc, L, lw] upper banded Cholesky factor of every spaxel's
     # spectrum precision Mᵀ diag(quad) M (gibbs_block)
     chol: Optional[torch.Tensor] = None
+    # [Yc, Xc] λ-mean of quad, kept where quad is not (sampler='direct')
+    quad_mean: Optional[torch.Tensor] = None
     config: RunConfig = RunConfig()
 
     @property
@@ -291,7 +311,7 @@ def _quad_conv(w_pad: torch.Tensor, fsf: torch.Tensor) -> torch.Tensor:
 ENGINES = ("cuda", "cuda_tiled", "torch", "torch_tiled")
 
 #: the ported samplers; the tiled engines run the first two
-SAMPLERS = ("mh", "gibbs", "gibbs_block")
+SAMPLERS = ("mh", "gibbs", "gibbs_block", "direct")
 
 #: clean-cube bytes above which the auto rule switches the χ² rebaseline on
 #: (the JAX package's big-field gate)
@@ -299,7 +319,7 @@ REBASELINE_AUTO_BYTES = 2**28
 
 
 def _check_config(config: RunConfig) -> None:
-    """The JAX package's refusals (``deconv3d_tpu/sampler.py:395-411``, in
+    """The JAX package's refusals (``deconv3d_tpu/sampler.py:395-452``, in
     its order), then what the port has not reached yet."""
     from .ops.coarse import MODES
 
@@ -320,16 +340,42 @@ def _check_config(config: RunConfig) -> None:
             "positivity-truncated joint has no closed form — use "
             "sampler='gibbs' (exact truncated-normal voxel draws)."
         )
+    tau = config.prior_precision
+    if isinstance(tau, str):
+        if tau != "auto":
+            raise ValueError(
+                f"prior_precision must be a float or 'auto', got {tau!r}")
+    elif tau < 0:
+        raise ValueError(f"prior_precision must be >= 0, got {tau}")
+    if config.direct_radial_bins < 1:
+        raise ValueError(f"direct_radial_bins must be >= 1, got "
+                         f"{config.direct_radial_bins}")
+    if config.direct_spatial not in ("auto", "direct", "fft"):
+        raise ValueError(f"direct_spatial must be 'auto', 'direct' or 'fft', "
+                         f"got {config.direct_spatial!r}")
+    tm = config.direct_precond_tau
+    if isinstance(tm, str):
+        if tm != "auto":
+            raise ValueError(
+                f"direct_precond_tau must be a float or 'auto', got {tm!r}")
+    elif tm < 0:
+        raise ValueError(f"direct_precond_tau must be >= 0, got {tm}")
+    if (tau == "auto" or tau > 0) and config.sampler != "direct":
+        raise ValueError(
+            "prior_precision (Gaussian ridge prior) is implemented for "
+            "sampler='direct' and MAP solves only — the MCMC engines "
+            "sample the reference's flat-prior posterior.  For a ridge "
+            "MAP on any run, pass prior_precision to Run.map_estimate() "
+            "instead of the config.")
     if config.sampler not in SAMPLERS:
-        raise not_ported("sampler", config.sampler)
+        raise ValueError(
+            f"sampler must be one of {SAMPLERS}, got {config.sampler!r}")
     if config.coarse_mode not in MODES:
         raise ValueError(
             f"coarse_mode must be one of {MODES}, got {config.coarse_mode!r}")
     if config.coarse_every is not None and config.coarse_every < 0:
         raise ValueError(
             f"coarse_every must be >= 0 (0 = off), got {config.coarse_every}")
-    if config.prior_precision == "auto" or config.prior_precision:
-        raise not_ported("prior_precision", config.prior_precision)
     if config.lambda_chunk:
         raise not_ported("lambda_chunk", config.lambda_chunk)
     if config.engine not in ("auto", *ENGINES):
@@ -377,9 +423,10 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
     deconv3d_tpu_torch.tile_sweep``).  A tiled engine without
     ``config.tile`` plans one (:func:`ops.tiled.plan_tiles`).
     ``'gibbs_block'`` stays on the whole-cube engine (its conditional
-    draws are batched over a color's spaxels); naming a tiled engine or a
-    tile for it raises, as the JAX package's ``pallas_tiled`` does
-    (``deconv3d_tpu/sampler.py:514-523``).
+    draws are batched over a color's spaxels), and so does ``'direct'``
+    (it sweeps no spaxels: the engine names the device); naming a tiled
+    engine or a tile for either raises, as the JAX package's
+    ``pallas_tiled`` does (``deconv3d_tpu/sampler.py:514-523``).
     """
     from .ops import tiled
 
@@ -388,15 +435,15 @@ def resolve_engine(config: RunConfig, device, f: int, ny: int, nx: int,
     if budget is None:
         budget = tiled.WINDOW_BUDGET_BYTES
     tile, engine = config.tile, config.engine
-    if config.sampler == "gibbs_block" and (engine == tiled_engine
-                                            or tile is not None):
+    one_engine = config.sampler in ("gibbs_block", "direct")
+    if one_engine and (engine == tiled_engine or tile is not None):
         raise ValueError(
             f"engine '{tiled_engine}' and tile support sampler='mh' and "
-            f"'gibbs'; sampler='gibbs_block' runs on engine '{whole}'")
+            f"'gibbs'; sampler={config.sampler!r} runs on engine '{whole}'")
     if engine == "auto":
         Hp, Wp = f - 1 + ny * f, f - 1 + nx * f
         big = Hp * Wp * L * 8 > budget
-        if config.sampler == "gibbs_block":
+        if one_engine:
             engine = whole
         elif tile is not None or (device.type == "cuda" and big
                                   and tiled.plan_tiles(f, ny, nx, L, budget)):
@@ -469,13 +516,18 @@ def make_problem(
         lam, size=config.fsf_size, pixel_scale=instrument.pixel_scale
     )
     lsf_np = instrument.lsf.bank(lam, cdelt=cube.cdelt, width=config.lsf_width)
-    # The low-rank reconstruction F̃ = Σ_s spec ⊗ img becomes the forward
-    # model everywhere, so the chain is exact for F̃ (ops/fsf_factor.py).
-    from .ops.fsf_factor import factor_bank
+    direct = config.sampler == "direct"
+    spec_np = imgs_np = None
+    if not direct:
+        # The low-rank reconstruction F̃ = Σ_s spec ⊗ img becomes the
+        # forward model of the sweeps, so the chain is exact for F̃
+        # (ops/fsf_factor.py).  The direct sampler, like the JAX package's
+        # jnp engine, keeps the full FSF.
+        from .ops.fsf_factor import factor_bank
 
-    spec_np, imgs_np, fsf_np, _err = factor_bank(
-        fsf_np, tol=config.fsf_tol, max_rank=config.fsf_max_rank
-    )
+        spec_np, imgs_np, fsf_np, _err = factor_bank(
+            fsf_np, tol=config.fsf_tol, max_rank=config.fsf_max_rank
+        )
 
     f = fsf_np.shape[-1]
     ny, nx = -(-Y // f), -(-X // f)
@@ -494,18 +546,39 @@ def make_problem(
     zero = torch.zeros((), dtype=dtype, device=device)
     w = torch.where(torch.isfinite(var) & (var > 0), 1.0 / var, zero)
     w = torch.where(cube.mask[None], zero, w)
-    # bfloat16-valued weights, as the TPU kernel engines keep them: quad,
-    # chi² and accepts all see the same w̃, so the sampled posterior is the
-    # w̃-weighted one on every engine and device.
-    w = w.to(torch.bfloat16).to(dtype)
+    # the two 'auto' ridges, τ = 1e-4·w̄ and τ_m = 1e-2·w̄ (ops/direct.py),
+    # from the exact weights, resolved here so every consumer sees floats
+    # (float32 products, as the JAX package's)
+    wf = w.to(torch.float32)
+    wbar = wf.sum() / torch.clamp((wf > 0).sum(), min=1)
+    from .ops.direct import AUTO_PRIOR_REL, PRECOND_TAU_REL
+
+    if config.prior_precision == "auto":
+        config = dataclasses.replace(
+            config, prior_precision=float(AUTO_PRIOR_REL * wbar))
+        logger.info("prior_precision='auto' resolved to %.3e (rel=%.0e × "
+                    "mean weight)", config.prior_precision, AUTO_PRIOR_REL)
+    if config.direct_precond_tau == "auto":
+        config = dataclasses.replace(
+            config, direct_precond_tau=float(PRECOND_TAU_REL * wbar))
+    del wf, wbar
+    if not direct:
+        # bfloat16-valued weights, as the TPU kernel engines keep them:
+        # quad, chi² and accepts all see the same w̃, so the sampled
+        # posterior is the w̃-weighted one on every engine and device.  The
+        # direct sampler keeps the exact weights, as the JAX package's jnp
+        # engine does.
+        w = w.to(torch.bfloat16).to(dtype)
     w_pad = torch.zeros((L, Hp, Wp), dtype=dtype, device=device)
     w_pad[:, h : h + Y, h : h + X] = w
     data_pad = torch.zeros((L, Hp, Wp), dtype=dtype, device=device)
     data_pad[:, h : h + Y, h : h + X] = cube.data.to(dtype)
 
     fsf = torch.as_tensor(fsf_np, dtype=dtype, device=device)
-    fsf_spec = torch.as_tensor(spec_np, dtype=dtype, device=device)
-    fsf_imgs = torch.as_tensor(imgs_np, dtype=dtype, device=device)
+    fsf_spec = fsf_imgs = None
+    if not direct:
+        fsf_spec = torch.as_tensor(spec_np, dtype=dtype, device=device)
+        fsf_imgs = torch.as_tensor(imgs_np, dtype=dtype, device=device)
     # quad of the FSF the sweeps apply (Σ_s spec_s ⊗ img_s of the
     # working-precision factors), summed in float64: Δχ² = Σ g²·quad − 2g·lin
     # is exact only for that quad.  Any fixed error in it (another F, a
@@ -514,7 +587,7 @@ def make_problem(
     # exact-Gibbs Δχ² the same way sweep after sweep, and the running χ²
     # drifts linearly from the from-scratch one.  Gibbs therefore also
     # keeps the rounding's remainder, quad_lo = quad₆₄ − quad.
-    quad64 = _quad_conv(w_pad, torch.einsum(
+    quad64 = _quad_conv(w_pad, fsf.double() if direct else torch.einsum(
         "sl,sab->lab", fsf_spec.double(), fsf_imgs.double()))
     quad = quad64.to(dtype)
 
@@ -550,6 +623,12 @@ def make_problem(
         quad_lo = (quad64 - quad.double()).to(dtype)
     if config.sampler == "gibbs_block":
         chol = block_factors(lsf, quad)
+    quad_mean = None
+    if direct:
+        # the direct draws never read quad: keep only the λ-mean that
+        # init_state's jump-scale heuristic reads
+        del quad64
+        quad_mean, quad = quad.mean(dim=0), None
 
     return Problem(
         L=L, Y=Y, X=X, f=f, ny=ny, nx=nx,
@@ -565,6 +644,7 @@ def make_problem(
         qvox=qvox,
         quad_lo=quad_lo,
         chol=chol,
+        quad_mean=quad_mean,
         config=config,
     )
 
@@ -602,7 +682,8 @@ def init_state(problem: Problem, cube: Optional[Cube] = None,
     else:
         # Cauchy random-walk over an ~L-dimensional spectrum: measured
         # adapted scales follow ≈ 3.0·σ·L^(-5/6) (see the JAX package)
-        sigma = 1.0 / torch.sqrt(torch.clamp(p.quad.mean(dim=0), min=1e-20))
+        qmean = p.quad_mean if p.quad is None else p.quad.mean(dim=0)
+        sigma = 1.0 / torch.sqrt(torch.clamp(qmean, min=1e-20))
         log_scale = torch.log(3.0 * float(p.L) ** (-5.0 / 6.0) * sigma).to(dtype)
     log_scale = torch.where(p.valid, log_scale, torch.zeros((), dtype=dtype, device=dev))
 
@@ -643,7 +724,10 @@ def run_sweeps(
     (``ops.sweep.mh_segment`` / ``gibbs_segment``, or on a tiled engine
     ``ops.tiled.tiled_segment``).  ``'gibbs_block'``
     (``ops.sweep.gibbs_block_segment``) runs per color one launch of the
-    banded draw kernel for the whole batch, the rest in torch ops.  Burn-in
+    banded draw kernel for the whole batch, the rest in torch ops;
+    ``'direct'`` (``ops.direct.direct_run_sweeps``) one PCG solve per
+    sweep and chain, the preconditioner's solves one launch of the banded
+    solve kernel per iteration.  Burn-in
     sweeps adapt the per-spaxel MH jump scale and stay out of the posterior
     accumulators.
 
@@ -671,6 +755,10 @@ def run_sweeps(
 
 def _engine_run_sweeps(problem: Problem, state: SamplerState,
                        n_sweeps: int) -> ChainResult:
+    if problem.config.sampler == "direct":
+        from .ops.direct import direct_run_sweeps
+
+        return direct_run_sweeps(problem, state, n_sweeps)
     if problem.config.engine.endswith("_tiled"):
         from .ops import tiled
 
@@ -735,29 +823,36 @@ def rebaseline_interleave(problem: Problem, state: SamplerState,
                        lambda s: rebaseline_chi2(problem, s))
 
 
-#: (weakref(problem), coarse-pass constants) per (problem id, mode): a
-#: segmented run calls :func:`coarse_interleave` once per segment, and the
-#: constants cost full-field convolutions; the weakref drops the entry with
-#: its problem and guards against a recycled id
-_COARSE_CONST_CACHE: dict = {}
+#: (weakref(problem), value) per (problem id, name): constants built once
+#: per problem (a segmented run asks for them once per segment, and they
+#: cost full-field convolutions); the weakref drops the entry with its
+#: problem and guards against a recycled id
+_PROBLEM_CACHE: dict = {}
+
+
+def cached(problem: Problem, name, build):
+    """``build()`` for ``problem`` under ``name``, built on first use and
+    kept while the problem lives."""
+    import weakref
+
+    ckey = (id(problem), name)
+    entry = _PROBLEM_CACHE.get(ckey)
+    if entry is None or entry[0]() is not problem:
+        ref = weakref.ref(problem,
+                          lambda _, k=ckey: _PROBLEM_CACHE.pop(k, None))
+        entry = (ref, build())
+        _PROBLEM_CACHE[ckey] = entry
+    return entry[1]
 
 
 def coarse_constants_of(problem: Problem):
     """The coarse-pass constants of ``problem``'s ``coarse_mode``
     (``ops.coarse.coarse_constants``), built on first use and cached."""
-    import weakref
-
     from .ops import coarse
 
-    ckey = (id(problem), problem.config.coarse_mode)
-    entry = _COARSE_CONST_CACHE.get(ckey)
-    if entry is None or entry[0]() is not problem:
-        ref = weakref.ref(problem,
-                          lambda _, k=ckey: _COARSE_CONST_CACHE.pop(k, None))
-        entry = (ref, coarse.coarse_constants(problem,
-                                              problem.config.coarse_mode))
-        _COARSE_CONST_CACHE[ckey] = entry
-    return entry[1]
+    mode = problem.config.coarse_mode
+    return cached(problem, ("coarse", mode),
+                  lambda: coarse.coarse_constants(problem, mode))
 
 
 def apply_coarse_pass(problem: Problem, state: SamplerState,

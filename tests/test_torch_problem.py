@@ -140,7 +140,6 @@ def test_adapt_and_keep_schedules_match():
 @pytest.mark.parametrize(
     "knob, value",
     [
-        ("sampler", "direct"), ("prior_precision", 1e-3),
         ("lambda_chunk", 4),
     ],
 )

@@ -180,13 +180,18 @@ def test_run_two_chains_diagnostics(rng):
 
 
 def test_run_refuses_what_is_not_ported(rng):
+    """Meshes still raise; ``map_estimate`` works on an MCMC run (a
+    converged MAP cube of the run's shape, no chain state built)."""
     cube, inst = _make_toy(rng, dtype=np.float32)
     kw = dict(fsf_size=5, lsf_width=5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         d3.Run(cube, inst, mesh=object(), **kw)
     run = d3.Run(cube, inst, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.map_estimate()
+    m = run.map_estimate(prior_precision="auto", tol=1e-5, maxiter=2000)
+    assert isinstance(m, d3.Cube) and tuple(m.shape) == tuple(cube.shape)
+    assert np.isfinite(m.data.numpy()).all()
+    assert run.last_map_result.rel_residual <= 1e-5
+    assert run._states is None
 
 
 def test_run_enables_coarse_passes_on_a_large_field():
@@ -210,7 +215,8 @@ def test_import_leaves_jax_out():
         "deconv3d_tpu_torch.ops.tiled, deconv3d_tpu_torch.tile_sweep, "
         "deconv3d_tpu_torch._build, deconv3d_tpu_torch.chains, "
         "deconv3d_tpu_torch.ops.banded, deconv3d_tpu_torch.ops.philox, "
-        "deconv3d_tpu_torch.ops.coarse\n"
+        "deconv3d_tpu_torch.ops.coarse, deconv3d_tpu_torch.ops.direct, "
+        "deconv3d_tpu_torch.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv3d_tpu' or m.startswith('deconv3d_tpu.')]\n"
         "assert not bad, bad\n"
