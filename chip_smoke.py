@@ -90,6 +90,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (raster of (1, 2) tiles, synchronous loads, one block per spaxel in
    gibbs phase (b)) on the run's state (CUDA events); the auto rule's
    engine must be the faster of the first two (within 5%).
+11b. sharded — one chain's sweep on a mesh (``parallel/``), after
+   ``coarse``: (a) ``sharded_band_launch``: the tiled kernel's band
+   arguments (the TPU kernel's ``y_base``) on 68×68×600 (ny = 4) — a band
+   launch on block rows [by0, by0 + nyb) of the whole buffer against one
+   on a buffer cut to the band's window whose row 0 is the field's block
+   row by0: top, interior and bottom, mh and gibbs, C = 1 and 2, one sweep
+   on the Philox draws, residual window, clean, log-scales and outputs
+   bit-equal and the cut launch's draws equal to ``ops/philox.py``'s; (b)
+   ``sharded_shards_vs_plain``: two shards on one card
+   (``Mesh([cuda:0] * 2)``, 136×68×600, all three bands) with
+   ``interior='cuda'`` against ``interior='torch'`` (MH 2 sweeps on the
+   field's untied Philox uniforms, gibbs 1 on the in-kernel draws), under
+   ``compare``'s tolerances, χ² consistency ≤ 1e-5, ms of both; then 2
+   chains × 2 shards, each chain bit-equal to itself alone on 1 × 2; (c)
+   ``sharded_field``, after ``full_field`` on its cube: the default MH flow
+   (8 sweeps and the coarse pass) through ``Run(spatial_mesh=1)`` and
+   ``Run(spatial_mesh=Mesh([cuda:0] * 2))``, and 3 gibbs sweeps through
+   the latter: 3 band launches per shard and sweep, sweeps/s, χ²
+   consistency ≤ 1e-5, peak bytes, ms per band launch (CUDA events) and
+   their sum over a sweep against the unsharded tiled sweep of
+   ``full_field``, the segment's ms per sweep with its copies, and for MH
+   the Run's sweeps/s against the unsharded Run's.
 12. coarse — the banded kernels (``csrc/banded.cu``: Cholesky, conditional
    draw) against their plain versions at L = 3681, lw = 11 (the MUSE LSF):
    one system (the global pass's draw), four (its constants' factors) and
@@ -121,8 +143,11 @@ resident, classic K1 and tiled kernels, each with its launches, ms per
 sweep and bound (:func:`sweep_bound`) on its own path — ``main`` /
 ``gibbs_main``, ``chains``, ``full_field`` — and its error and plain ms
 from its comparison phase, at the shape it names; the tiled ones with
-their tile, schedule, waves, the widest wave's tiles, steps and
-``previous_ms``; the banded ones with their launches on the default MH
+their tile, schedule, waves, the widest wave's tiles, steps,
+``previous_ms`` and their band launches (``sharded_field``, D = 2:
+launches, ms and bound per band launch and per sweep; error and plain ms
+at 136×68×600);
+K2 with positivity on the ``positivity`` phase's shapes; the banded ones with their launches on the default MH
 flow of ``full_field`` and their ms at that flow's shapes; the banded
 solve with its launches on the ``direct`` run), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
@@ -147,6 +172,8 @@ from deconv3d_tpu_torch import convolve as cv
 from deconv3d_tpu_torch.ops import banded as bd, coarse as co
 from deconv3d_tpu_torch.ops import direct as td
 from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
+from deconv3d_tpu_torch.parallel import Mesh
+from deconv3d_tpu_torch.parallel import kernel_sharded as ks
 from deconv3d_tpu_torch.tile_sweep import field_cube
 
 
@@ -538,6 +565,7 @@ def reset_launches():
     for seg in (sw.mh_segment, sw.gibbs_segment):
         seg.launches = seg.resident_launches = 0
     tl.tiled_mh.launches = tl.tiled_gibbs.launches = 0
+    tl.band_mh.launches = tl.band_gibbs.launches = 0
     bd.cholesky_banded.launches = bd.sample_conditional.launches = 0
     bd.banded_solve.launches = 0
 
@@ -1307,11 +1335,28 @@ def phase_positivity():
               "positivity: one tile of K2 is not the resident sweep")
         shape = (600, 34, 34) if sampler == "mh" else (600, 17, 34)
         t0 = time.perf_counter()
-        *_, tiled_kern = tiled_compare(
+        tp, ts, terrs, _, tplain_ms, tiled_kern = tiled_compare(
             bench_cube(*shape), (1, 1), sampler, 1, 12, positivity=True)
+        counter = tiled_counter(sampler)
+        n0 = counter.launches
+        tiled_ms = time_sweeps(lambda k: tl.tiled_segment(tp, ts, k), 10)
+        tiled_launches = counter.launches - n0
+        if tplain_ms is None:
+            tplain_ms = timed(lambda: tl.tiled_segment_reference(
+                tp, ts, 1))[1]
+        out[sampler]["tiled"] = {
+            "launches": tiled_launches, "ms": tiled_ms,
+            "plain_ms": tplain_ms, "shape": list(shape), "tile": [1, 1],
+            "max_abs_err": terrs["resid_max_abs_err"],
+            "bound": sweep_bound(tp, 1, tiled_kern.accept)}
         emit("positivity_tiled", sampler=sampler, shape=list(shape),
              tile=[1, 1], one_tile_equals_resident=one_equal,
+             kernel_ms_per_sweep=tiled_ms, plain_ms_per_sweep=tplain_ms,
+             launches_timed=tiled_launches,
              seconds=time.perf_counter() - t0)
+        check(tiled_launches == 11, "K2 with positivity did not run the "
+              "timed sweeps")
+        del tp, ts
         del problem, off, state, plain, res, cla, one, two, tiled_kern, chains
     for sampler in ("mh", "gibbs"):
         run, out[sampler]["path"] = positivity_run(sampler)
@@ -2007,11 +2052,278 @@ def phase_full_field(sampler, n, cube):
     check_auto_engine("full_field", sampler, cfg.engine,
                       {"cuda_tiled": k2_ms, "cuda": k1_ms})
     return {"launches": launches, "ms": k2_ms, "shape": list(cube.shape),
+            "sweeps_per_sec": n / dt, "sweeps": n,
             "passes": passes, "builds": builds, **banded,
             "bound": bound, "tile": list(cfg.tile), "waves": len(waves),
             "max_wave_tiles": max(map(len, waves)),
             "steps": len(waves) * run.problem.n_colors,
             "previous_ms": previous_ms}
+
+
+def band_counter(sampler):
+    return tl.band_gibbs if sampler == "gibbs" else tl.band_mh
+
+
+#: the bands of a shard of nyl block rows: (name, first block row, rows)
+def shard_bands(nyl):
+    return [(name, rows0 // 17, nyb) for name, rows0, nyb, _
+            in ks._band_rows(nyl, 17)]
+
+
+def phase_band_launch():
+    """(a) The band arguments of the tiled kernel (the TPU kernel's
+    ``y_base``) on 68×68×600 (ny = 4): a band launch on block rows [by0,
+    by0 + nyb) of the whole buffer against a launch on a buffer cut to the
+    band's window rows [by0·f, by0·f + nyb·f + f − 1) whose row 0 is the
+    field's block row by0 — top, interior and bottom, mh and gibbs, C = 1
+    and 2, one sweep on the Philox draws: residual window, clean and
+    log-scale rows and the band's outputs bit-equal; the cut launch's
+    in-kernel draws against ``ops/philox.py`` at the field's rows."""
+    cube = bench_cube(L=600, Y=68, X=68)
+    out = []
+    for sampler in ("mh", "gibbs"):
+        problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+            seed=0, sampler=sampler))
+        f, nx, L = problem.f, problem.nx, problem.L
+        for C in (1, 2):
+            states = ch.init_chain_states(problem, C)
+            for name, by0, nyb in shard_bands(problem.ny):
+                n0 = band_counter(sampler).launches
+                whole = tl.band_segment(problem, ch.stack_chains(
+                    [copy_state(ch.select_chains(states, c))
+                     for c in range(C)]), 1, (by0, nyb))
+                cut_p = sw.cut_problem(problem, by0, nyb)
+                cut = tl.band_segment(
+                    cut_p, sw.cut_state(states, f, by0, nyb, "cuda"), 1,
+                    (0, nyb), gy0=by0, record_uniforms=True)
+                torch.cuda.synchronize()
+                launches = band_counter(sampler).launches - n0
+                w, c = whole.result.state, cut.result.state
+                y0, rows = by0 * f, nyb * f
+                equal = {
+                    "resid": torch.equal(w.resid[..., y0:y0 + rows + f - 1, :],
+                                         c.resid),
+                    "clean": torch.equal(w.clean[..., y0:y0 + rows, :],
+                                         c.clean),
+                    "log_scale": torch.equal(
+                        w.log_scale[..., y0:y0 + rows, :], c.log_scale),
+                    "outputs": torch.equal(
+                        whole.accept[..., by0 * nx:(by0 + nyb) * nx],
+                        cut.accept) and torch.equal(
+                        whole.dchi[..., by0 * nx:(by0 + nyb) * nx],
+                        cut.dchi),
+                }
+                draws = (philox.sweep_uniforms if sampler == "mh"
+                         else philox.gibbs_sweep_uniforms)
+                want = torch.stack([draws(
+                    key, 0, problem.n_colors, nyb * nx, L, device="cuda",
+                    row0=by0 * nx) for key in sw._chain_keys(states.key)])
+                equal["philox"] = torch.equal(cut.uniforms[0], want)
+                moved = int((w.clean[..., y0:y0 + rows, :]
+                             != states.clean[..., y0:y0 + rows, :]).sum())
+                out.append({"sampler": sampler, "C": C, "band": name,
+                            "by0": by0, "nyb": nyb, "launches": launches,
+                            "voxels_moved": moved, "bit_equal": equal})
+                check(launches == 2, f"band launches {launches}, expected 2")
+                check(moved > 0, "the band moved nothing; check is vacuous")
+                check(all(equal.values()), f"band {name} ({sampler}, C={C}): "
+                      f"{[k for k, v in equal.items() if not v]} differ")
+    emit("sharded_band_launch", shape=list(cube.shape), checks=out)
+    return out
+
+
+def phase_sharded_shards(n_mh=2, n_gibbs=1):
+    """(b) Two shards on one card, ``Mesh([cuda:0] * 2)``, on 136×68×600
+    (ny = 8, nyl = 4: all three bands): ``interior='cuda'`` (the band
+    launches) against ``interior='torch'`` (the plain band scans) from one
+    state, MH 2 sweeps on the field's Philox draws untied and injected,
+    gibbs 1 sweep on the in-kernel Philox draws, under ``compare``'s
+    tolerances; χ² consistency of the kernel run ≤ 1e-5; ms per sweep of
+    both.  Then 2 chains × 2 shards against each chain alone on the 1×2
+    mesh, bit for bit."""
+    cube = bench_cube(L=600, Y=136, X=68)
+    dev = torch.device("cuda", 0)
+    mesh = Mesh([dev, dev], ("sp",))
+    devices = mesh.rows("sp")[0]
+    out = {}
+    for sampler, n in (("mh", n_mh), ("gibbs", n_gibbs)):
+        problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+            seed=0, sampler=sampler))
+        state = sm.init_state(problem)
+        u = None
+        if sampler == "mh":
+            u0 = torch.stack([philox.sweep_uniforms(
+                int(state.key), s, problem.n_colors, problem.ny * problem.nx,
+                problem.L, device="cuda") for s in range(n)])
+            u, plain = sw.untie_uniforms(
+                problem, state, n, u0, reference=lambda p_, s_, k_, u_:
+                ks.segment(p_, s_, k_, devices, "torch", u_))
+            plain_ms = None
+        else:
+            plain, plain_ms = timed(lambda: ks.segment(
+                problem, copy_state(state), n, devices, "torch"))
+            plain_ms /= n
+        counter = band_counter(sampler)
+        n0 = counter.launches
+        kern, kernel_ms = timed(lambda: ks.segment(
+            problem, copy_state(state), n, devices, "cuda", u))
+        launches = counter.launches - n0
+        errs = compare(plain, kern, sampler)
+        consistency = abs(float(kern.result.state.chi2) - float(
+            sm.full_chi2(problem, kern.result.state))) / float(
+            sm.full_chi2(problem, kern.result.state))
+        ms = time_sweeps(lambda k: ks.segment(problem, state, k, devices,
+                                              "cuda"), 4)
+        if plain_ms is None:
+            plain_ms = timed(lambda: ks.segment(
+                problem, state, 1, devices, "torch"))[1]
+        emit("sharded_shards_vs_plain", sampler=sampler,
+             shape=list(cube.shape), mesh=str(mesh), sweeps=n,
+             bands=shard_bands(problem.ny // 2), launches=launches,
+             chi2_consistency=consistency, kernel_ms_per_sweep=ms,
+             plain_ms_per_sweep=plain_ms, **errs)
+        check(launches == 3 * 2 * n, f"{launches} band launches, expected "
+              f"{3 * 2 * n}")
+        check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+        out[sampler] = {"max_abs_err": errs["resid_max_abs_err"], "ms": ms,
+                        "plain_ms": plain_ms, "shape": list(cube.shape),
+                        "launches": launches,
+                        "bound": sweep_bound(problem, 1, kern.accept)}
+    # chains x spatial: each chain bit-equal to itself alone on 1 x 2
+    problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(seed=0))
+    states = ch.init_chain_states(problem, 2)
+    mesh2 = Mesh([[dev, dev], [dev, dev]], ("ch", "sp"))
+    mc = ch.run_chains(problem, 2, 2, mesh=mesh2, states=states,
+                       axis_name="ch", spatial_axis="sp")
+    equal = []
+    for i in range(2):
+        alone = ks.run_sweeps_kernel_sharded(
+            problem, ch.select_chains(states, i), 2, mesh)
+        equal.append(all(torch.equal(getattr(mc.result.state, name)[i],
+                                     getattr(alone.state, name))
+                         for name in ("clean", "resid", "log_scale", "chi2")))
+    differ = not torch.equal(mc.result.state.clean[0],
+                             mc.result.state.clean[1])
+    emit("sharded_chains_x_spatial", shape=list(cube.shape),
+         mesh=str(mesh2), sweeps=2, chain_alone_bit_equal=equal,
+         chains_differ=differ)
+    check(all(equal) and differ, "chains x spatial differs from the chains "
+          "alone")
+    return out
+
+
+def phase_sharded_field(cube, unsharded, card, n=8, n_gibbs=3):
+    """(c) The full field, 300×300×3681, in the default MH flow (8 sweeps
+    and the coarse pass after sweep 8) through ``Run(spatial_mesh=1)`` and
+    ``Run(spatial_mesh=Mesh([cuda:0] * 2))``, and ``n_gibbs`` gibbs sweeps
+    through ``Run(spatial_mesh=Mesh([cuda:0] * 2), sampler='gibbs')``:
+    band launches of the run (every count set to 0 just before it),
+    sweeps/s, χ² consistency, peak memory; then one sweep of the band
+    segment on the run's state with CUDA events around every band launch:
+    ms per band launch, their sum over the sweep and the segment's ms per
+    sweep including its layout copies and gathers.  Two ratios to the
+    unsharded runs of ``full_field`` (``unsharded``): the sum of the band
+    launches over the unsharded K2 sweep (both kernel time only), and, for
+    MH, whose flows match (8 sweeps and the pass), the Run's sweeps/s over
+    the unsharded Run's.  Beside the card's name and power limit
+    (``card``, from ``nvidia-smi``)."""
+    dev = torch.device("cuda", 0)
+    two = Mesh([dev, dev], ("sp",))
+    out = {}
+    for label, mesh, sampler, n_run in (("D1", 1, "mh", n),
+                                        ("D2", two, "mh", n),
+                                        ("gibbs_D2", two, "gibbs", n_gibbs)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = d3.Run(cube, d3.MUSE(), max_iterations=n_run,
+                     burn_in=n_run // 2, seed=0, sampler=sampler,
+                     spatial_mesh=mesh)
+        run.states
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        coarse_every = 8 if sampler == "mh" else None
+        check(run._spatial_kernel and run.config.coarse_every == coarse_every,
+              f"the sharded {sampler} run is not on the band path with "
+              f"coarse_every={coarse_every}")
+        D = run.spatial_mesh.shape["sp"]
+        counter = band_counter(sampler)
+        reset_launches()
+        t0 = time.perf_counter()
+        run.run(n_run)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counter.launches
+        peak = torch.cuda.max_memory_allocated()
+        consistency = chi2_consistency(run)
+        diag = run.diagnostics()
+        devices = run.spatial_mesh.rows("sp")[0]
+        # ms per band launch: CUDA events around every launch of one sweep
+        plan = ks._band_plan(run.problem, D)
+        events, band_sweep = [], tl.band_sweep
+
+        def timed_band(k, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            band_sweep(k, *args)
+            end.record()
+            events.append((k.rows, start, end))
+
+        state = ch.select_chains(run.states, 0)
+        tl.band_sweep = timed_band
+        try:
+            seg_ms = timed(lambda: ks.segment(run.problem, state, 1, devices,
+                                              "cuda"))[1]
+        finally:
+            tl.band_sweep = band_sweep
+        torch.cuda.synchronize()
+        check(len(events) == 3 * D, f"{len(events)} band launches timed in "
+              f"one sweep of {D} shards")
+        per_band = {}
+        for rows, start, end in events:
+            name = next(b[0] for b in plan if b[1] // run.problem.f == rows[0])
+            per_band.setdefault(name, []).append(start.elapsed_time(end))
+        band_ms = {name: sum(v) / len(v) for name, v in per_band.items()}
+        launches_ms = sum(sum(v) for v in per_band.values())
+        bounds = {}
+        for name, rows0, nyb, _, _ in plan:
+            cut = sw.cut_problem(run.problem, rows0 // run.problem.f, nyb)
+            bounds[name] = sweep_bound(cut, 1, torch.tensor(
+                [diag["acceptance_rate"]]))
+            del cut
+        bound_ms = D * sum(b["bound_ms"] for b in bounds.values())
+        base = unsharded[sampler]
+        rate = n_run / dt
+        rate_ratio = (rate / base["sweeps_per_sec"] if sampler == "mh"
+                      else None)
+        emit("sharded_field", card=card, sampler=sampler, mesh=label,
+             shards=D, shape=list(cube.shape),
+             sweeps=n_run, band_launches=launches,
+             band_launches_per_sweep=launches / n_run,
+             bands=[[b[0], b[1] // run.problem.f, b[2], list(b[4])]
+                    for b in plan],
+             setup_s=setup_s, sweeps_per_sec=rate, ms_per_sweep=dt / n_run * 1e3,
+             ms_per_band_launch=band_ms, band_launches_ms_per_sweep=launches_ms,
+             segment_ms_per_sweep_incl_copies=seg_ms,
+             band_bound_ms={k: v["bound_ms"] for k, v in bounds.items()},
+             sweep_bound_ms=bound_ms,
+             unsharded_k2_ms_per_sweep=base["ms"],
+             ratio_band_launches_to_unsharded_k2=launches_ms / base["ms"],
+             unsharded_run_sweeps_per_sec=base["sweeps_per_sec"],
+             ratio_run_rate_to_unsharded=rate_ratio,
+             chi2_consistency=consistency, acceptance=diag["acceptance_rate"],
+             peak_bytes=peak, chi2=diag["chi2"])
+        check(launches == 3 * D * n_run, f"{launches} band launches for "
+              f"{n_run} sweeps of {D} shards")
+        check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
+        check(np.isfinite(diag["chi2"]), "chi2 not finite")
+        out[label] = {"launches": launches, "band_ms": band_ms,
+                      "launches_ms": launches_ms, "seg_ms": seg_ms,
+                      "bounds": bounds, "bound_ms": bound_ms, "plan": plan,
+                      "sweeps": n_run}
+        del run, state
+    return out
 
 
 class WarningCounts(logging.Handler):
@@ -2074,6 +2386,8 @@ def main() -> int:
     tiled = phase_tiled_kernel()
     phase_tiled_vs_whole()
     coarse = phase_coarse()
+    phase_band_launch()
+    sharded = phase_sharded_shards()
     positivity = phase_positivity()
     block = phase_gibbs_block()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2081,6 +2395,7 @@ def main() -> int:
     cube = field_cube()
     field = {sampler: phase_full_field(sampler, n, cube)
              for sampler, n in (("gibbs", 16), ("mh", 8))}
+    sharded_field = phase_sharded_field(cube, field, smi)
     direct["field"] = phase_direct_field(cube)
     del cube
     check((torch.backends.cuda.matmul.allow_tf32,
@@ -2097,6 +2412,26 @@ def main() -> int:
         """A comparison phase's numbers, kept under the key of its shape."""
         return {"max_abs_err": d["max_abs_err"], "ms": d["ms"],
                 "plain_ms": d["plain_ms"], **bound(d["bound"])}
+
+    def band_fields(sampler):
+        """The band launches of the same kernel (its y_base port) on the
+        sharded full field, Run(spatial_mesh=Mesh([cuda:0] * 2)): the
+        launches of that run, the ms of one sweep's launches (CUDA events);
+        the error and the plain version's time from phase (b)."""
+        d2 = sharded_field["D2" if sampler == "mh" else "gibbs_D2"]
+        return {"band_launches": d2["launches"],
+                "band_launches_path": "sharded_field, Run(spatial_mesh="
+                f"Mesh([cuda:0] * 2), sampler={sampler!r}), "
+                f"{d2['sweeps']} sweeps",
+                "band_ms_per_launch": d2["band_ms"],
+                "band_bound_ms_per_launch": {
+                    k: v["bound_ms"] for k, v in d2["bounds"].items()},
+                "band_launches_ms_per_sweep": d2["launches_ms"],
+                "band_bound_ms_per_sweep": d2["bound_ms"],
+                "band_max_abs_err_600x136x68":
+                    sharded[sampler]["max_abs_err"],
+                "band_plain_ms_per_sweep_600x136x68":
+                    sharded[sampler]["plain_ms"]}
 
     # every entry's launches, ms and bound_ms come from the one path that
     # launches it (its ms between CUDA events on that path's state);
@@ -2155,6 +2490,7 @@ def main() -> int:
                          "the raster here"
                          if field[sampler]["max_wave_tiles"] == 1 else None,
         "steps": field[sampler]["steps"],
+        **band_fields(sampler),
         "previous_ms": field[sampler]["previous_ms"],
         "previous_ms_is": "this run's sweep in the kernel's earlier design: "
                           "raster of (1, 2) tiles, synchronous loads, one "
@@ -2218,6 +2554,23 @@ def main() -> int:
             "n_chains_1_600x30x30": {
                 "max_abs_err": pos["classic_max_abs_err"],
                 "ms": pos["classic_ms"], "plain_ms": pos["plain_ms"]},
+            "library_ms": None,
+        })
+    # K2 with positivity, on the positivity phase's comparison shapes
+    for sampler in ("mh", "gibbs"):
+        tp = positivity[sampler]["tiled"]
+        lines.append({
+            "name": f"tiled_{sampler}<positivity>",
+            "route": "cuda",
+            "source": "deconv3d_tpu_torch/csrc/tiled_sweep.cu",
+            "replaces": "deconv3d_tpu/ops/pallas_tiled.py:154"
+                        f" (mode {sampler}, {modes[sampler]}) with the JAX "
+                        "package's positivity",
+            "launches": tp["launches"],
+            "launches_path": "positivity (tiled_segment, timed sweeps)",
+            "shape": tp["shape"], "tile": tp["tile"], "n_chains": 1,
+            "max_abs_err": tp["max_abs_err"], "ms": tp["ms"],
+            "plain_ms": tp["plain_ms"], **bound(tp["bound"]),
             "library_ms": None,
         })
     # gibbs_block: the banded kernels at its shapes (L = 600)

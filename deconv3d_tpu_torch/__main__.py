@@ -73,7 +73,8 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--initial", choices=["zeros", "data"], default="zeros")
     p.add_argument("--spatial-shards", type=int, default=None,
                    help="shard ONE chain's sweep over this many devices "
-                        "(not ported yet)")
+                        "(the first k CUDA devices; with --device cpu, k "
+                        "slots of the CPU)")
     p.add_argument("--no-variance", action="store_true",
                    help="skip the posterior-variance accumulator (saves "
                         "~2 cubes of device memory on huge fields)")
@@ -139,16 +140,14 @@ def _build_instrument(args):
 
 def cmd_run(args) -> int:
     from .run import Run
-    from .sampler import not_ported
 
-    if args.spatial_shards is not None:
-        raise not_ported("mesh", args.spatial_shards)
     run = Run(
         args.cube, _build_instrument(args),
         max_iterations=args.iterations, burn_in=args.burn_in,
         n_chains=args.chains, seed=args.seed, sampler=args.sampler,
         engine=args.engine, positivity=args.positivity,
-        initial=args.initial, track_variance=not args.no_variance,
+        initial=args.initial, spatial_mesh=args.spatial_shards,
+        track_variance=not args.no_variance,
         coarse_every=args.coarse_every, coarse_mode=args.coarse_mode,
         prior_precision=args.prior_precision,
         direct_radial_bins=args.direct_radial_bins,

@@ -4,9 +4,11 @@ Counterpart of ``deconv3d_tpu/chains.py``.  All chains of a run go through
 one batched segment per call (``sampler.run_sweeps`` on a chain-stacked
 state: on a CUDA device one kernel launch per sweep for the whole batch);
 they are split into groups only where the batch's working set would not fit
-the card's free memory.  Convergence is quantified with split-R̂
-(Gelman-Rubin) and effective sample size from per-sweep traces (NumPy,
-unchanged from the JAX package).
+the card's free memory.  On a mesh (``parallel/mesh.py``) the chains split
+over its slots, each slot's group one batch on its device; with a spatial
+axis each chain also shards its sweep (``parallel/kernel_sharded.py``).
+Convergence is quantified with split-R̂ (Gelman-Rubin) and effective
+sample size from per-sweep traces (NumPy, unchanged from the JAX package).
 """
 
 from __future__ import annotations
@@ -236,12 +238,20 @@ def _check_direct_chains(problem: sm.Problem, n_chains: int) -> None:
             "more max_iterations.")
 
 
+def to_device(obj, device):
+    """A dataclass of tensors (nested ones too) with every tensor on
+    ``device``."""
+    return _fieldwise(lambda vals: vals[0].to(device), [obj])
+
+
 def run_chains(
     problem: sm.Problem,
     n_chains: int,
     n_sweeps: Optional[int] = None,
     mesh=None,
     states: Optional[sm.SamplerState] = None,
+    axis_name: str = "chains",
+    spatial_axis: Optional[str] = None,
 ) -> MultiChainResult:
     """Run ``n_chains`` independent chains in lockstep, batched.
 
@@ -252,15 +262,61 @@ def run_chains(
     same numbers in any batch.  ``sampler='direct'`` draws chain by chain
     (``ops.direct.direct_run_sweeps``); several chains raise where one
     draw's working set does not fit the card beside their states.
+
+    ``mesh`` (``parallel.Mesh``) with the axis ``axis_name``: the chains
+    split over its slots (``n_chains`` a multiple of their number), each
+    slot's group a batch on its device against the problem's copy there;
+    the results come back to the problem's device, bit-equal to the run
+    without a mesh.  With ``spatial_axis`` set, ``mesh`` is 2-D
+    ``(axis_name, spatial_axis)`` and each chain also Y-shards its sweep
+    over its mesh row at kernel rate
+    (``parallel.kernel_sharded.run_chains_kernel_sharded``).
     """
-    if mesh is not None:
-        raise sm.not_ported("mesh", mesh)
     if n_sweeps is None:
         n_sweeps = problem.config.max_iterations
+    if spatial_axis is not None:
+        from .parallel.kernel_sharded import run_chains_kernel_sharded
+
+        if mesh is None:
+            raise ValueError(
+                "spatial_axis needs an explicit 2-D mesh "
+                f"({axis_name!r}, {spatial_axis!r})")
+        return run_chains_kernel_sharded(
+            problem, n_chains, n_sweeps, mesh, states=states,
+            chain_axis=axis_name, axis_name=spatial_axis)
     if problem.config.sampler == "direct":
         _check_direct_chains(problem, n_chains)
     if states is None:
         states = init_chain_states(problem, n_chains)
+    if mesh is not None:
+        return _run_chains_mesh(problem, n_chains, n_sweeps, mesh, states,
+                                axis_name)
+    return _run_chains_local(problem, n_chains, n_sweeps, states)
+
+
+def _run_chains_mesh(problem, n_chains, n_sweeps, mesh, states, axis_name):
+    from .parallel.sweep_sharded import mesh_axis
+
+    devices = mesh_axis(mesh, axis_name)
+    D = len(devices)
+    if n_chains % D:
+        raise ValueError(f"n_chains={n_chains} must be a multiple of the "
+                         f"mesh's {axis_name!r} size {D}")
+    per = n_chains // D
+    results = []
+    for d, dev in enumerate(devices):
+        p_d = problem if dev == problem.device else sm.cached(
+            problem, ("on", str(dev)), lambda: problem.to(dev))
+        group = to_device(select_chains(states, slice(d * per, (d + 1) * per)),
+                          p_d.device)
+        results.append(to_device(
+            _run_chains_local(p_d, per, n_sweeps, group).result,
+            problem.device))
+    return MultiChainResult(result=results[0] if D == 1
+                            else _fieldwise(torch.cat, results))
+
+
+def _run_chains_local(problem, n_chains, n_sweeps, states):
     cb = max_chain_batch(problem, n_chains)
     results = [
         sm.run_sweeps(problem, select_chains(states, slice(lo, lo + cb)),

@@ -140,6 +140,8 @@ struct GibbsArgs {
   int lam_b;               // wavelengths per slab of phase (b)
   int max_spaxels;         // (chain, spaxel)s of the largest step
   uint32_t sweep;
+  int by0;                 // tiled band launch: its first carried block row
+  int ij0;                 // the field's spaxel row of carried row 0
 };
 
 __host__ __device__ inline int gibbs_window_lo(int lw) { return 2 * (lw - 1); }
@@ -303,8 +305,8 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
         u1 = a.uniforms[out * 2 * L + l];
         u2 = a.uniforms[out * 2 * L + L + l];
       } else {
-        u1 = lambda_uniform(k0, k1, a.sweep, c, ij, l, kStreamNormalU1);
-        u2 = lambda_uniform(k0, k1, a.sweep, c, ij, l, kStreamNormalU2);
+        u1 = lambda_uniform(k0, k1, a.sweep, c, ij + a.ij0, l, kStreamNormalU1);
+        u2 = lambda_uniform(k0, k1, a.sweep, c, ij + a.ij0, l, kStreamNormalU2);
       }
       if (a.uniforms_out && l >= s0 && l < s1) {
         a.uniforms_out[out * 2 * L + l] = u1;

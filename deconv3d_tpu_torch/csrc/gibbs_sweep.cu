@@ -99,7 +99,7 @@ int gibbs_sweep_launch(float* resid, const float* w, const float* quad,
   GibbsArgs a{resid, w, quad, quad_lo, qvox, clean, valid, spec, imgs, lsf, keys,
               uniforms, live_out, dchi_out, uniforms_out, scratch, nullptr,
               nullptr, C, L, Ls, f, ny, nx, S, lw, ny, nx, 1, stages, lam_b,
-              C * ny * nx, sweep};
+              C * ny * nx, sweep, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
     return launch_gibbs(

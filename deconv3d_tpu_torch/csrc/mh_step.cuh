@@ -85,6 +85,8 @@ struct MhArgs {
   int stages;              // ring stages (0: synchronous loads)
   uint32_t sweep;
   float adapt, target;
+  int by0;                 // tiled band launch: its first carried block row
+  int ij0;                 // the field's spaxel row of carried row 0
 };
 
 // Shared memory of one block: the ring's barriers, FSF images, per-warp
@@ -211,7 +213,7 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
         if (m >= 0 && m < L) {
           const float u = a.uniforms
                               ? a.uniforms[ubase + m]
-                              : jump_uniform(k0, k1, a.sweep, c, k.ij, m);
+                              : jump_uniform(k0, k1, a.sweep, c, k.ij + a.ij0, m);
           if (a.uniforms_out && q >= half && q < half + kChunk)
             a.uniforms_out[ubase + m] = u;
           jump = mh_jump(u, scale, v);
@@ -278,7 +280,7 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
                            ? a.uniforms[out * (L + 1) + L]
                            : accept_uniform(sh.key[2 * k.ch],
                                             sh.key[2 * k.ch + 1], a.sweep, c,
-                                            k.ij);
+                                            k.ij + a.ij0);
       const bool acc = (logf(u2) < -0.5f * dchi) && (v > 0.0f);
       if (lane == 0) {
         sh.flag[warp] = acc ? 1.0f : 0.0f;

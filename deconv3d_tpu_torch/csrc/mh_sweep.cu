@@ -103,7 +103,7 @@ int mh_sweep_launch(float* resid, const float* w, const float* quad,
   MhArgs a{resid, w, quad, clean, log_scale, valid, spec, imgs, lsf, keys,
            uniforms, accept_out, dchi_out, uniforms_out, scratch, nullptr,
            nullptr, C, L, Ls, f, ny, nx, S, lw, ny, nx, 1, stages, sweep, adapt,
-           target};
+           target, 0, 0};
   const long long spaxels = static_cast<long long>(C) * ny * nx;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {

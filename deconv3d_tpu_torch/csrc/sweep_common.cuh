@@ -62,18 +62,21 @@ __host__ __device__ inline int block_threads(int f) {
 
 // One step of a sweep: the spaxels of color (cy, cx) in `n` tiles of
 // nyt x nxt spaxel blocks -- the tiles of one wave for the tiled kernel
-// (`tiles`: their raster indices in the field's ntx tile columns), the
-// whole field as one tile for the whole-cube kernels (`tiles` null).
-// Local spaxel i of the step is global spaxel row ij(i); every per-spaxel
-// array, output and random number is indexed by the global row, so a
-// spaxel's visit computes the same bits under any tiling and schedule.
+// (`tiles`: their raster indices in the band's ntx tile columns; the band
+// is the block rows from by0 of the carried grid, the whole grid unless a
+// band launch says otherwise), the whole field as one tile for the
+// whole-cube kernels (`tiles` null).  Local spaxel i of the step is spaxel
+// row ij(i) of the carried grid; every per-spaxel array and output is
+// indexed by that row, every random number by the field's row (the
+// kernel's `ij0` added), so a spaxel's visit computes the same bits under
+// any tiling, schedule and band.
 struct Step {
-  int c, cy, cx, nyt, nxt, ntx, n;
+  int c, cy, cx, nyt, nxt, ntx, n, by0;
   const int* tiles;
   __device__ Step(int c_, int f, int nyt_, int nxt_, int ntx_,
-                  const int* tiles_, int n_)
+                  const int* tiles_, int n_, int by0_ = 0)
       : c(c_), cy(c_ / f), cx(c_ % f), nyt(nyt_), nxt(nxt_), ntx(ntx_),
-        n(n_), tiles(tiles_) {}
+        n(n_), by0(by0_), tiles(tiles_) {}
   // color c over the whole ny x nx field
   __device__ static Step whole(int c, int f, int ny, int nx) {
     return Step(c, f, ny, nx, 1, nullptr, 1);
@@ -82,7 +85,8 @@ struct Step {
   __device__ int ij(int i, int nx) const {
     const int per = nyt * nxt, t = i / per, k = i - t * per;
     const int tile = tiles ? tiles[t] : 0;
-    return ((tile / ntx) * nyt + k / nxt) * nx + (tile % ntx) * nxt + k % nxt;
+    return (by0 + (tile / ntx) * nyt + k / nxt) * nx + (tile % ntx) * nxt +
+           k % nxt;
   }
 };
 
@@ -318,6 +322,18 @@ inline int launch_variant(int S, bool pos, Launch&& launch) {
                   : launch(Any{}, std::true_type{});
   return S == 1 ? launch(One{}, std::false_type{})
                 : launch(Any{}, std::false_type{});
+}
+
+// A band launch of the tiled kernel: the step grid is block rows [by0, by0
+// + nyb) of the carried ny-row grid, in nyt-row tiles, and the carried
+// grid's row 0 is block row gy0 of the field, whose spaxel rows key the
+// random numbers (24 bits of the counter).  by0 = 0, nyb = ny, gy0 = 0 is
+// the whole field.  0 = fine.
+inline int check_band(int ny, int nx, int nyt, int by0, int nyb, int gy0) {
+  if (nyt < 1 || nyb < 1 || nyb % nyt != 0 || by0 < 0 || by0 + nyb > ny ||
+      gy0 < 0 || static_cast<long long>(gy0 + ny) * nx >= (1LL << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 // Geometry checks shared by every launch (0 = fine).

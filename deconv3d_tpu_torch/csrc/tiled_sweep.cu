@@ -46,6 +46,16 @@
 // steps touch; a raster of tiles planned under the L2 budget keeps it in
 // the 50 MB L2, the windows of a wave together do not fit it.
 //
+// A band launch (the y_base argument of the TPU kernel, :155, :190-192,
+// which parallel/kernel_sharded.py passes) sweeps only the block rows [by0,
+// by0 + nyb) of the carried grid -- a shard's residual with its f - 1
+// replica rows -- in nyb / nyt tile rows: the band's window starts by0 * f
+// rows down the carried residual, and its spaxels keep their carried rows
+// for every per-spaxel array and output.  gy0, the field's block row of the
+// carried row 0, keys the random numbers, so a band draws the numbers of
+// its spaxels' field rows in any shard.  by0 = 0, nyb = ny, gy0 = 0 is the
+// whole field: the same bits as before the band arguments.
+//
 // What bounds it.  Every residual and weight voxel is read f^2 times per
 // sweep (and the residual written back at every commit): 289 x 3.05 GB at
 // the full field, 0.26 s of HBM time for the reads alone unless a window
@@ -74,7 +84,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int n = a.wave_start[wv + 1] - t0;   // over all its tiles
     for (int c = 0; c < n_colors; ++c)
       mh_step<kS, kPos>(a, sh, smem, maps,
-              Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n), grid, clk);
+              Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n, a.by0),
+              grid, clk);
   }
   clk.flush();
 }
@@ -94,8 +105,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int n = a.wave_start[wv + 1] - t0;
     for (int c = 0; c < n_colors; ++c)
       gibbs_step<kS, kPos>(a, sh, smem, maps,
-                 Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n), grid,
-                 clk);
+                 Step(c, a.f, a.nyt, a.nxt, ntx, a.wave_tiles + t0, n, a.by0),
+                 grid, clk);
   }
   clk.flush();
 }
@@ -126,8 +137,10 @@ int task_phase_clocks(unsigned long long* out) {
 
 // Launch one tiled MH sweep of C chains with nyt x nxt tiles on `stream`,
 // in the order of the schedule `wave_start` [n_waves + 1] / `wave_tiles`
-// (device ints; at most `max_tiles` tiles in a wave); the rows of `resid`
-// and `w` hold `Ls` >= L floats; `scratch` holds
+// (device ints; at most `max_tiles` tiles in a wave, raster indices of the
+// band's tiles); the band: block rows [by0, by0 + nyb) of the carried
+// ny x nx grid, whose row 0 is the field's block row gy0 (check_band); the
+// rows of `resid` and `w` hold `Ls` >= L floats; `scratch` holds
 // mh_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats;
 // `positivity` as in mh_sweep_launch.  Returns a cudaError_t (0 on success),
 // checked right after the launch.
@@ -139,16 +152,18 @@ int tiled_mh_launch(float* resid, const float* w, const float* quad,
                     float* scratch, const int* wave_start,
                     const int* wave_tiles, int C, int L, int Ls, int f, int ny,
                     int nx, int S, int lw, int nyt, int nxt, int n_waves,
-                    int max_tiles, int stages, int positivity, unsigned sweep,
-                    float adapt, float target, void* stream) {
+                    int max_tiles, int stages, int by0, int nyb, int gy0,
+                    int positivity, unsigned sweep, float adapt, float target,
+                    void* stream) {
   using namespace deconv3d;
-  if (const int e = check_dims(C, L, f, ny, nx, S, lw, nyt, nxt)) return e;
+  if (const int e = check_dims(C, L, f, ny, nx, S, lw, 1, nxt)) return e;
+  if (const int e = check_band(ny, nx, nyt, by0, nyb, gy0)) return e;
   if (const int e = check_schedule(wave_start, wave_tiles, n_waves, max_tiles))
     return e;
   MhArgs a{resid, w, quad, clean, log_scale, valid, spec, imgs, lsf, keys,
            uniforms, accept_out, dchi_out, uniforms_out, scratch, wave_start,
            wave_tiles, C, L, Ls, f, ny, nx, S, lw, nyt, nxt, n_waves, stages,
-           sweep, adapt, target};
+           sweep, adapt, target, by0, gy0 * nx};
   const long long spaxels = static_cast<long long>(C) * max_tiles * nyt * nxt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
@@ -158,7 +173,8 @@ int tiled_mh_launch(float* resid, const float* w, const float* quad,
   });
 }
 
-// Launch one tiled exact-Gibbs sweep of C chains, as tiled_mh_launch;
+// Launch one tiled exact-Gibbs sweep of C chains (and band), as
+// tiled_mh_launch;
 // `lam_b` wavelengths per slab of phase (b); `scratch` holds
 // gibbs_sweep_scratch_floats(L, C * max_tiles * nyt * nxt,
 // positivity) floats;
@@ -173,16 +189,19 @@ int tiled_gibbs_launch(float* resid, const float* w, const float* quad,
                        float* scratch, const int* wave_start,
                        const int* wave_tiles, int C, int L, int Ls, int f,
                        int ny, int nx, int S, int lw, int nyt, int nxt, int n_waves,
-                       int max_tiles, int stages, int lam_b, int positivity,
-                       unsigned sweep, void* stream) {
+                       int max_tiles, int stages, int by0, int nyb, int gy0,
+                       int lam_b, int positivity, unsigned sweep,
+                       void* stream) {
   using namespace deconv3d;
-  if (const int e = check_dims(C, L, f, ny, nx, S, lw, nyt, nxt)) return e;
+  if (const int e = check_dims(C, L, f, ny, nx, S, lw, 1, nxt)) return e;
+  if (const int e = check_band(ny, nx, nyt, by0, nyb, gy0)) return e;
   if (const int e = check_schedule(wave_start, wave_tiles, n_waves, max_tiles))
     return e;
   GibbsArgs a{resid, w, quad, quad_lo, qvox, clean, valid, spec, imgs, lsf,
               keys, uniforms, live_out, dchi_out, uniforms_out, scratch,
               wave_start, wave_tiles, C, L, Ls, f, ny, nx, S, lw, nyt, nxt,
-              n_waves, stages, lam_b, C * max_tiles * nyt * nxt, sweep};
+              n_waves, stages, lam_b, C * max_tiles * nyt * nxt, sweep, by0,
+              gy0 * nx};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_variant(S, positivity != 0, [&](auto rank, auto pos) {
     return launch_gibbs(

@@ -129,13 +129,15 @@ def key_words(key: int):
 
 
 def _slot_uniforms(key: int, sweep: int, slots: torch.Tensor, nij: int,
-                   L: int, stream: int) -> torch.Tensor:
+                   L: int, stream: int, row0: int = 0) -> torch.Tensor:
     """``[len(slots), nij, L]`` uniforms of one stream: word ``λ & 3`` of
-    the block at counter (λ >> 2, sweep, slot, stream << 24 | ij)."""
+    the block at counter (λ >> 2, sweep, slot, stream << 24 | ij), spaxel
+    rows ij = row0 .. row0 + nij − 1."""
     dev = slots.device
     lam = torch.arange(L, dtype=torch.int64, device=dev)
     slot = slots.to(torch.int64)[:, None, None]
-    ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :, None]
+    ij = torch.arange(row0, row0 + nij, dtype=torch.int64,
+                      device=dev)[None, :, None]
     words = philox4x32(
         (lam >> 2, sweep & M32, slot, (stream << 24) | ij), key_words(key)
     )
@@ -147,24 +149,27 @@ def _slot_uniforms(key: int, sweep: int, slots: torch.Tensor, nij: int,
 
 
 def _lambda_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
-                     stream: int, device=None) -> torch.Tensor:
+                     stream: int, device=None, row0: int = 0) -> torch.Tensor:
     """``[n_colors, nij, L]`` uniforms of one stream, slot = color."""
     dev = torch.device(device) if device is not None else None
     colors = torch.arange(n_colors, dtype=torch.int64, device=dev)
-    return _slot_uniforms(key, sweep, colors, nij, L, stream)
+    return _slot_uniforms(key, sweep, colors, nij, L, stream, row0)
 
 
 def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
-                   device=None) -> torch.Tensor:
+                   device=None, row0: int = 0) -> torch.Tensor:
     """All uniforms of one MH sweep: ``[n_colors, nij, L + 1]`` float32.
 
     ``[..., :L]`` are the jump uniforms of each (color, spaxel row, λ),
     ``[..., L]`` the accept uniform — exactly what the CUDA kernel draws.
+    ``row0``: the field's spaxel row of row 0 (a band of the field).
     """
     dev = torch.device(device) if device is not None else None
-    jump = _lambda_uniforms(key, sweep, n_colors, nij, L, STREAM_JUMP, dev)
+    jump = _lambda_uniforms(key, sweep, n_colors, nij, L, STREAM_JUMP, dev,
+                            row0)
     color = torch.arange(n_colors, dtype=torch.int64, device=dev)[:, None]
-    ij = torch.arange(nij, dtype=torch.int64, device=dev)[None, :]
+    ij = torch.arange(row0, row0 + nij, dtype=torch.int64,
+                      device=dev)[None, :]
     acc_bits = philox4x32(
         (0, sweep & M32, color, (STREAM_ACCEPT << 24) | ij), key_words(key)
     )[0]
@@ -174,24 +179,24 @@ def sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int, L: int,
 
 def gibbs_sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int,
                          L: int, device=None,
-                         streams=(STREAM_NORMAL_U1, STREAM_NORMAL_U2)
-                         ) -> torch.Tensor:
+                         streams=(STREAM_NORMAL_U1, STREAM_NORMAL_U2),
+                         row0: int = 0) -> torch.Tensor:
     """The Box-Muller pairs of one exact-Gibbs sweep: ``[n_colors, nij, 2,
     L]`` float32, ``[:, :, 0]`` = u1 (stream 2), ``[:, :, 1]`` = u2 (stream
     3).  The normal of voxel λ is ``sqrt(−2 log u1) · cos(2π u2)``; u1 is
     never 0, so ``log u1`` is finite."""
     return torch.stack([
-        _lambda_uniforms(key, sweep, n_colors, nij, L, stream, device)
+        _lambda_uniforms(key, sweep, n_colors, nij, L, stream, device, row0)
         for stream in streams
     ], dim=2)
 
 
 def block_sweep_uniforms(key: int, sweep: int, n_colors: int, nij: int,
-                         L: int, device=None) -> torch.Tensor:
+                         L: int, device=None, row0: int = 0) -> torch.Tensor:
     """The Box-Muller pairs of one ``gibbs_block`` sweep, as
     :func:`gibbs_sweep_uniforms` from streams 7 and 8."""
     return gibbs_sweep_uniforms(key, sweep, n_colors, nij, L, device,
-                                (STREAM_BLOCK_U1, STREAM_BLOCK_U2))
+                                (STREAM_BLOCK_U1, STREAM_BLOCK_U2), row0)
 
 
 def pass_slot(entry: int, j: int) -> int:

@@ -42,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,6 +96,12 @@ class _SweepState:
     key_words: Optional[torch.Tensor] = None   # [C, 2] int32, kernel only
     scratch: Optional[torch.Tensor] = None     # kernel workspace, reused
     wave_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # a band of the tiled scan (parallel/kernel_sharded.py): (first block
+    # row, block rows) of the carried grid that the scan covers (None: all
+    # of it), and the field's block row of the carried row 0, which keys
+    # the kernel's random numbers (a shard's first row)
+    rows: Optional[Tuple[int, int]] = None
+    gy0: int = 0
     # the kernels' tuning knobs (measurements set them; the defaults are
     # the shipped rules): ring stages (-1: as many as fit, 0: synchronous
     # loads) and the wavelengths per slab of gibbs phase (b) (None:
@@ -126,19 +132,25 @@ class _SweepState:
     def nxt(self) -> int:
         return self.nx if self.tile is None else self.tile[1]
 
+    @property
+    def band_rows(self) -> Tuple[int, int]:
+        """(first block row, block rows) of the scan in the carried grid."""
+        return self.rows if self.rows is not None else (0, self.ny)
+
     def schedule(self) -> List[List[int]]:
-        """The waves of raster tile indices, in order (the whole field is
-        one tile)."""
+        """The waves of raster tile indices of the band, in order (the whole
+        field is one tile)."""
         if self.waves is not None:
             return self.waves
-        n_tiles = (self.ny // self.nyt) * (self.nx // self.nxt)
+        n_tiles = (self.band_rows[1] // self.nyt) * (self.nx // self.nxt)
         return [[t] for t in range(n_tiles)]
 
     def wave_origins(self):
-        """Per wave, the (by0, bx0) block origins of its tiles."""
-        ntx = self.nx // self.nxt
-        return [[((t // ntx) * self.nyt, (t % ntx) * self.nxt) for t in wave]
-                for wave in self.schedule()]
+        """Per wave, the (by0, bx0) block origins of its tiles in the
+        carried grid."""
+        ntx, by_base = self.nx // self.nxt, self.band_rows[0]
+        return [[(by_base + (t // ntx) * self.nyt, (t % ntx) * self.nxt)
+                 for t in wave] for wave in self.schedule()]
 
     @property
     def max_spaxels(self) -> int:
@@ -228,48 +240,68 @@ def _color_lin(k: _SweepState, cy: int, cx: int, by0: int, bx0: int):
     return rblk, lin
 
 
-def _commit(k: _SweepState, rblk: torch.Tensor, gacc: torch.Tensor) -> None:
-    """resid −= Σ_s (spec_s · gacc) ⊗ img_s over the color's patches."""
+def _commit(k: _SweepState, rblk: torch.Tensor,
+            gacc: torch.Tensor) -> torch.Tensor:
+    """resid −= Σ_s (spec_s · gacc) ⊗ img_s over the color's patches;
+    returns that delta (``rblk``'s shape)."""
     delta = torch.zeros_like(rblk)
     for s in range(k.spec.shape[0]):
         gs = k.spec[s] * gacc                                  # [C,ny,nx,L]
         delta = delta + (gs[:, :, None, :, None, :]
                          * k.imgs[s][None, None, :, None, :, None])
     rblk -= delta
+    return delta
+
+
+def _steps(k: _SweepState):
+    """The (color, by0, bx0) steps of one tiled or whole-cube sweep: the
+    waves in order (``_SweepState.wave_origins``), inside a wave the colors
+    in order, each over the wave's tiles."""
+    for wave in k.wave_origins():
+        for c, (by0, bx0) in itertools.product(range(k.f * k.f), wave):
+            yield c, by0, bx0
+
+
+def _mh_step_torch(k: _SweepState, c: int, by0: int, bx0: int, adapt: float,
+                   u: torch.Tensor, accept_out: torch.Tensor,
+                   dchi_out: torch.Tensor) -> torch.Tensor:
+    """One MH step: color ``c``'s spaxels in the tile at block (by0, bx0),
+    with the uniforms ``u`` ``[C, n_colors, nij, L+1]``; updates ``k`` in
+    place and returns the residual delta it committed (:func:`_commit`)."""
+    f = k.f
+    L = k.spec.shape[1]
+    pi = torch.tensor(math.pi, dtype=k.resid.dtype)
+    cy, cx = divmod(c, f)
+    rblk, lin = _color_lin(k, cy, cx, by0, bx0)
+    v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
+    ls = _at(k, k.log_scale, cy, cx, by0, bx0)            # view
+    q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
+    uc = _at_rows(k, u[:, c], by0, bx0)
+    draw = torch.clamp(torch.tan(pi * (uc[..., :L] - 0.5)), -1e3, 1e3)
+    jumps = torch.exp(ls)[..., None] * draw * v[..., None]
+    if k.positivity:
+        # reflective proposal c' = |c + J|: its folded density is
+        # symmetric, so the Metropolis ratio needs no correction
+        cur = _at(k, k.clean, cy, cx, by0, bx0)
+        jumps = torch.abs(cur + jumps) - cur
+    g = _lsf_band(jumps, k.lsf)
+    dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)        # [C,nyt,nxt]
+    accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
+    delta = _commit(k, rblk, g * accf[..., None])
+    _at(k, k.clean, cy, cx, by0, bx0)[...] += jumps * accf[..., None]
+    ls += adapt * (accf - k.target) * v
+    _at_rows(k, accept_out[:, c], by0, bx0)[...] = accf
+    _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
+    return delta
 
 
 def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
                     accept_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
     """One MH sweep with the uniforms ``u`` ``[C, n_colors, nij, L+1]``;
     updates ``k`` in place.  Each step updates one color's spaxels in one
-    tile; the waves in order (``_SweepState.wave_origins``), inside a wave
-    the colors in order, each over the wave's tiles."""
-    f = k.f
-    L = k.spec.shape[1]
-    pi = torch.tensor(math.pi, dtype=k.resid.dtype)
-    for wave in k.wave_origins():
-        for c, (by0, bx0) in itertools.product(range(f * f), wave):
-            cy, cx = divmod(c, f)
-            rblk, lin = _color_lin(k, cy, cx, by0, bx0)
-            v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
-            ls = _at(k, k.log_scale, cy, cx, by0, bx0)            # view
-            q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
-            uc = _at_rows(k, u[:, c], by0, bx0)
-            draw = torch.clamp(torch.tan(pi * (uc[..., :L] - 0.5)), -1e3, 1e3)
-            jumps = torch.exp(ls)[..., None] * draw * v[..., None]
-            if k.positivity:
-                # reflective proposal c' = |c + J|: its folded density is
-                # symmetric, so the Metropolis ratio needs no correction
-                cur = _at(k, k.clean, cy, cx, by0, bx0)
-                jumps = torch.abs(cur + jumps) - cur
-            g = _lsf_band(jumps, k.lsf)
-            dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)        # [C,nyt,nxt]
-            accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
-            _commit(k, rblk, g * accf[..., None])
-            _at(k, k.clean, cy, cx, by0, bx0)[...] += jumps * accf[..., None]
-            ls += adapt * (accf - k.target) * v
-            _at_rows(k, accept_out[:, c], by0, bx0)[...] = accf
-            _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
+    tile, in the order of :func:`_steps`."""
+    for c, by0, bx0 in _steps(k):
+        _mh_step_torch(k, c, by0, bx0, adapt, u, accept_out, dchi_out)
 
 
 def truncated_jump(linT: torch.Tensor, qs: torch.Tensor, cur: torch.Tensor,
@@ -354,35 +386,41 @@ def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
     its g²·quad_lo part is summed on its own, below the float32 ulp of
     g²·quad where it would round away.
     """
-    f = k.f
+    for c, by0, bx0 in _steps(k):
+        _gibbs_step_torch(k, c, by0, bx0, u, live_out, dchi_out)
+
+
+def _gibbs_step_torch(k: _SweepState, c: int, by0: int, bx0: int,
+                      u: torch.Tensor, live_out: torch.Tensor,
+                      dchi_out: torch.Tensor) -> torch.Tensor:
+    """One exact-Gibbs step (color ``c`` in the tile at (by0, bx0)) of
+    :func:`_gibbs_sweep_torch`; returns the committed residual delta."""
     dt = k.resid.dtype
     two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
-    for wave in k.wave_origins():
-        for c, (by0, bx0) in itertools.product(range(f * f), wave):
-            cy, cx = divmod(c, f)
-            rblk, lin0 = _color_lin(k, cy, cx, by0, bx0)
-            v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
-            q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
-            qv = _at(k, k.qvox[None], cy, cx, by0, bx0)[0]
-            uc = _at_rows(k, u[:, c], by0, bx0)                   # [C,..,2,L]
-            live_all = v[..., None] * (qv > 0).to(dt)             # [.., L]
-            if k.positivity:
-                gacc, emitted = gibbs_phases(
-                    lin0, q, qv, uc, live_all, k.lsf,
-                    clean0=_at(k, k.clean, cy, cx, by0, bx0))
-            else:
-                normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) \
-                    * torch.cos(two_pi * uc[..., 1, :])
-                gacc, emitted = gibbs_phases(lin0, q, qv, normal, live_all,
-                                             k.lsf)
-            dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)
-            if k.quad_lo is not None:
-                qlo = _at(k, k.quad_lo[None], cy, cx, by0, bx0)[0]
-                dchi = dchi + (gacc * gacc * qlo).sum(dim=-1)
-            _commit(k, rblk, gacc)
-            _at(k, k.clean, cy, cx, by0, bx0)[...] += emitted
-            _at_rows(k, live_out[:, c], by0, bx0)[...] = live_all.sum(dim=-1)
-            _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
+    cy, cx = divmod(c, k.f)
+    rblk, lin0 = _color_lin(k, cy, cx, by0, bx0)
+    v = _at(k, k.valid[None], cy, cx, by0, bx0)[0]        # [nyt,nxt]
+    q = _at(k, k.quad[None], cy, cx, by0, bx0)[0]         # [.., L]
+    qv = _at(k, k.qvox[None], cy, cx, by0, bx0)[0]
+    uc = _at_rows(k, u[:, c], by0, bx0)                   # [C,..,2,L]
+    live_all = v[..., None] * (qv > 0).to(dt)             # [.., L]
+    if k.positivity:
+        gacc, emitted = gibbs_phases(
+            lin0, q, qv, uc, live_all, k.lsf,
+            clean0=_at(k, k.clean, cy, cx, by0, bx0))
+    else:
+        normal = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) \
+            * torch.cos(two_pi * uc[..., 1, :])
+        gacc, emitted = gibbs_phases(lin0, q, qv, normal, live_all, k.lsf)
+    dchi = (gacc * gacc * q - 2.0 * gacc * lin0).sum(dim=-1)
+    if k.quad_lo is not None:
+        qlo = _at(k, k.quad_lo[None], cy, cx, by0, bx0)[0]
+        dchi = dchi + (gacc * gacc * qlo).sum(dim=-1)
+    delta = _commit(k, rblk, gacc)
+    _at(k, k.clean, cy, cx, by0, bx0)[...] += emitted
+    _at_rows(k, live_out[:, c], by0, bx0)[...] = live_all.sum(dim=-1)
+    _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
+    return delta
 
 
 def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
@@ -406,29 +444,42 @@ def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
     (made once per segment).  The voxels drawn are valid·L, as the JAX
     package counts them.
     """
-    f, C, L = k.f, k.C, k.spec.shape[1]
-    noise = (torch.sqrt(-2.0 * torch.log(u[..., 0, :])) * torch.cos(
-        (2.0 * math.pi) * u[..., 1, :])).transpose(0, 1).contiguous()
-    # noise: [f², C, nij, L]
+    for c in range(k.f * k.f):
+        _block_step(k, c, u, live_out, dchi_out, sample)
+
+
+def _block_step(k: _SweepState, c: int, u: torch.Tensor,
+                live_out: torch.Tensor, dchi_out: torch.Tensor,
+                sample) -> torch.Tensor:
+    """Color ``c`` of :func:`_block_sweep`; returns the committed residual
+    delta."""
+    C, L = k.C, k.spec.shape[1]
+    cy, cx = divmod(c, k.f)
+    uc = u[:, c]                                          # [C, nij, 2, L]
+    noise = torch.sqrt(-2.0 * torch.log(uc[..., 0, :])) * torch.cos(
+        (2.0 * math.pi) * uc[..., 1, :])
     with cv.no_tf32():
-        for c in range(f * f):
-            cy, cx = divmod(c, f)
-            rblk, lin = _color_lin(k, cy, cx, 0, 0)           # [C,ny,nx,L]
-            v = _at(k, k.valid[None], cy, cx, 0, 0)[0]        # [ny,nx]
-            q = _at(k, k.quad[None], cy, cx, 0, 0)[0]         # [ny,nx,L]
-            draw = sample(k.chol[c], (lin @ k.band).contiguous(),
-                          noise[c].view(C, k.ny, k.nx, L))
-            # masked spaxels have sqrt(EPS) pivots: their draws are discarded
-            jumps = torch.where(v[..., None] > 0, draw, torch.zeros_like(draw))
-            g = jumps @ k.band.T
-            dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)    # [C,ny,nx]
-            if k.quad_lo is not None:
-                qlo = _at(k, k.quad_lo[None], cy, cx, 0, 0)[0]
-                dchi = dchi + (g * g * qlo).sum(dim=-1)
-            _commit(k, rblk, g)
-            _at(k, k.clean, cy, cx, 0, 0)[...] += jumps
-            live_out[:, c] = (v * L).reshape(1, -1)
-            dchi_out[:, c] = dchi.reshape(C, -1)
+        rblk, lin = _color_lin(k, cy, cx, 0, 0)           # [C,ny,nx,L]
+        v = _at(k, k.valid[None], cy, cx, 0, 0)[0]        # [ny,nx]
+        q = _at(k, k.quad[None], cy, cx, 0, 0)[0]         # [ny,nx,L]
+        # one product per block row: a shard of the field (parallel/
+        # sweep_sharded.py) multiplies the same shapes, so it computes the
+        # same bits
+        linT = torch.stack([lin[:, i] @ k.band for i in range(k.ny)], dim=1)
+        draw = sample(k.chol[c], linT,
+                      noise.reshape(C, k.ny, k.nx, L).contiguous())
+        # masked spaxels have sqrt(EPS) pivots: their draws are discarded
+        jumps = torch.where(v[..., None] > 0, draw, torch.zeros_like(draw))
+        g = torch.stack([jumps[:, i] @ k.band.T for i in range(k.ny)], dim=1)
+        dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)    # [C,ny,nx]
+        if k.quad_lo is not None:
+            qlo = _at(k, k.quad_lo[None], cy, cx, 0, 0)[0]
+            dchi = dchi + (g * g * qlo).sum(dim=-1)
+        delta = _commit(k, rblk, g)
+    _at(k, k.clean, cy, cx, 0, 0)[...] += jumps
+    live_out[:, c] = (v * L).reshape(1, -1)
+    dchi_out[:, c] = dchi.reshape(C, -1)
+    return delta
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +503,9 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     length Ls after L, but for the resident kernel; after ``lw``: λ_b for
     the resident kernel; the ring stages for the others, before them
     the tile's block rows and columns, the waves and the largest wave's
-    tiles for the tiled kernel, after them gibbs phase (b)'s λ_b)."""
+    tiles for the tiled kernel and after them its band (first block row,
+    block rows, the field's block row of the carried row 0), then gibbs
+    phase (b)'s λ_b)."""
     from .._build import load_library
 
     dev = k.resid.device
@@ -509,7 +562,8 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
                     torch.tensor(v, dtype=torch.int32, device=dev)
                     for v in (starts, [t for wave in waves for t in wave]))
             pointers = k.wave_tables
-            extra = (k.nyt, k.nxt, len(waves), max(map(len, waves)), k.stages)
+            extra = (k.nyt, k.nxt, len(waves), max(map(len, waves)), k.stages,
+                     *k.band_rows, k.gy0)
         if mode == "gibbs":
             lam_b = k.lam_b or phase_slab(
                 L, k.max_spaxels,
@@ -614,6 +668,79 @@ def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
 
 
 # ---------------------------------------------------------------------------
+# Shards: the row cuts of a sharded segment (the layout of the callers in
+# parallel/, which pass ``devices`` to _run_segment)
+# ---------------------------------------------------------------------------
+
+def cut_problem(p: sm.Problem, by0: int, nyb: int, device=None) -> sm.Problem:
+    """The problem of block rows [by0, by0 + nyb): its padded residual rows
+    [by0·f, by0·f + nyb·f + f − 1) of the weights, its spaxel rows of every
+    per-spaxel constant, on ``device`` (views where it is ``p``'s).  Its
+    sweeps never read the data, which it does not carry."""
+    f = p.f
+    dev = p.device if device is None else torch.device(device)
+    y0, cells = by0 * f, nyb * f
+
+    def rows(t, n):
+        return None if t is None else t.narrow(-2, y0, n).to(dev)
+
+    def whole(t):
+        return None if t is None else t.to(dev)
+
+    return dataclasses.replace(
+        p, Y=max(0, min(p.Y - y0, cells)), ny=nyb,
+        fsf=whole(p.fsf), lsf=whole(p.lsf),
+        data_pad=torch.empty((0,), dtype=p.w_pad.dtype, device=dev),
+        w_pad=rows(p.w_pad, cells + f - 1), quad=rows(p.quad, cells),
+        valid=rows(p.valid, cells), monitor_idx=whole(p.monitor_idx),
+        fsf_spec=whole(p.fsf_spec), fsf_imgs=whole(p.fsf_imgs),
+        qvox=rows(p.qvox, cells), quad_lo=rows(p.quad_lo, cells),
+        chol=None if p.chol is None else p.chol[y0:y0 + cells].to(dev),
+        quad_mean=None)
+
+
+def cut_state(s: sm.SamplerState, f: int, by0: int, nyb: int,
+              device) -> sm.SamplerState:
+    """The (chain-stacked or single) state of block rows [by0, by0 + nyb),
+    as :func:`cut_problem` cuts the problem, on ``device``."""
+    y0, cells = by0 * f, nyb * f
+    out = {}
+    for fld in dataclasses.fields(s):
+        t = getattr(s, fld.name)
+        if fld.name == "resid":
+            t = t.narrow(-2, y0, cells + f - 1)
+        elif fld.name in ("clean", "log_scale", "sum_clean") or (
+                fld.name == "sum_sq" and t.shape[-2] == s.clean.shape[-2]):
+            t = t.narrow(-2, y0, cells)
+        out[fld.name] = t.to(device)
+    return sm.SamplerState(**out)
+
+
+def shard_problems(p: sm.Problem, devices: Sequence[torch.device]):
+    """The D shard problems of ``p`` on ``devices`` (:func:`cut_problem`),
+    built once per problem and device list (``sampler.cached``)."""
+    D = len(devices)
+    nyl = p.ny // D
+    return sm.cached(p, ("shards", tuple(map(str, devices))), lambda: [
+        cut_problem(p, d * nyl, nyl, dev) for d, dev in enumerate(devices)])
+
+
+def overlap_join(blocks: Sequence[torch.Tensor], f: int,
+                 device=None) -> torch.Tensor:
+    """The field's ``[..., Hp, Wp]`` rows of the halo-replicated blocks
+    ``[..., BYl + f − 1, Wp]`` (``parallel/sweep_sharded.py``
+    ``overlap_blocks``) on ``device`` (default: the first block's): every
+    block's owned rows, then the global tail pad rows, which only the last
+    block holds."""
+    device = blocks[0].device if device is None else device
+    BYl = blocks[0].shape[-2] - (f - 1)
+    parts = [b.narrow(-2, 0, BYl) for b in blocks]
+    parts.append(blocks[-1].narrow(-2, BYl, f - 1))
+    return torch.cat([t.to(device) for t in parts], dim=-2)
+
+
+
+# ---------------------------------------------------------------------------
 # Segments
 # ---------------------------------------------------------------------------
 
@@ -622,21 +749,92 @@ def _chain_keys(keys: torch.Tensor) -> List[int]:
     return [int(key) & 0xFFFFFFFFFFFFFFFF for key in keys.reshape(-1).tolist()]
 
 
+def sweep_state(p: sm.Problem, states: sm.SamplerState, mode: str,
+                kernel: bool, tile: Optional[Tuple[int, int]] = None,
+                classic: bool = False,
+                waves: Optional[List[List[int]]] = None, stages: int = -1,
+                lam_b: Optional[int] = None,
+                rows: Optional[Tuple[int, int]] = None,
+                gy0: int = 0) -> _SweepState:
+    """The segment layout of the chain-stacked ``states`` on ``p``: the
+    tensors one sweep reads and updates in place, for the kernel
+    (``kernel``: the resident kernel where the state fits the card's shared
+    memory, unless ``classic`` or a ``tile``) or the plain version.
+    ``rows`` / ``gy0``: a band of the tiled scan (``_SweepState``)."""
+    cfg = p.config
+    dev = p.device
+    f, ny, nx, L = p.f, p.ny, p.nx, p.L
+    C = states.clean.shape[0]
+    # the kernels are float32-only (_check_cuda); the plain versions run in
+    # the problem's dtype, float64 included
+    dt = p.w_pad.dtype
+    plan, name = None, "classic"
+    if mode == "gibbs_block":
+        name = "block"                   # torch ops and the banded kernels
+    elif kernel:
+        if tile is None and not classic:
+            plan = resident.plan_slabs(C, f, ny, nx, L, p.fsf_spec.shape[0],
+                                       int(p.lsf.shape[1]), mode,
+                                       *resident.device_limits(dev),
+                                       positivity=bool(cfg.positivity))
+        name = resident.sweep_kernel(tile, classic, plan)
+    # classic K1 and the tiled kernel read padded rows (_SweepState)
+    lam_last = (_lambda_last_padded
+                if kernel and name in ("classic", "tiled") else _lambda_last)
+    return _SweepState(
+        resid=lam_last(states.resid.to(dt)),
+        w=lam_last(p.w_pad),
+        quad=_lambda_last(p.quad),
+        qvox=_lambda_last(p.qvox) if mode == "gibbs" else None,
+        quad_lo=(_lambda_last(p.quad_lo)
+                 if mode != "mh" and p.quad_lo is not None else None),
+        clean=_lambda_last(states.clean.to(dt)),
+        log_scale=states.log_scale.to(dt).clone(),
+        valid=p.valid.to(dt).contiguous(),
+        spec=p.fsf_spec.contiguous(),
+        imgs=p.fsf_imgs.contiguous(),
+        lsf=p.lsf.contiguous(),
+        f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
+        target=float(cfg.target_acceptance), tile=tile, waves=waves,
+        stages=stages, lam_b=lam_b, kernel=name, plan=plan,
+        positivity=bool(cfg.positivity),
+        chol=None if mode != "gibbs_block" else p.chol.view(
+            ny, f, nx, f, L, -1).permute(1, 3, 0, 2, 4, 5).reshape(
+            f * f, 1, ny, nx, L, -1).to(dt).expand(
+            -1, C, -1, -1, -1, -1).contiguous(),
+        band=None if mode != "gibbs_block" else torch.as_tensor(
+            cv.lsf_matrix(p.lsf.cpu().numpy()), dtype=dt, device=dev),
+        rows=rows, gy0=gy0,
+    )
+
+
 def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                  uniforms: Optional[torch.Tensor], record_uniforms: bool,
                  mode: str, counter=None,
                  tile: Optional[Tuple[int, int]] = None,
                  classic: bool = False,
                  waves: Optional[List[List[int]]] = None,
-                 stages: int = -1, lam_b: Optional[int] = None) -> Segment:
+                 stages: int = -1, lam_b: Optional[int] = None,
+                 rows: Optional[Tuple[int, int]] = None,
+                 gy0: int = 0, devices=None, make_sweep=None) -> Segment:
     """The segment of every wrapper: ``counter`` None runs the plain sweep,
     else the kernel, adding each launch to ``counter.launches`` (or
     ``counter.resident_launches``); ``tile`` (block rows, columns) runs the
     tiled scan in the order of ``waves`` (None: the raster), None the
     whole-cube one — on the resident kernel where the state fits the
     card's shared memory (``ops/resident.py``) unless ``classic`` pins
-    classic K1.  ``stages`` and ``lam_b`` are the kernels' tuning knobs
-    (``_SweepState``)."""
+    classic K1.  ``stages`` and ``lam_b`` are the kernels' tuning knobs,
+    ``rows`` / ``gy0`` a band of the tiled scan (``_SweepState``; the
+    per-spaxel outputs of the other rows stay 0).
+
+    ``devices`` (the callers in ``parallel/``): the state's block rows cut
+    into ``len(devices)`` shards (:func:`cut_state`, :func:`shard_problems`), shard d's segment layout on
+    ``devices[d]``, and every sweep ``make_sweep(shards)(sweep, adapt,
+    uniforms, out_a, out_b)`` on the shards' lists (each shard's rows of
+    the field's uniforms — the kernels draw their own —, and of the
+    outputs); the outputs gathered in the field's row order, the
+    accumulators kept per shard, the flux summed over the shards' sums,
+    the new state in the standard layout on the problem's device."""
     p, cfg = problem, problem.config
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
@@ -667,98 +865,82 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     if mode == "gibbs_block" and p.chol is None:
         raise ValueError("a gibbs_block segment needs problem.chol "
                          "(make_problem with sampler='gibbs_block')")
-    # the kernels are float32-only (_check_cuda); the plain versions run in
-    # the problem's dtype, float64 included
     dt, f32 = p.data_pad.dtype, torch.float32
-    plan, kernel = None, "classic"
-    if mode == "gibbs_block":
-        kernel = "block"                 # torch ops and the banded kernels
-    elif counter is not None:
-        if tile is None and not classic:
-            plan = resident.plan_slabs(C, f, ny, nx, L, p.fsf_spec.shape[0],
-                                       int(p.lsf.shape[1]), mode,
-                                       *resident.device_limits(dev),
-                                       positivity=bool(cfg.positivity))
-        kernel = resident.sweep_kernel(tile, classic, plan)
-    # classic K1 and the tiled kernel read padded rows (_SweepState)
-    rows = (_lambda_last_padded
-            if counter is not None and kernel in ("classic", "tiled")
-            else _lambda_last)
-    k = _SweepState(
-        resid=rows(states.resid.to(dt)),
-        w=rows(p.w_pad),
-        quad=_lambda_last(p.quad),
-        qvox=_lambda_last(p.qvox) if mode == "gibbs" else None,
-        quad_lo=(_lambda_last(p.quad_lo)
-                 if mode != "mh" and p.quad_lo is not None else None),
-        clean=_lambda_last(states.clean.to(dt)),
-        log_scale=states.log_scale.to(dt).clone(),
-        valid=p.valid.to(dt).contiguous(),
-        spec=p.fsf_spec.contiguous(),
-        imgs=p.fsf_imgs.contiguous(),
-        lsf=p.lsf.contiguous(),
-        f=f, ny=ny, nx=nx, keys=_chain_keys(states.key),
-        target=float(cfg.target_acceptance), tile=tile, waves=waves,
-        stages=stages, lam_b=lam_b, kernel=kernel, plan=plan,
-        positivity=bool(cfg.positivity),
-        chol=None if mode != "gibbs_block" else p.chol.view(
-            ny, f, nx, f, L, -1).permute(1, 3, 0, 2, 4, 5).reshape(
-            n_colors, 1, ny, nx, L, -1).to(dt).expand(
-            -1, C, -1, -1, -1, -1).contiguous(),
-        band=None if mode != "gibbs_block" else torch.as_tensor(
-            cv.lsf_matrix(p.lsf.cpu().numpy()), dtype=dt, device=dev),
-    )
+    layout = dict(kernel=counter is not None, tile=tile, classic=classic,
+                  waves=waves, stages=stages, lam_b=lam_b, rows=rows, gy0=gy0)
+    if devices is None:
+        devices, parts = [dev], [states]
+        ks = [sweep_state(p, states, mode, **layout)]
+    else:
+        if p.ny % len(devices):
+            raise ValueError(f"ny={p.ny} color-rows must be divisible by the "
+                             f"mesh size {len(devices)}")
+        if record_uniforms:
+            raise ValueError("a sharded segment records no uniforms")
+        nyl = p.ny // len(devices)
+        parts = [cut_state(states, f, d * nyl, nyl, d_)
+                 for d, d_ in enumerate(devices)]
+        ks = [sweep_state(sp, st, mode, **layout)
+              for sp, st in zip(shard_problems(p, devices), parts)]
+    D, nijl = len(ks), nij // len(ks)
+    # draws in torch: the plain sweeps and gibbs_block's
+    plain_draws = counter is None or mode == "gibbs_block"
+    sweep = (make_sweep or _sweep_of(mode, counter))(ks)
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
     adapt = sm.adapt_schedule(ids, cfg).tolist()
     keep = sm.keep_schedule(ids, cfg).tolist()
 
-    validf = k.valid[..., None]
-    Yc, Xc = p.Yc, p.Xc
+    Yc, Xc, BYl = p.Yc, p.Xc, ks[0].ny * f
     mon = p.monitor_idx
-    mon_t = ((mon % (Yc * Xc)) * L + mon // (Yc * Xc)).to(dev)
-    sum_clean = _lambda_last(states.sum_clean.to(dt))
-    sum_sq = (
-        _lambda_last(states.sum_sq.to(dt)) if cfg.track_variance
-        else states.sum_sq.clone()
-    )
+    # monitored voxels: (shard, the voxel's index in its λ-last clean)
+    lam, yy, xx = (mon // (Yc * Xc), (mon % (Yc * Xc)) // Xc, mon % Xc)
+    owner = (yy // BYl).to(dev)
+    mon_at = [(torch.nonzero(owner == d).reshape(-1),
+               (((yy - d * BYl) * Xc + xx) * L + lam)[owner == d])
+              for d in range(D)]
+    sum_clean = [_lambda_last(st.sum_clean.to(dt)) for st in parts]
+    sum_sq = [_lambda_last(st.sum_sq.to(dt)) if cfg.track_variance
+              else None for st in parts]
+    del parts
     chi2, chi2c = states.chi2.clone(), states.chi2_comp.clone()
     n_kept = states.n_kept.clone()
 
-    accept = torch.empty((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
-    dchi = torch.empty((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
+    accept = torch.zeros((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
+    dchi = torch.zeros((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
     u_rec = (
         torch.empty((n_sweeps, C, n_colors, nij, *per), dtype=dt, device=dev)
         if record_uniforms else None
     )
     draws = {"mh": philox.sweep_uniforms, "gibbs": philox.gibbs_sweep_uniforms,
              "gibbs_block": philox.block_sweep_uniforms}[mode]
-    # gibbs_block's per-color draw: the banded kernel, or its plain loop
-    sample = (banded.sample_conditional if counter is not None
-              else banded.sample_conditional_reference)
+    keys = ks[0].keys
     chi2_t, flux_t, mon_tr = [], [], []
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
         u_out = None if u_rec is None else u_rec[s]
-        if counter is not None and mode == "mh":
-            _mh_sweep_cuda(k, sweep0 + s, adapt[s], u, accept[s], dchi[s],
-                           u_out, counter)
-        elif counter is not None and mode == "gibbs":
-            _gibbs_sweep_cuda(k, sweep0 + s, u, accept[s], dchi[s], u_out,
-                              counter)
-        else:
+        if plain_draws:
             if u is None:
+                # the field's draws; a shard takes its rows
                 u = torch.stack([
-                    draws(key, sweep0 + s, n_colors, nij, L, device=dev)
-                    for key in k.keys
+                    draws(key, sweep0 + s, n_colors, nij, L, device=dev,
+                          row0=gy0 * nx)
+                    for key in keys
                 ]).to(dt)
             if u_out is not None:
                 u_out.copy_(u)
-            if mode == "mh":
-                _mh_sweep_torch(k, adapt[s], u, accept[s], dchi[s])
-            elif mode == "gibbs":
-                _gibbs_sweep_torch(k, u, accept[s], dchi[s])
-            else:
-                _block_sweep(k, u, accept[s], dchi[s], sample)
+        if D == 1:
+            us, outs_a, outs_b = [u], [accept[s]], [dchi[s]]
+        else:
+            us = [None if u is None
+                  else u[:, :, d * nijl:(d + 1) * nijl].to(d_).contiguous()
+                  for d, d_ in enumerate(devices)]
+            outs_a = [torch.zeros((C, n_colors, nijl), dtype=dt, device=d_)
+                      for d_ in devices]
+            outs_b = [torch.zeros_like(o) for o in outs_a]
+        sweep(sweep0 + s, adapt[s], us, outs_a, outs_b, u_out)
+        if D > 1:
+            accept[s] = torch.cat([o.to(dev) for o in outs_a], dim=2)
+            dchi[s] = torch.cat([o.to(dev) for o in outs_b], dim=2)
         # committed Δχ² summed in a fixed order, then the Kahan update
         committed = dchi[s].double()
         if mode == "mh":
@@ -768,13 +950,23 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         chi2c = (t - chi2) - y
         chi2 = t
         if keep[s]:
-            sum_clean += k.clean
-            if cfg.track_variance:
-                sum_sq += k.clean * k.clean
+            for d, k in enumerate(ks):
+                sum_clean[d] += k.clean
+                if cfg.track_variance:
+                    sum_sq[d] += k.clean * k.clean
             n_kept = n_kept + 1.0
         chi2_t.append(chi2)
-        flux_t.append(torch.sum(k.clean * validf, dim=(1, 2, 3), dtype=f32))
-        mon_tr.append(k.clean.reshape(C, -1)[:, mon_t])
+        flux = None
+        for k in ks:
+            part = torch.sum(k.clean * k.valid[..., None], dim=(1, 2, 3),
+                             dtype=f32).to(dev)
+            flux = part if flux is None else flux + part
+        flux_t.append(flux)
+        vals = torch.empty((C, mon.numel()), dtype=dt, device=dev)
+        for k, (slots, flat) in zip(ks, mon_at):
+            vals[:, slots] = k.clean.reshape(C, -1)[
+                :, flat.to(k.clean.device)].to(dev)
+        mon_tr.append(vals)
 
     n_valid = float(p.valid.sum())
     acc_sweep = accept.sum(dim=(2, 3)).T                        # [C, n_sweeps]
@@ -787,21 +979,33 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         n_prop = torch.full_like(n_acc, float(n_sweeps) * n_valid)
         acc_trace = acc_sweep / max(n_valid, 1.0)
 
-    def traces(parts, empty_shape):
-        return (torch.stack(parts, dim=1) if parts
+    def traces(parts_, empty_shape):
+        return (torch.stack(parts_, dim=1) if parts_
                 else torch.empty(empty_shape, dtype=f32, device=dev))
 
+    def rows_of(tensors):
+        """The shards' λ-last blocks as one λ-first tensor on ``dev``."""
+        if D == 1:
+            return _lambda_first(tensors[0])
+        return torch.cat([_lambda_first(t).to(dev) for t in tensors], dim=-2)
+
+    if D == 1:
+        resid = _lambda_first(ks[0].resid[..., :L])
+    else:
+        resid = overlap_join([_lambda_first(k.resid[..., :L]) for k in ks],
+                             f, dev)
     new_state = sm.SamplerState(
-        clean=_lambda_first(k.clean),
-        resid=_lambda_first(k.resid[..., :L]),
+        clean=rows_of([k.clean for k in ks]),
+        resid=resid,
         key=states.key.clone(),
         chi2=chi2,
         chi2_comp=chi2c,
-        log_scale=k.log_scale,
+        log_scale=(ks[0].log_scale if D == 1 else torch.cat(
+            [k.log_scale.to(dev) for k in ks], dim=-2)),
         n_accept=states.n_accept + n_acc,
         n_propose=states.n_propose + n_prop,
-        sum_clean=_lambda_first(sum_clean),
-        sum_sq=_lambda_first(sum_sq) if cfg.track_variance else sum_sq,
+        sum_clean=rows_of(sum_clean),
+        sum_sq=rows_of(sum_sq) if cfg.track_variance else states.sum_sq.clone(),
         n_kept=n_kept,
         sweep=states.sweep + n_sweeps,
     )
@@ -817,6 +1021,32 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         accept, dchi = accept[:, 0], dchi[:, 0]
         u_rec = None if u_rec is None else u_rec[:, 0]
     return Segment(result=result, accept=accept, dchi=dchi, uniforms=u_rec)
+
+
+def _sweep_of(mode: str, counter):
+    """``make_sweep`` of a one-shard segment: the kernel of ``mode`` (with
+    ``counter``) or its plain sweep; ``gibbs_block``'s per-color draw on
+    the banded kernel or its plain loop."""
+    sample = (banded.sample_conditional if counter is not None
+              else banded.sample_conditional_reference)
+
+    def make(ks):
+        (k,) = ks
+
+        def sweep(sweep_abs, adapt, us, outs_a, outs_b, u_out):
+            u, a, b = us[0], outs_a[0], outs_b[0]
+            if counter is not None and mode == "mh":
+                _mh_sweep_cuda(k, sweep_abs, adapt, u, a, b, u_out, counter)
+            elif counter is not None and mode == "gibbs":
+                _gibbs_sweep_cuda(k, sweep_abs, u, a, b, u_out, counter)
+            elif mode == "mh":
+                _mh_sweep_torch(k, adapt, u, a, b)
+            elif mode == "gibbs":
+                _gibbs_sweep_torch(k, u, a, b)
+            else:
+                _block_sweep(k, u, a, b, sample)
+        return sweep
+    return make
 
 
 def _use_kernel(problem: sm.Problem, state: sm.SamplerState, name: str) -> bool:

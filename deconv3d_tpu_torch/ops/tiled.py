@@ -67,6 +67,10 @@ WINDOW_BUDGET_BYTES = 2**30
 #: one per kernel launch, and the plain version never adds to them
 tiled_mh = types.SimpleNamespace(launches=0)
 tiled_gibbs = types.SimpleNamespace(launches=0)
+#: the same kernel's band launches (:func:`band_sweep`, :func:`band_segment`;
+#: the sweeps of ``parallel/kernel_sharded.py``)
+band_mh = types.SimpleNamespace(launches=0)
+band_gibbs = types.SimpleNamespace(launches=0)
 
 
 def tile_geometry(f: int, ny_t: int, nx_t: int):
@@ -217,3 +221,50 @@ def tuned_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                            counter=counter if use else None, tile=tile,
                            classic=tile is None, waves=waves, stages=stages,
                            lam_b=lam_b)
+
+
+# ---------------------------------------------------------------------------
+# Bands: the y_base launch of the TPU kernel
+# ---------------------------------------------------------------------------
+
+def band_sweep(k: sw._SweepState, mode: str, sweep: int, adapt: float,
+               u: Optional[torch.Tensor], out_a: torch.Tensor,
+               out_b: torch.Tensor, kernel: bool) -> None:
+    """One sweep of the band ``k.rows`` of the carried state ``k`` (a tiled
+    ``ops.sweep._SweepState``: a shard's residual with its replica rows,
+    ``k.gy0`` its first block row in the field): all f² colors of every
+    tile of the band, waves in order.  ``kernel``: one launch of
+    ``csrc/tiled_sweep.cu`` (counted by :data:`band_mh` /
+    :data:`band_gibbs`; a failed launch raises), else the same scan in
+    plain torch (``u`` then required).  The TPU kernel's ``y_base``
+    (``deconv3d_tpu/ops/pallas_tiled.py:155``, ``:190-192``)."""
+    if kernel and mode == "mh":
+        sw._mh_sweep_cuda(k, sweep, adapt, u, out_a, out_b, None, band_mh)
+    elif kernel:
+        sw._gibbs_sweep_cuda(k, sweep, u, out_a, out_b, None, band_gibbs)
+    elif mode == "mh":
+        sw._mh_sweep_torch(k, adapt, u, out_a, out_b)
+    else:
+        sw._gibbs_sweep_torch(k, u, out_a, out_b)
+
+
+def band_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
+                 rows, gy0: int = 0,
+                 record_uniforms: bool = False) -> sw.Segment:
+    """``n_sweeps`` sweeps of only the block rows ``rows`` = (first, count)
+    of the problem's grid, the band as one tile on the Philox draws, whose
+    row 0 is the field's block row ``gy0`` (it keys the draws); the other
+    rows' outputs stay 0.  On a CUDA device one band launch of
+    ``csrc/tiled_sweep.cu`` per sweep (:data:`band_mh` /
+    :data:`band_gibbs`); for tensors on the CPU the plain version."""
+    mode = _mode(problem)
+    use = sw._use_kernel(problem, state, "band_segment")
+    by0, nyb = (int(r) for r in rows)
+    if by0 < 0 or nyb < 1 or by0 + nyb > problem.ny:
+        raise ValueError(f"rows {tuple(rows)} leave the {problem.ny} block "
+                         "rows of the grid")
+    counter = band_gibbs if mode == "gibbs" else band_mh
+    return sw._run_segment(problem, state, n_sweeps, None, record_uniforms,
+                           mode=mode, counter=counter if use else None,
+                           tile=(nyb, problem.nx), waves=[[0]],
+                           rows=(by0, nyb), gy0=gy0)

@@ -8,8 +8,9 @@ Counterpart of ``deconv3d_tpu/run.py`` for the single-device path:
     run.save('my_deconv')
 
 ``max_iterations`` counts full sweeps (all spaxels), not single spaxel
-visits.  The run lives on ``device`` (default: the first CUDA device when
-there is one, else the CPU); on a CUDA device every sweep goes through a
+visits.  The run lives on ``device`` (default ``'cuda'``: without a card
+``Run`` raises, and ``device='cpu'`` runs the plain torch versions on the
+CPU); on a CUDA device every sweep goes through a
 hand-written kernel of ``sampler`` (``'mh'`` or ``'gibbs'``, with or
 without ``positivity``), one launch per sweep for all ``n_chains`` chains
 (``'gibbs_block'``: one launch of the banded draw kernel per color;
@@ -23,8 +24,18 @@ whole-cube kernel, or on a field whose residual and weights exceed the
 a large blurred field interleaves global coarse pattern passes
 (``coarse_every=8``; ``coarse_every=0`` turns them off).  ``run_until``
 samples until R̂ / ESS targets hold, ``resume`` restarts from a checkpoint
-bit-exactly, ``map_estimate`` solves for the MAP on any run.  Meshes are
-not ported yet and raise.
+bit-exactly, ``map_estimate`` solves for the MAP on any run.
+
+Meshes (``parallel.Mesh``, one process driving every slot, as the JAX
+package's single controller does): ``mesh`` splits the chains over its
+``'chains'`` slots; ``spatial_mesh`` (a Mesh, or an int k: the first k
+CUDA devices, ``parallel.make_mesh``, or k slots of the CPU for a CPU run)
+shards ONE chain's sweep along Y — ``'mh'``/``'gibbs'`` on the band
+launches of the tiled kernel (``parallel/kernel_sharded.py``), the other
+modes on the plain color step (``parallel/sweep_sharded.py``); with
+``n_chains > 1`` it is a 2-D ``(chains, spatial)`` mesh, one chain per row.
+Several shards on one card: ``spatial_mesh=Mesh([torch.device('cuda:0')] *
+2)``.
 """
 
 from __future__ import annotations
@@ -44,10 +55,6 @@ from . import sampler as sm
 from .cube import Cube, torch_dtype
 from .instruments import Instrument, MUSE
 from .metrics import MetricsWriter, logger
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class Run:
@@ -94,11 +101,16 @@ class Run:
         prior_precision: "float | str" = 0.0,
         device=None,
     ):
-        if mesh is not None:
-            raise sm.not_ported("mesh", mesh)
-        if spatial_mesh is not None:
-            raise sm.not_ported("mesh", spatial_mesh)
-        self.device = torch.device(device) if device is not None else default_device()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Run runs on a CUDA device unless told otherwise, and "
+                    "none is available: pass device='cpu' to run the plain "
+                    "torch versions on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        if sampler == "direct" and spatial_mesh is not None:
+            raise sm.not_ported("spatial_mesh", spatial_mesh)
         if isinstance(cube, str):
             cube = Cube.from_file(cube, device=self.device)
         cube = cube.to(self.device)
@@ -125,6 +137,8 @@ class Run:
         self.cube = cube
         self.instrument = instrument or MUSE()
         self.n_chains = int(n_chains)
+        self.mesh = mesh
+        self._route_spatial(spatial_mesh, sampler, positivity, engine)
         self.min_acceptance_rate = min_acceptance_rate
         self.segment_size = segment_size
         self.metrics_path = metrics_path
@@ -206,6 +220,39 @@ class Run:
         self.last_map_result = None
         self.last_map_prior_precision = None
 
+    def _route_spatial(self, spatial_mesh, sampler, positivity,
+                       engine) -> None:
+        """``spatial_mesh`` and its route, with the JAX package's rules and
+        errors (``deconv3d_tpu/run.py:106-170``)."""
+        from .parallel import Mesh, make_mesh
+
+        if isinstance(spatial_mesh, int):
+            spatial_mesh = (make_mesh(spatial_mesh, "sp")
+                            if self.device.type == "cuda"
+                            else Mesh([self.device] * spatial_mesh, ("sp",)))
+        self.spatial_mesh = spatial_mesh
+        self._spatial_chains = False
+        kernel_rate = sampler in ("mh", "gibbs") and not positivity
+        if spatial_mesh is not None and self.n_chains != 1:
+            names = tuple(getattr(spatial_mesh, "axis_names", ()))
+            if not (len(names) == 2 and kernel_rate
+                    and spatial_mesh.shape[names[0]] == self.n_chains):
+                raise ValueError(
+                    "n_chains>1 with spatial_mesh needs the chains × "
+                    "spatial composition: a 2-D mesh (chains_axis, "
+                    "spatial_axis) with shape[0] == n_chains, sampler "
+                    "'mh'/'gibbs' and no positivity.  For plain chain "
+                    "parallelism use `mesh` instead.")
+            self._spatial_chains = True
+        self._spatial_kernel = spatial_mesh is not None and kernel_rate
+        if (spatial_mesh is not None and not kernel_rate
+                and engine != "auto"):
+            logger.warning(
+                "spatial_mesh with sampler=%r runs the plain color step on "
+                "every shard; engine=%r is ignored (kernel-rate sharded "
+                "sweeps exist for sampler='mh'/'gibbs' without positivity "
+                "only)", sampler, engine)
+
     def _set_config(self, **changes) -> None:
         self.config = dataclasses.replace(self.config, **changes)
         self.problem = dataclasses.replace(self.problem, config=self.config)
@@ -239,8 +286,7 @@ class Run:
             while done < total:
                 n = min(seg, total - done)
                 t0 = time.time()
-                mc = ch.run_chains(self.problem, self.n_chains, n_sweeps=n,
-                                   states=self.states)
+                mc = self._run_segment(n)
                 self.states = mc.result.state
                 # NaN guard: a non-finite chi² means diverged numerics and
                 # would poison every later segment and the accumulators
@@ -288,6 +334,30 @@ class Run:
             )
         self._warn_if_undermixed()
         return self
+
+    def _run_segment(self, n: int) -> ch.MultiChainResult:
+        """``n`` sweeps of every chain on the run's route: chains ×
+        spatial, one chain sharded (band launches, or the plain color
+        step), or the chains on their own (split over ``mesh``)."""
+        if self._spatial_chains:
+            from .parallel.kernel_sharded import run_chains_kernel_sharded
+
+            names = tuple(self.spatial_mesh.axis_names)
+            return run_chains_kernel_sharded(
+                self.problem, self.n_chains, n, self.spatial_mesh,
+                states=self.states, chain_axis=names[0], axis_name=names[1])
+        if self.spatial_mesh is not None:
+            if self._spatial_kernel:
+                from .parallel.kernel_sharded import (
+                    run_sweeps_kernel_sharded as sharded)
+            else:
+                from .parallel.sweep_sharded import (
+                    run_sweeps_sharded as sharded)
+            return ch.MultiChainResult(result=sharded(
+                self.problem, self.states, n, self.spatial_mesh,
+                axis_name=self.spatial_mesh.axis_names[0]))
+        return ch.run_chains(self.problem, self.n_chains, n_sweeps=n,
+                             mesh=self.mesh, states=self.states)
 
     def _warn_unconverged(self, flags: np.ndarray) -> None:
         """For ``sampler='direct'`` the accept trace carries each draw's
@@ -487,6 +557,8 @@ class Run:
         ``last_map_prior_precision``; a solve that stops short of ``tol``
         warns.
         """
+        if self.spatial_mesh is not None:
+            raise sm.not_ported("spatial_mesh", self.spatial_mesh)
         if self.config.positivity:
             # the unconstrained Gaussian optimum is not the MAP of the
             # truncated model

@@ -69,7 +69,8 @@ from .metrics import logger
 #: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
 _NOT_PORTED = {
     "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
-    "mesh": "Queue 1 item 16 (torch.distributed)",
+    "spatial_mesh": "Queue 1 item 16b (parallel/direct_sharded.py: the "
+                    "direct sampler and map_estimate on a spatial mesh)",
 }
 
 
@@ -227,6 +228,17 @@ class Problem:
     @property
     def device(self) -> torch.device:
         return self.data_pad.device
+
+    def to(self, device) -> "Problem":
+        """This problem with every tensor on ``device`` (itself when it is
+        there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
     @property
     def Yc(self) -> int:
@@ -739,9 +751,15 @@ def run_sweeps(
     chain itself is untouched.  Both split at absolute sweeps, so any
     segmentation of a run, and a resume, is bit-equal to one call.
     """
-    def inner(s, k):
-        return _engine_run_sweeps(problem, s, k)
+    return interleaved(problem, state, n_sweeps,
+                       lambda s, k: _engine_run_sweeps(problem, s, k))
 
+
+def interleaved(problem: Problem, state: SamplerState, n_sweeps: int,
+                inner) -> ChainResult:
+    """``inner(state, k)`` segments with the χ² rebaseline (inside) and the
+    coarse passes (outside) at their absolute sweeps, as every engine
+    runs them (the sharded ones of ``parallel/`` too)."""
     if problem.config.chi2_rebaseline_every:
         engine = inner
 
@@ -838,8 +856,8 @@ def cached(problem: Problem, name, build):
     ckey = (id(problem), name)
     entry = _PROBLEM_CACHE.get(ckey)
     if entry is None or entry[0]() is not problem:
-        ref = weakref.ref(problem,
-                          lambda _, k=ckey: _PROBLEM_CACHE.pop(k, None))
+        ref = weakref.ref(problem, lambda _, k=ckey, c=_PROBLEM_CACHE:
+                          c.pop(k, None))
         entry = (ref, build())
         _PROBLEM_CACHE[ckey] = entry
     return entry[1]

@@ -137,9 +137,25 @@ def test_cli_run_tabulated_kernels(tmp_path, rng, capsys):
 
 
 def test_cli_refuses_spatial_shards(tmp_path, rng):
-    path = _write_cube(tmp_path, rng)
+    """``--spatial-shards 2 --device cpu`` shards the chain over two slots
+    of the CPU and runs to its products; ``sampler='direct'`` on a spatial
+    mesh is still refused."""
+    data = rng.normal(size=(16, 20, 10)).astype(np.float32)
+    path = str(tmp_path / "tall.fits")
+    Cube.from_data(data, variance=np.full_like(data, 0.04), crval=4750.0,
+                   cdelt=1.25, device="cpu").to_fits(path)
+    out = str(tmp_path / "sh")
+    # a 5 x 5 FSF: 4 x 2 spaxel blocks, two block rows per shard
+    narrow = ["--fsf", "gaussian", "--fsf-fwhm", "0.2", "--lsf", "gaussian",
+              "--lsf-fwhm", "2.0"]
+    assert main(["run", "--cube", path, "--out", out, "--iterations", "4",
+                 "--burn-in", "1", "--spatial-shards", "2", *narrow,
+                 *CPU]) == 0
+    with open(f"{out}_stats.json") as fh:
+        assert json.load(fh)["sweeps"] == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["run", "--cube", path, "--spatial-shards", "2", *CPU])
+        main(["run", "--cube", path, "--spatial-shards", "2", "--sampler",
+              "direct", *CPU])
 
 
 def test_cli_module_entry_point(tmp_path, rng):

@@ -180,12 +180,19 @@ def test_run_two_chains_diagnostics(rng):
 
 
 def test_run_refuses_what_is_not_ported(rng):
-    """Meshes still raise; ``map_estimate`` works on an MCMC run (a
-    converged MAP cube of the run's shape, no chain state built)."""
+    """``sampler='direct'`` on a spatial mesh (and ``map_estimate`` there)
+    still raises; ``map_estimate`` works on an MCMC run (a converged MAP
+    cube of the run's shape, no chain state built)."""
+    from deconv3d_tpu_torch.parallel import Mesh
+
     cube, inst = _make_toy(rng, dtype=np.float32)
     kw = dict(fsf_size=5, lsf_width=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d3.Run(cube, inst, mesh=object(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*16b"):
+        d3.Run(cube, inst, sampler="direct", spatial_mesh=Mesh(["cpu"] * 2),
+               **kw)
+    sharded = d3.Run(cube, inst, spatial_mesh=Mesh(["cpu"] * 2), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*16b"):
+        sharded.map_estimate()
     run = d3.Run(cube, inst, **kw)
     m = run.map_estimate(prior_precision="auto", tol=1e-5, maxiter=2000)
     assert isinstance(m, d3.Cube) and tuple(m.shape) == tuple(cube.shape)
@@ -216,6 +223,10 @@ def test_import_leaves_jax_out():
         "deconv3d_tpu_torch._build, deconv3d_tpu_torch.chains, "
         "deconv3d_tpu_torch.ops.banded, deconv3d_tpu_torch.ops.philox, "
         "deconv3d_tpu_torch.ops.coarse, deconv3d_tpu_torch.ops.direct, "
+        "deconv3d_tpu_torch.parallel, deconv3d_tpu_torch.parallel.mesh, "
+        "deconv3d_tpu_torch.parallel.sharded, "
+        "deconv3d_tpu_torch.parallel.sweep_sharded, "
+        "deconv3d_tpu_torch.parallel.kernel_sharded, "
         "deconv3d_tpu_torch.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv3d_tpu' or m.startswith('deconv3d_tpu.')]\n"
