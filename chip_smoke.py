@@ -1055,16 +1055,52 @@ def banded_bound(kind, n_sys, L, p):
     """The least time one banded launch could take: each input read and
     each output written once, against the HBM rate; flops per row (an fma
     2, a division or square root 1): the Cholesky (P + 1)² + 1, the draw
-    4P + 4 (both solves)."""
+    4P + 4 (both solves).  Its latency form: the dependent steps of one
+    system's chain (:func:`chain_steps`; the Cholesky's L rows)."""
     W = p + 1
     if kind == "cholesky":
         nbytes, flops = 2 * n_sys * L * W * 4, n_sys * L * (W * W + 1)
+        steps = L
     else:
         nbytes, flops = n_sys * L * (W + 3) * 4, n_sys * L * (4 * p + 4)
+        steps = chain_steps(n_sys, L, p, "sample")
     t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "flops": flops, "bytes": nbytes, "latency_steps": steps}
+
+
+def chain_steps(n, L, p, kind):
+    """Dependent steps of one draw or solve launch (both solves) for ``n``
+    systems or columns: 2·(2m + S − 1) for the kernels' S segments of m
+    rows (the first pass, the carry's rounds, the re-run), 2·L
+    unsegmented (the design before the segments)."""
+    S = bd.segments(n, L, p, kind)
+    return 2 * L if S == 1 else 2 * (2 * bd.segment_rows(L, S) + S - 1)
+
+
+def device_ms(fn, name, n=20):
+    """Mean device time of a launch of the kernels named ``name`` over
+    ``n`` calls of ``fn`` (after a warm-up), from ``torch.profiler``
+    (CUPTI; the launches it recorded, taken again once if it recorded
+    none): the kernel's own time, where CUDA events around the calls time
+    the host too once a call's Python outlasts its kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        keys = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in keys)
+        if count:
+            break
+    check(count > 0, f"the profiler saw no launch of {name}")
+    return sum(e.device_time_total for e in keys) / count / 1e3
 
 
 def cholesky_library_ms(bands):
@@ -1111,8 +1147,10 @@ def phase_coarse(L=3681):
         b, noise = (torch.tensor(rng.standard_normal((n_sys, L)),
                                  dtype=torch.float32).cuda()
                     for _ in range(2))
-        x, ms = ms_per_call(lambda: bd.sample_conditional(R_ref, b, noise),
-                            20)
+        x, call_ms = ms_per_call(
+            lambda: bd.sample_conditional(R_ref, b, noise), 20)
+        ms = device_ms(lambda: bd.sample_conditional(R_ref, b, noise),
+                       "banded_sample_kernel")
         x_ref, plain_ms = timed(
             lambda: bd.sample_conditional_reference(R_ref, b, noise))
         errs = {"cholesky": float((R - R_ref).abs().max()),
@@ -1125,10 +1163,12 @@ def phase_coarse(L=3681):
                          "library_ms": chol_lib_ms,
                          "bound": banded_bound("cholesky", n_sys, L, lw - 1)},
             "sample": {"max_abs_err": errs["sample"], "ms": ms,
-                       "plain_ms": plain_ms,
+                       "call_ms": call_ms, "plain_ms": plain_ms,
                        "bound": banded_bound("sample", n_sys, L, lw - 1)}}
         emit("banded_kernel_vs_plain", L=L, lw=lw, n_systems=n_sys,
-             cholesky_library_ms=chol_lib_ms,
+             cholesky_library_ms=chol_lib_ms, sample_call_ms=call_ms,
+             sample_latency_steps=out[n_sys]["sample"]["bound"][
+                 "latency_steps"],
              **{f"{k}_{n}": v[n] if n != "bound" else v[n]["bound_ms"]
                 for k, v in out[n_sys].items()
                 for n in ("max_abs_err", "ms", "plain_ms", "bound")},
@@ -1419,14 +1459,16 @@ def phase_gibbs_block(n=100):
             b, noise = (torch.tensor(rng.standard_normal((n_sys, 600)),
                                      dtype=torch.float32).cuda()
                         for _ in range(2))
-            x, ms = ms_per_call(
+            x, call_ms = ms_per_call(
                 lambda: bd.sample_conditional(R_ref, b, noise), 20)
+            ms = device_ms(lambda: bd.sample_conditional(R_ref, b, noise),
+                           "banded_sample_kernel")
             x_ref, plain_ms = timed(
                 lambda: bd.sample_conditional_reference(R_ref, b, noise))
             err, scale = (float((x - x_ref).abs().max()),
                           float(x_ref.abs().max()))
             row["sample"] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms,
+                             "call_ms": call_ms, "plain_ms": plain_ms,
                              "bound": banded_bound("sample", n_sys, 600,
                                                    lw - 1)}
             check(err <= BANDED_TOL["sample"] * scale,
@@ -1547,18 +1589,21 @@ def dense_bands(bands):
 
 
 def solve_bound(L, n, n_factors, p):
-    """The least time one banded solve launch could take: the columns read
-    (b), z written and read back, x written, the factors and their index
-    read once, against the HBM rate; flops per column and row 2·(2p + 1)
-    (a division 1, an fma 2; both solves).  Its latency form: 2·L
-    dependent steps."""
+    """The least time one banded solve launch could take: b read once, x
+    written once, the factors and their index read once (z, the forward
+    solve, is the kernel's own), against the HBM rate; flops per column
+    and row 2·(2p + 1) (a division 1, an fma 2; both solves).  Its latency
+    form: the dependent steps of one column (:func:`chain_steps`; 2·L
+    before the segments)."""
     W = p + 1
-    nbytes = 4 * L * n * 4 + n_factors * L * W * 4 + n * 4
+    nbytes = 2 * L * n * 4 + n_factors * L * W * 4 + n * 4
     flops = 2 * (2 * p + 1) * L * n
     t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes, "latency_steps": 2 * L}
+            "flops": flops, "bytes": nbytes,
+            "latency_steps": chain_steps(n, L, p, "solve"),
+            "latency_steps_before": 2 * L}
 
 
 def solve_vs_plain(problem, label, prior_precision=None, library=False):
@@ -1578,13 +1623,18 @@ def solve_vs_plain(problem, label, prior_precision=None, library=False):
     r = torch.randn((problem.L, problem.Y, problem.X), generator=gen,
                     device="cuda")
     b = torch.view_as_real(torch.fft.rfft2(r)).reshape(problem.L, -1)
-    x, ms = ms_per_call(lambda: bd.banded_solve(state.R, state.fidx, b), 20)
+    x, call_ms = ms_per_call(
+        lambda: bd.banded_solve(state.R, state.fidx, b), 20)
+    ms = device_ms(lambda: bd.banded_solve(state.R, state.fidx, b),
+                   "banded_solve_kernel")
     want, plain_ms = timed(lambda: bd.solve_banded_reference(
         state.R, state.fidx, b))
     err, scale = float((x - want).abs().max()), float(want.abs().max())
     L, n = b.shape
     out = {"shape": [L, n], "mode": mode, "factors": int(state.R.shape[0]),
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms,
+           "split": bd.solve_split(n, L, int(state.R.shape[-1]) - 1),
            "bound": solve_bound(L, n, int(state.R.shape[0]),
                                 int(state.R.shape[-1]) - 1),
            "library_ms": None}
@@ -2406,12 +2456,19 @@ def main() -> int:
 
     def bound(b):
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                "bound_flops": b["flops"], "bound_bytes": b["bytes"]}
+                "bound_flops": b["flops"], "bound_bytes": b["bytes"],
+                **{k: b[k] for k in ("latency_steps", "latency_steps_before")
+                   if k in b}}
 
     def other_shape(d):
         """A comparison phase's numbers, kept under the key of its shape."""
         return {"max_abs_err": d["max_abs_err"], "ms": d["ms"],
-                "plain_ms": d["plain_ms"], **bound(d["bound"])}
+                "plain_ms": d["plain_ms"], **bound(d["bound"]),
+                **({"call_ms": d["call_ms"]} if "call_ms" in d else {})}
+
+    #: how the segmented kernels' ms were taken
+    device_ms_is = ("device time per launch (torch.profiler, CUPTI); "
+                    "call_ms: CUDA events per wrapper call, host included")
 
     def band_fields(sampler):
         """The band launches of the same kernel (its y_base port) on the
@@ -2517,6 +2574,9 @@ def main() -> int:
             "plain_ms": at["plain_ms"], **bound(at["bound"]),
             "library_ms": at.get("library_ms"),
             "n_systems_324": other_shape(coarse[324][part]),
+            **({"call_ms": at["call_ms"], "ms_is": device_ms_is,
+                "latency_steps_before": 2 * 3681}
+               if part == "sample" else {}),
         })
     # positivity: the same sources with the flag compiled in, on the
     # positivity Runs (resident: one chain; classic K1: two chains)
@@ -2599,6 +2659,8 @@ def main() -> int:
         "max_abs_err": block[4]["sample"]["max_abs_err"],
         "ms": block[4]["sample"]["ms"], "plain_ms": block[4]["sample"]["plain_ms"],
         **bound(block[4]["sample"]["bound"]), "library_ms": None,
+        "call_ms": block[4]["sample"]["call_ms"], "ms_is": device_ms_is,
+        "latency_steps_before": 2 * 600,
         "sweep_profile": block["path"]["profile"],
         "n_systems_128": {**other_shape(block[128]["sample"]),
                           "launches": block["chains"]["draw_launches"],
@@ -2622,8 +2684,9 @@ def main() -> int:
         "mode": d600["mode"],
         "max_abs_err": d600["max_abs_err"], "ms": d600["ms"],
         "plain_ms": d600["plain_ms"], **bound(d600["bound"]),
-        "latency_steps": d600["bound"]["latency_steps"],
         "library_ms": d600["library_ms"],
+        "call_ms": d600["call_ms"], "ms_is": device_ms_is,
+        "split_columns_segments": d600["split"],
         "library_is": "torch.cholesky_solve on the dense factors",
         "dense_3681x3720": other_shape(direct["dense_3681"]),
         "radial_3681x90600": {

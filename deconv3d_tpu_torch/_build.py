@@ -76,6 +76,7 @@ _SIGNATURES = {
     "banded_cholesky_launch": ([_P, _P, _I, _I, _I, _F, _P], _I),
     "banded_sample_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "banded_solve_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "banded_segments": ([_I] * 4, _I),
 }
 
 

@@ -15,8 +15,13 @@ the matrix edge).  Every routine is batched over leading dims.  The
 :func:`sample_conditional` and :func:`banded_solve` (x = A⁻¹b for
 λ-major columns that share factors: the direct sampler's
 preconditioner) run them on CPU tensors and, on CUDA tensors, the
-kernels of ``csrc/banded.cu`` (one thread per system or column), which a
-failed build or launch does not turn into the plain loop: it raises.
+kernels of ``csrc/banded.cu``, which a failed build or launch does not
+turn into the plain loop: it raises.  The Cholesky kernel walks each
+system's rows in one thread; the draw and the solve cut each system's or
+column's rows into segments solved side by side and joined by a carry of
+the p-vector state (:func:`segments`, :func:`solve_split`;
+:func:`segmented_solve_reference` is their arithmetic in plain torch, for
+the tests).
 """
 
 from __future__ import annotations
@@ -174,6 +179,132 @@ def solve_banded_reference(R: torch.Tensor, fidx: torch.Tensor,
     return x
 
 
+#: threads that fill an H100 (132 SMs): the batch limit of the split rule
+FILL_LANES = 32768
+
+#: a segmented solve's block: 8 warps; fewer blocks than SOLVE_BLOCKS
+#: split the columns finer
+SOLVE_WARPS, SOLVE_BLOCKS = 8, 64
+
+
+def solve_split(n: int, L: int, p: int) -> tuple[int, int]:
+    """(columns per block C, segments per column S) of the solve kernel
+    for ``n`` columns of ``L`` rows and bandwidth ``p``
+    (``csrc/banded.cu``'s ``solve_split``): S = 1 (32 columns a warp) for
+    :data:`FILL_LANES` columns or more; else a block of 8 warps holds C
+    columns of S = 8·32/C segments, C halving from 32 while the blocks are
+    fewer than :data:`SOLVE_BLOCKS` and doubling back while a segment
+    would get fewer than max(p, 4) rows."""
+    C, min_rows = 32, max(p, 4)
+    if n >= FILL_LANES:
+        return C, 1
+    while C > 1 and -(-n // C) < SOLVE_BLOCKS:
+        C //= 2
+    while C < 32 and SOLVE_WARPS * (32 // C) * min_rows > L:
+        C *= 2
+    return C, SOLVE_WARPS * (32 // C)
+
+
+def segments(n: int, L: int, p: int, kind: str = "sample") -> int:
+    """Segments per system (``kind`` 'sample') or column ('solve') that
+    the kernels cut ``n`` systems or columns of ``L`` rows and bandwidth
+    ``p`` into, one thread each (``csrc/banded.cu``'s ``segments`` and
+    ``solve_split``, which the card's test holds this against).  The
+    draw: S doubles from 1 while S < 32 (a warp), n·S <
+    :data:`FILL_LANES` and every segment keeps max(p, 4) rows or more."""
+    if kind == "solve":
+        return solve_split(n, L, p)[1]
+    S, min_rows = 1, max(p, 4)
+    while S < 32 and n * S < FILL_LANES and 2 * S * min_rows <= L:
+        S *= 2
+    return S
+
+
+def segment_rows(L: int, S: int) -> int:
+    """Rows per segment of the kernels' split: ceil(L / S), made odd
+    (``csrc/banded.cu``'s ``segment_rows``: the draw's lanes, m·(p+1)
+    floats apart, then read distinct shared-memory banks for even p)."""
+    return -(-L // S) | 1
+
+
+def segmented_solve_reference(R: torch.Tensor, fidx: torch.Tensor,
+                              b: torch.Tensor, m: int,
+                              noise: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """The kernels' segmented arithmetic in plain torch (tests only): x =
+    R⁻¹(R⁻ᵀb + noise) for the λ-major columns of ``b`` ``[L, n]``, column
+    j against ``R[fidx[j]]`` (``noise`` ``[L, n]`` or None: the solve).
+
+    Each column's rows are cut into segments of ``m`` (the last one
+    shorter).  Each solve runs every segment from a zero state together
+    with its response to the p unit states (the state leaving it is part
+    + T·in), carries the state over the segments in order (forward:
+    first to last; backward: last to first) and runs every segment again
+    from its true incoming state; a row multiplies by the reciprocal of
+    its pivot (rounded once here; the kernels take the hardware's
+    approximate one).  The carried states: forward ``acc[k]`` = Σ over the rows
+    i done of R[i, l+k]·z[i], backward the last p solution values."""
+    L, W = R.shape[-2:]
+    p = W - 1
+    n = b.shape[1]
+    S = -(-L // m)
+    pad = S * m - L
+    Rc = R[fidx.to(device=R.device, dtype=torch.int64)]
+    unit = R.new_zeros(W)
+    unit[0] = 1.0
+    Rc = torch.cat([Rc, unit.expand(n, pad, W)], 1).reshape(n, S, m, W)
+    inv = 1.0 / Rc[..., 0]
+    valid = (torch.arange(S * m, device=R.device) < L).reshape(S, m)
+
+    def seg(v):
+        return torch.cat([v.T, v.new_zeros(n, pad)], 1).reshape(n, S, m)
+
+    def step(st, v, i, forward):
+        """One row i of every segment for states ``st`` [..., k, p] with
+        right-hand sides ``v`` [..., k]."""
+        row, keep = Rc[:, :, i], valid[None, :, i, None]
+        if forward:
+            z = (v - st[..., 0]) * inv[:, :, i, None]
+            new = (torch.nn.functional.pad(st[..., 1:], (0, 1))
+                   + row[:, :, None, 1:] * z[..., None])
+        else:
+            z = (v - (row[:, :, None, 1:] * st).sum(-1)) * inv[:, :, i, None]
+            new = torch.cat([z[..., None], st[..., :-1]], -1)
+        return torch.where(keep[..., None], new, st), z
+
+    def solve(v, forward):
+        rows = range(m) if forward else range(m - 1, -1, -1)
+        if p == 0:
+            return v * inv
+        inn = v.new_zeros(n, S, 1, p)
+        if S > 1:
+            # part (unit 0) and T (units 1..p): states out of each segment
+            st = torch.eye(p, dtype=v.dtype, device=v.device)
+            st = torch.cat([st.new_zeros(1, p), st]).expand(n, S, p + 1, p)
+            coef = torch.zeros(p + 1, dtype=v.dtype, device=v.device)
+            coef[0] = 1.0
+            for i in rows:
+                st, _ = step(st, v[:, :, i, None] * coef, i, forward)
+            part, T = st[:, :, 0], st[:, :, 1:].transpose(-1, -2)
+            order = (range(1, S) if forward else range(S - 2, -1, -1))
+            for s in order:
+                src = s - 1 if forward else s + 1
+                inn[:, s, 0] = part[:, src] + (T[:, src]
+                                               @ inn[:, src, 0, :, None])[..., 0]
+        out = torch.empty_like(v)
+        st = inn
+        for i in rows:
+            st, z = step(st, v[:, :, i, None], i, forward)
+            out[:, :, i] = z[..., 0]
+        return out
+
+    y = solve(seg(b), True)
+    if noise is not None:
+        y = y + seg(noise)
+    x = solve(y, False)
+    return x.reshape(n, S * m)[:, :L].T.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -240,7 +371,8 @@ def sample_conditional(R: torch.Tensor, b: torch.Tensor,
                        noise: torch.Tensor) -> torch.Tensor:
     """x ~ N(A⁻¹b, A⁻¹) for A = RᵀR (:func:`sample_conditional_reference`):
     on CUDA tensors one launch of ``banded_sample_kernel``
-    (``csrc/banded.cu``: both solves) for every system of the batch,
+    (``csrc/banded.cu``: both solves, :func:`segments` per system) for
+    every system of the batch,
     counted by ``sample_conditional.launches``; on CPU tensors the plain
     loops."""
     if R.device.type == "cpu" and b.device.type == "cpu" \
@@ -266,7 +398,7 @@ def banded_solve(R: torch.Tensor, fidx: torch.Tensor, b: torch.Tensor,
                  out=None) -> torch.Tensor:
     """x = R⁻¹ R⁻ᵀ b for λ-major columns ``b`` ``[L, n]`` against shared
     factors (:func:`solve_banded_reference`): on CUDA tensors one launch of
-    ``banded_solve_kernel`` (``csrc/banded.cu``, one thread per column),
+    ``banded_solve_kernel`` (``csrc/banded.cu``, :func:`solve_split`),
     counted by ``banded_solve.launches``, into ``out`` (default a new
     tensor; ``b`` itself solves in place); on CPU tensors the plain loops.
     ``fidx`` is int32 on the kernel's path."""

@@ -3,12 +3,17 @@
 The plain loops against a dense oracle and against the JAX package's
 ``deconv3d_tpu.ops.banded`` on the same NumPy inputs (float64), the
 conditional draw's moments, the wrappers' dispatch (plain on CPU tensors,
-the kernel or an error elsewhere), and — marked ``gpu``, deciding inside
-its body — the kernels of ``csrc/banded.cu`` against their plain versions
-on the card.  JAX is imported inside the tests that compare with it, so
+the kernel or an error elsewhere), the kernels' segmented arithmetic
+(``segmented_solve_reference``: exact in float64 on ragged splits, and in
+float32 at the MUSE LSF within twice the sequential float32 error at the
+kernels' own splits), and — marked ``gpu``, deciding inside its body —
+the kernels of ``csrc/banded.cu`` against their plain versions on the
+card.  JAX is imported inside the tests that compare with it, so
 the card's test run (``pytest --noconftest -m gpu``, no JAX there) can
 import this file.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -194,6 +199,110 @@ def test_wrappers_dispatch_by_device(rng):
         bd.cholesky_banded(torch.zeros((4, 12), device="meta"))
 
 
+@functools.lru_cache(maxsize=2)
+def _muse_factors(L, n):
+    """n float64 factors of the MUSE LSF's conditional precisions at L
+    wavelengths (q in [1, 2]); made once per L."""
+    from deconv3d_tpu_torch import MUSE
+
+    lsf = MUSE().lsf.bank(4750.0 + 1.25 * np.arange(L), cdelt=1.25,
+                          width=None)
+    q = 1.0 + np.random.default_rng(L).random((n, L))
+    bands = bd.precision_bands(torch.tensor(lsf), torch.tensor(q))
+    return bd.cholesky_banded_reference(bands)
+
+
+def test_split_rules_at_the_paths_shapes():
+    """The kernels' splits at the shapes their paths launch (lw = 11): the
+    draws of 1-324 systems run 32 segments of a warp; the solve splits
+    960 columns into blocks of 8 columns × 32 segments, 3720 into 32 × 8,
+    and leaves 90,600 (the full field) unsegmented; every split is a power
+    of two and keeps max(p, 4) rows a segment where it can."""
+    for n, L in ((1, 3681), (4, 3681), (324, 3681), (4, 600), (128, 600)):
+        assert bd.segments(n, L, 10) == 32
+    assert bd.solve_split(960, 600, 10) == (8, 32)
+    assert bd.solve_split(3720, 3681, 10) == (32, 8)
+    assert bd.solve_split(90600, 3681, 10) == (32, 1)
+    assert bd.segments(90600, 3681, 10, "solve") == 1
+    assert bd.segment_rows(600, 32) == 19 and bd.segment_rows(3681, 32) == 117
+    for n in (1, 3, 40, 1000, 5000, 40000):
+        for L, p in ((9, 0), (57, 4), (300, 10), (3681, 10)):
+            S = bd.segments(n, L, p)
+            C, Ss = bd.solve_split(n, L, p)
+            for k in (S, C, Ss):
+                assert k & (k - 1) == 0 and 1 <= k <= 256
+            assert S == 1 or S * max(p, 4) <= L
+            m = bd.segment_rows(L, S)
+            assert m % 2 == 1 and S * m >= L
+
+
+@pytest.mark.parametrize("L, lw, m", [
+    (50, 5, 16),     # L % m != 0
+    (7, 4, 16),      # L < m: one segment
+    (40, 1, 8),      # p = 0: no state to carry
+    (60, 11, 16),    # p = 10
+    (30, 6, 30),     # exactly one segment
+    (33, 11, 3),     # segments shorter than p
+    (600, 11, 19),   # the draw's split at L = 600
+])
+@pytest.mark.parametrize("kind", ["sample", "solve"])
+def test_segmented_arithmetic_is_exact(rng, L, lw, m, kind):
+    """The segmented recurrence (zero-state runs, the carry of part + T·in,
+    the re-runs) is the sequential solve: float64, rel 1e-10, for the
+    draw (systems, noise) and the solve (columns sharing factors)."""
+    lsf, q = _system(rng, L, lw, (3,))
+    R = bd.cholesky_banded_reference(
+        bd.precision_bands(torch.tensor(lsf), torch.tensor(q)))
+    if kind == "sample":
+        fidx = torch.arange(3)
+        b, noise = (torch.tensor(rng.standard_normal((L, 3)))
+                    for _ in range(2))
+        want = bd.sample_conditional_reference(R, b.T, noise.T).T
+    else:
+        fidx = torch.tensor([0, 2, 2, 1, 0])
+        b, noise = torch.tensor(rng.standard_normal((L, 5))), None
+        want = bd.solve_banded_reference(R, fidx, b)
+    got = bd.segmented_solve_reference(R, fidx, b, m, noise)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-10 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("L, n_path, kind", [
+    (600, 4, "sample"),       # gibbs_block: S = 32, m = 19
+    (600, 960, "solve"),      # the bench's direct path: S = 32, m = 19
+    (3681, 1, "sample"),      # the global coarse pass: S = 32, m = 117
+    (3681, 3720, "solve"),    # 60×60×3681 direct: S = 8, m = 461
+    (3681, 90600, "solve"),   # the full field direct: S = 1, m = L
+])
+def test_segmented_float32_at_muse_lsf(rng, L, n_path, kind):
+    """At the kernels' own split for the path's batch, the segmented
+    arithmetic in float32 at the MUSE LSF is no further from the float64
+    solve than twice the sequential float32 solve is (errors of max|x|)."""
+    S = bd.segments(n_path, L, 10, kind)
+    m = bd.segment_rows(L, S)
+    R64 = _muse_factors(L, 3)
+    R32 = R64.float()
+    if kind == "sample":
+        fidx = torch.arange(3)
+        b, noise = (torch.tensor(rng.standard_normal((L, 3)))
+                    for _ in range(2))
+        x64 = bd.sample_conditional_reference(R64, b.T, noise.T).T
+        seq = bd.sample_conditional_reference(R32, b.T.float(),
+                                              noise.T.float()).T
+        seg = bd.segmented_solve_reference(R32, fidx, b.float(), m,
+                                           noise.float())
+    else:
+        fidx = torch.tensor([0, 0, 1, 1, 2, 2])
+        b = torch.tensor(rng.standard_normal((L, 6)))
+        x64 = bd.solve_banded_reference(R64, fidx, b)
+        seq = bd.solve_banded_reference(R32, fidx, b.float())
+        seg = bd.segmented_solve_reference(R32, fidx, b.float(), m)
+    scale = float(x64.abs().max())
+    err_seq = float((seq.double() - x64).abs().max()) / scale
+    err_seg = float((seg.double() - x64).abs().max()) / scale
+    assert err_seg <= 2 * err_seq, (err_seg, err_seq, S, m)
+
+
 #: tolerances of the kernels against their plain versions, float32, of
 #: the output's scale: the sums run in another order, and the solves
 #: amplify rounding by the system's condition (at the MUSE LSF and the
@@ -203,13 +312,18 @@ CHOL_TOL, SAMPLE_TOL = 1e-4, 1e-3
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [(), (3,), (40,)])
-@pytest.mark.parametrize("L, lw", [(300, 11), (57, 5), (9, 1)])
+@pytest.mark.parametrize("batch", [(), (3,), (40,), (128,)])
+@pytest.mark.parametrize("L, lw", [(300, 11), (57, 5), (9, 1), (600, 11),
+                                   (3681, 11)])
 def test_banded_kernels_match_plain_on_card(L, lw, batch):
-    """Both kernels of ``csrc/banded.cu`` against their plain versions on
-    the card, float32: one system, a batch within one warp and one over
-    two blocks; L = 300 crosses the staged chunks of 32 systems.  The
-    MUSE LSF, as the coarse passes see it."""
+    """The kernels of ``csrc/banded.cu`` against their plain versions on
+    the card, float32: one system, a batch within one warp and ones over
+    several blocks; L = 300 crosses the Cholesky's staged chunks of 32
+    systems; the draw's splits of the paths (1 system at L = 3681, 128 at
+    600: 32 segments, the system in shared memory) and ragged ones (L =
+    57, 9); the solve on 2·n + 1 columns that share the n factors through
+    ``fidx``; the kernels' split rules == ``segments`` / ``solve_split``.
+    The MUSE LSF, as the coarse passes see it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the banded kernels have no CPU mode")
     from deconv3d_tpu_torch import MUSE
@@ -235,8 +349,28 @@ def test_banded_kernels_match_plain_on_card(L, lw, batch):
     torch.cuda.synchronize()
     torch.testing.assert_close(x, x_ref, rtol=0,
                                atol=SAMPLE_TOL * float(x_ref.abs().max()))
+    factors = R_ref.reshape(-1, L, lw)
+    nf = factors.shape[0]
+    fidx = torch.tensor(rng.integers(0, nf, 2 * nf + 1),
+                        dtype=torch.int32).cuda()
+    cols = torch.tensor(rng.standard_normal((L, 2 * nf + 1)),
+                        dtype=torch.float32).cuda()
+    n_solve = bd.banded_solve.launches
+    xs = bd.banded_solve(factors, fidx, cols)
+    xs_ref = bd.solve_banded_reference(factors, fidx, cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs, xs_ref, rtol=0,
+                               atol=SAMPLE_TOL * float(xs_ref.abs().max()))
     assert (bd.cholesky_banded.launches - n0[0],
-            bd.sample_conditional.launches - n0[1]) == (1, 1)
+            bd.sample_conditional.launches - n0[1],
+            bd.banded_solve.launches - n_solve) == (1, 1, 1)
+    from deconv3d_tpu_torch import _build
+
+    lib = _build.load_library()
+    n = max(nf, 1)
+    assert lib.banded_segments(n, L, lw - 1, 0) == bd.segments(n, L, lw - 1)
+    assert lib.banded_segments(cols.shape[1], L, lw - 1, 1) == \
+        bd.segments(cols.shape[1], L, lw - 1, "solve")
 
 
 @pytest.mark.gpu
