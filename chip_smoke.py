@@ -115,14 +115,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 12. coarse — the banded kernels (``csrc/banded.cu``: Cholesky, conditional
    draw) against their plain versions at L = 3681, lw = 11 (the MUSE LSF):
    one system (the global pass's draw), four (its constants' factors) and
-   324 (one color of the full field); ms of both.  Then one global and one
+   324 (one color of the full field); device ms per launch of both
+   (``torch.profiler``), ms per call, the plain loops' ms, the library's
+   (``torch.linalg.cholesky`` at 4 systems, ``solve_triangular`` forward
+   and backward for the draw at 1).  Then one global and one
    ``soft`` anchor pass on 68×68×600 on the card and on the CPU from one
    state with the same Philox draws: resid, clean, χ², counts.
+12b. trunc_normal — the sweeps' truncated-normal device functions,
+   elementwise (``trunc_normal_kernel``), against the plain transform on
+   the card over α ∈ [−5, 1e4] and uniforms in [2⁻²⁴, 1 − 2⁻²⁴].
+12c. positivity — the ``kPos`` kernels at 30×30×600 against the plain
+   sweep, bit-equal to each other, in the orthant; ms with the flag off
+   and on in turns (off, on, on, off) of the resident kernel, classic K1
+   (C = 1 and its ``Run``'s C = 2) and K2; 400-sweep and 2-chain ``Run``s.
+12d. gibbs_block — the banded kernels at its shapes (the draw's library
+   time at 4 systems), its sweep on the card against the CPU, its ``Run``s.
 13. direct — the direct sampler and the MAP (``ops/direct.py``): the
    banded solve kernel (``csrc/banded.cu`` ``banded_solve_kernel``)
    against its plain version on the preconditioner factors of the bench
    cube (dense, 480 frequencies, L = 600; ``torch.cholesky_solve`` on the
-   dense factors beside it) and of 60×60×3681 (1,860 frequencies);
+   dense factors beside it, and the Cholesky kernel on the bands those
+   factors come from) and of 60×60×3681 (1,860 frequencies);
    ``map_estimate`` on the bench cube ('auto' τ, tol 1e-6) with the true
    float64 residual of the card's solution taken on the host (≤ 2 tol)
    and a profile of its CG iterations; 300 draws on an 8×6×6 toy against
@@ -133,7 +146,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``kernels`` line's).  After ``full_field``, on its cube: the direct
    sampler at 300×300×3681 (τ = 1e-3, tol 1e-5, at most 600 iterations):
    the preconditioner resolves to radial, the kernel against its plain
-   version on its 256 factors and 90,600 columns, one ``map_estimate`` and
+   version on its 256 factors and 90,600 columns (and the Cholesky of its
+   256 × 3681 bands), one ``map_estimate`` and
    2 draws (iterations, s per draw, peak memory, a profile of 3 CG
    iterations).
 
@@ -172,6 +186,7 @@ from deconv3d_tpu_torch import convolve as cv
 from deconv3d_tpu_torch.ops import banded as bd, coarse as co
 from deconv3d_tpu_torch.ops import direct as td
 from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
+from deconv3d_tpu_torch.ops import truncnorm as tn
 from deconv3d_tpu_torch.parallel import Mesh
 from deconv3d_tpu_torch.parallel import kernel_sharded as ks
 from deconv3d_tpu_torch.tile_sweep import field_cube
@@ -1115,6 +1130,44 @@ def cholesky_library_ms(bands):
     return ms
 
 
+def cholesky_vs_plain(bands, library=False):
+    """The Cholesky kernel on ``bands`` ``[n, L, W]`` against its plain
+    loop (error within ``BANDED_TOL``): device ms per launch
+    (:func:`device_ms`), ms per call (CUDA events, host included), the
+    plain loop's ms, the bound; with ``library``
+    ``torch.linalg.cholesky``'s ms on the dense matrices."""
+    n_sys, L, W = bands.shape
+    R, call_ms = ms_per_call(lambda: bd.cholesky_banded(bands), 20)
+    ms = device_ms(lambda: bd.cholesky_banded(bands), "banded_cholesky_kernel")
+    R_ref, plain_ms = timed(lambda: bd.cholesky_banded_reference(bands))
+    err, scale = float((R - R_ref).abs().max()), float(R_ref.abs().max())
+    check(err <= BANDED_TOL["cholesky"] * scale,
+          f"banded Cholesky kernel differs from its plain version "
+          f"({n_sys} x {L})")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "tol": BANDED_TOL["cholesky"] * scale,
+            "library_ms": cholesky_library_ms(bands) if library else None,
+            "bound": banded_bound("cholesky", n_sys, L, W - 1)}
+
+
+def draw_library_ms(R, b, noise):
+    """ms of ``torch.linalg.solve_triangular`` on the dense factors of
+    ``R``, forward then backward (the banded draw's function: Rᵀz = b, Rx
+    = z + noise), one pair after a warm-up, CUDA events."""
+    U = dense_upper(R)
+
+    def solves():
+        z = torch.linalg.solve_triangular(U.transpose(-1, -2), b[..., None],
+                                          upper=False)
+        return torch.linalg.solve_triangular(U, z + noise[..., None],
+                                             upper=True)
+    with cv.no_tf32():
+        solves()
+        ms = timed(solves)[1]
+    del U
+    return ms
+
+
 def ms_per_call(fn, n):
     """``fn()`` (after a warm-up call) and its mean ms over ``n`` calls
     between CUDA events."""
@@ -1140,10 +1193,8 @@ def phase_coarse(L=3681):
         q = torch.tensor(1.0 + rng.random((n_sys, L)),
                          dtype=torch.float32).cuda()
         bands = bd.precision_bands(lsf, q)
-        R, chol_ms = ms_per_call(lambda: bd.cholesky_banded(bands), 20)
-        R_ref, chol_plain_ms = timed(
-            lambda: bd.cholesky_banded_reference(bands))
-        chol_lib_ms = cholesky_library_ms(bands) if n_sys == 4 else None
+        chol = cholesky_vs_plain(bands, library=n_sys == 4)
+        R_ref = bd.cholesky_banded_reference(bands)
         b, noise = (torch.tensor(rng.standard_normal((n_sys, L)),
                                  dtype=torch.float32).cuda()
                     for _ in range(2))
@@ -1153,30 +1204,29 @@ def phase_coarse(L=3681):
                        "banded_sample_kernel")
         x_ref, plain_ms = timed(
             lambda: bd.sample_conditional_reference(R_ref, b, noise))
-        errs = {"cholesky": float((R - R_ref).abs().max()),
-                "sample": float((x - x_ref).abs().max())}
-        scale = {"cholesky": float(R_ref.abs().max()),
-                 "sample": float(x_ref.abs().max())}
+        err, scale = (float((x - x_ref).abs().max()),
+                      float(x_ref.abs().max()))
         out[n_sys] = {
-            "cholesky": {"max_abs_err": errs["cholesky"], "ms": chol_ms,
-                         "plain_ms": chol_plain_ms,
-                         "library_ms": chol_lib_ms,
-                         "bound": banded_bound("cholesky", n_sys, L, lw - 1)},
-            "sample": {"max_abs_err": errs["sample"], "ms": ms,
+            "cholesky": chol,
+            "sample": {"max_abs_err": err, "ms": ms,
                        "call_ms": call_ms, "plain_ms": plain_ms,
+                       "library_ms": draw_library_ms(R_ref, b, noise)
+                       if n_sys == 1 else None,
                        "bound": banded_bound("sample", n_sys, L, lw - 1)}}
         emit("banded_kernel_vs_plain", L=L, lw=lw, n_systems=n_sys,
-             cholesky_library_ms=chol_lib_ms, sample_call_ms=call_ms,
+             cholesky_library_ms=chol["library_ms"],
+             cholesky_call_ms=chol["call_ms"], cholesky_tol=chol["tol"],
+             sample_library_ms=out[n_sys]["sample"]["library_ms"],
+             sample_call_ms=call_ms,
              sample_latency_steps=out[n_sys]["sample"]["bound"][
                  "latency_steps"],
              **{f"{k}_{n}": v[n] if n != "bound" else v[n]["bound_ms"]
                 for k, v in out[n_sys].items()
                 for n in ("max_abs_err", "ms", "plain_ms", "bound")},
-             **{f"{k}_tol": BANDED_TOL[k] * scale[k] for k in scale})
-        for k in errs:
-            check(errs[k] <= BANDED_TOL[k] * scale[k],
-                  f"banded {k} kernel differs from its plain version "
-                  f"({n_sys} systems)")
+             sample_tol=BANDED_TOL["sample"] * scale)
+        check(err <= BANDED_TOL["sample"] * scale,
+              f"banded sample kernel differs from its plain version "
+              f"({n_sys} systems)")
 
     cube = bench_cube(L=600, Y=68, X=68)
     card = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(seed=0))
@@ -1274,6 +1324,61 @@ def positivity_run(sampler, n=400, n_chains=1):
                  "bound": sweep_bound(run.problem, n_chains, accept)}
 
 
+#: the card's truncated-normal draw against the plain transform, of
+#: max(1, |z|), where float32 can resolve the draw: every tail draw, and
+#: the body's where 1 − p ≥ 2⁻¹² (nearer p = 1 an ulp of p moves z by
+#: more, and where p rounds to 1 the body caps at α + 9: an ulp of Φ(α)
+#: decides which)
+TRUNC_TOL = 1e-4
+TRUNC_BODY_MIN_1MP = 2.0**-12
+
+
+def phase_trunc_normal():
+    """The sweep kernels' truncated-normal draw (``csrc/gibbs_step.cuh``
+    ``trunc_normal``, the device functions of their λ-phases, elementwise
+    through ``trunc_normal_kernel``) against the plain transform
+    (``ops/truncnorm.py``) in float64 on the same float32 inputs on the
+    card: α over [−5, 1e4] (the body, the switch at 2 and just above it,
+    the tail) against uniforms from 2⁻²⁴ to 1 − 2⁻²⁴; max |Δz| / max(1,
+    |z|) ≤ ``TRUNC_TOL`` where float32 resolves the draw, and every draw
+    finite in [α, α + 9] in the body's last strip; ms of both."""
+    alpha = np.concatenate([np.linspace(-5.0, 10.0, 1501),
+                            2.0 + np.geomspace(1e-6, 1e-2, 100),
+                            np.geomspace(10.0, 1e4, 500)])
+    u = np.concatenate([np.geomspace(2.0**-24, 0.5, 200),
+                        1.0 - np.geomspace(2.0**-24, 0.5, 200)])
+    a, u1 = (torch.tensor(x.ravel(), dtype=torch.float32).cuda()
+             for x in np.meshgrid(alpha, u))
+    u2 = u1.flip(0).contiguous()
+    n0 = tn.trunc_normal.launches
+    z, ms = ms_per_call(lambda: tn.trunc_normal(a, u1, u2), 20)
+    launches = tn.trunc_normal.launches - n0
+    _, plain_ms = timed(lambda: tn.transform_uniforms(a, u1, u2))
+    a64, u64 = a.double(), u1.double()
+    want = tn.transform_uniforms(a64, u64, u2.double())
+    rel = (z.double() - want).abs() / want.abs().clamp(min=1.0)
+    cdf = torch.special.ndtr(a64)
+    tail = a > tn.TAIL_SWITCH
+    resolved = tail | ((1.0 - cdf) * (1.0 - u64) >= TRUNC_BODY_MIN_1MP)
+    err = float(rel[resolved].max())
+    edge = ~resolved
+    in_range = bool(((z[edge] >= a[edge]) & (z[edge] <= a[edge] + 9.0)).all())
+    emit("trunc_normal_vs_plain", n=int(a.numel()), launches=launches,
+         max_rel_err=err, max_rel_err_tail=float(rel[tail].max()),
+         max_rel_err_body=float(rel[resolved & ~tail].max()),
+         body_strip_draws=int(edge.sum()),
+         body_strip_max_rel_err=float(rel[edge].max()),
+         body_strip_in_range=in_range, tol=TRUNC_TOL, ms=ms,
+         plain_ms=plain_ms, tail_steps=tn.NEWTON_STEPS)
+    check(launches == 21 and bool(torch.isfinite(z).all()),
+          "trunc_normal_kernel did not run or gave a non-finite draw")
+    check(err <= TRUNC_TOL, "the card's truncated-normal draw differs from "
+          "the plain transform")
+    check(in_range, "a body draw near p = 1 left [α, α + 9]")
+    check(bool((z >= a - 1e-3 * a.abs().clamp(min=1.0)).all()),
+          "a truncated draw fell below its bound")
+
+
 def phase_positivity():
     """``positivity=True`` on the card.  At 30×30×600, from a state 4
     sweeps in (clean off zero): the resident kernel and classic K1 with
@@ -1340,7 +1445,10 @@ def phase_positivity():
         ms_on2 = time_sweeps(lambda n: seg(problem, state, n), n_time)
         ms_off2 = time_sweeps(lambda n: seg(off, state, n), n_time)
         resident_timed = seg.resident_launches - n0
-        classic_ms = time_sweeps(lambda n: classic(problem, state, n), 20)
+        # classic K1 with the flag off and on, in the same turns
+        classic_turns = [time_sweeps(lambda n: classic(pr, state, n), 20)
+                         for pr in (off, problem, problem, off)]
+        classic_ms = (classic_turns[1] + classic_turns[2]) / 2
         emit("positivity_kernels", sampler=sampler, shape=list(cube.shape),
              compared_sweeps=n_cmp, vs_plain=errs, plain_ms=plain_ms,
              resident_vs_classic_sweeps=4, bit_equal=equal,
@@ -1348,7 +1456,8 @@ def phase_positivity():
              ms_off_on_on_off=[ms_off1, ms_on1, ms_on2, ms_off2],
              resident_ms=(ms_on1 + ms_on2) / 2,
              resident_ms_flag_off=(ms_off1 + ms_off2) / 2,
-             classic_ms=classic_ms, resident_launches_timed=resident_timed)
+             classic_ms=classic_ms, classic_ms_off_on_on_off=classic_turns,
+             resident_launches_timed=resident_timed)
         check(all(equal.values()), "positivity: resident differs from "
               f"classic K1: {[k for k, v in equal.items() if not v]}")
         check(int(moved.sum()) > 0 and clean_min >= 0.0,
@@ -1359,6 +1468,8 @@ def phase_positivity():
                         "ms": (ms_on1 + ms_on2) / 2, "plain_ms": plain_ms,
                         "ms_flag_off": (ms_off1 + ms_off2) / 2,
                         "classic_ms": classic_ms,
+                        "classic_ms_flag_off":
+                            (classic_turns[0] + classic_turns[3]) / 2,
                         "classic_max_abs_err":
                             errs["classic"]["resid_max_abs_err"],
                         "classic_2_chains": batch}
@@ -1378,35 +1489,53 @@ def phase_positivity():
         tp, ts, terrs, _, tplain_ms, tiled_kern = tiled_compare(
             bench_cube(*shape), (1, 1), sampler, 1, 12, positivity=True)
         counter = tiled_counter(sampler)
-        n0 = counter.launches
-        tiled_ms = time_sweeps(lambda k: tl.tiled_segment(tp, ts, k), 10)
-        tiled_launches = counter.launches - n0
+        tp_off = dataclasses.replace(tp, config=dataclasses.replace(
+            tp.config, positivity=False))
+        # K2 with the flag off and on, in the same turns; the launches of
+        # the positivity instantiation
+        tiled_turns, tiled_launches = [], 0
+        for pr in (tp_off, tp, tp, tp_off):
+            n0 = counter.launches
+            tiled_turns.append(time_sweeps(
+                lambda k: tl.tiled_segment(pr, ts, k), 10))
+            tiled_launches += (counter.launches - n0) * (pr is tp)
+        tiled_ms = (tiled_turns[1] + tiled_turns[2]) / 2
         if tplain_ms is None:
             tplain_ms = timed(lambda: tl.tiled_segment_reference(
                 tp, ts, 1))[1]
         out[sampler]["tiled"] = {
             "launches": tiled_launches, "ms": tiled_ms,
+            "ms_flag_off": (tiled_turns[0] + tiled_turns[3]) / 2,
             "plain_ms": tplain_ms, "shape": list(shape), "tile": [1, 1],
             "max_abs_err": terrs["resid_max_abs_err"],
             "bound": sweep_bound(tp, 1, tiled_kern.accept)}
         emit("positivity_tiled", sampler=sampler, shape=list(shape),
              tile=[1, 1], one_tile_equals_resident=one_equal,
              kernel_ms_per_sweep=tiled_ms, plain_ms_per_sweep=tplain_ms,
+             kernel_ms_off_on_on_off=tiled_turns,
              launches_timed=tiled_launches,
              seconds=time.perf_counter() - t0)
-        check(tiled_launches == 11, "K2 with positivity did not run the "
+        check(tiled_launches == 22, "K2 with positivity did not run the "
               "timed sweeps")
-        del tp, ts
+        del tp, ts, tp_off
         del problem, off, state, plain, res, cla, one, two, tiled_kern, chains
     for sampler in ("mh", "gibbs"):
         run, out[sampler]["path"] = positivity_run(sampler)
         del run
         run, out[sampler]["chains"] = positivity_run(sampler, n=64,
                                                      n_chains=2)
-        # classic K1's ms per batched sweep on that run's state
-        out[sampler]["chains"]["ms"] = time_sweeps(
-            lambda k: classic_of(sampler)(run.problem, run.states, k), 8)
-        del run
+        # classic K1's ms per batched sweep on that run's state, with the
+        # flag off and on in the same turns
+        off = dataclasses.replace(run.problem, config=dataclasses.replace(
+            run.problem.config, positivity=False))
+        turns = [time_sweeps(
+            lambda k: classic_of(sampler)(pr, run.states, k), 8)
+            for pr in (off, run.problem, run.problem, off)]
+        out[sampler]["chains"]["ms"] = (turns[1] + turns[2]) / 2
+        out[sampler]["chains"]["ms_flag_off"] = (turns[0] + turns[3]) / 2
+        emit("positivity_chains_ms", sampler=sampler, n_chains=2,
+             ms_off_on_on_off=turns)
+        del run, off
     return out
 
 
@@ -1441,20 +1570,10 @@ def phase_gibbs_block(n=100):
         q = torch.tensor(1.0 + rng.random((n_sys, 600)),
                          dtype=torch.float32).cuda()
         bands = bd.precision_bands(lsf, q)
-        R, chol_ms = ms_per_call(lambda: bd.cholesky_banded(bands), 20)
-        R_ref, chol_plain_ms = timed(
-            lambda: bd.cholesky_banded_reference(bands))
+        R_ref = bd.cholesky_banded_reference(bands)
         row = {}
         if "cholesky" in parts:
-            err, scale = (float((R - R_ref).abs().max()),
-                          float(R_ref.abs().max()))
-            row["cholesky"] = {"max_abs_err": err, "ms": chol_ms,
-                               "plain_ms": chol_plain_ms,
-                               "library_ms": cholesky_library_ms(bands),
-                               "bound": banded_bound("cholesky", n_sys, 600,
-                                                     lw - 1)}
-            check(err <= BANDED_TOL["cholesky"] * scale,
-                  f"banded Cholesky differs ({n_sys} systems, L = 600)")
+            row["cholesky"] = cholesky_vs_plain(bands, library=True)
         if "sample" in parts:
             b, noise = (torch.tensor(rng.standard_normal((n_sys, 600)),
                                      dtype=torch.float32).cuda()
@@ -1469,6 +1588,8 @@ def phase_gibbs_block(n=100):
                           float(x_ref.abs().max()))
             row["sample"] = {"max_abs_err": err, "ms": ms,
                              "call_ms": call_ms, "plain_ms": plain_ms,
+                             "library_ms": draw_library_ms(R_ref, b, noise)
+                             if n_sys == 4 else None,
                              "bound": banded_bound("sample", n_sys, 600,
                                                    lw - 1)}
             check(err <= BANDED_TOL["sample"] * scale,
@@ -1606,19 +1727,34 @@ def solve_bound(L, n, n_factors, p):
             "latency_steps_before": 2 * L}
 
 
-def solve_vs_plain(problem, label, prior_precision=None, library=False):
+def solve_vs_plain(problem, label, prior_precision=None, library=False,
+                   cholesky=False):
     """``banded_solve`` on the preconditioner factors of ``problem``'s
     solves under ``prior_precision`` (default the config's; the shape its
     CG iterations give the kernel: the real view of an rfft2 cube,
     λ-major) against its plain version: error, ms of both (the kernel per
     launch over 20, CUDA events), the bound; with ``library`` the time of
-    ``torch.cholesky_solve`` on the dense factors, same right-hand
-    sides."""
+    ``torch.cholesky_solve`` on the dense factors, same right-hand sides;
+    with ``cholesky`` the Cholesky kernel on the bands that the
+    preconditioner factors (:func:`cholesky_vs_plain`, the library at L =
+    600)."""
     mode = td._resolve_precond_mode(problem)
     if prior_precision == "auto":
         prior_precision = td.suggest_prior_precision(problem)
-    state = td._precond_state(problem, mode, td._precond_tau(
-        problem, td._tau(problem, prior_precision)))
+    captured, real = [], bd.cholesky_banded
+
+    def capture(bands, jitter=0.0):
+        captured.append(bands.clone())
+        return real(bands, jitter)
+    # the wrapper counts its launches under the module's name
+    capture.launches = real.launches
+    bd.cholesky_banded = capture
+    try:
+        state = td._precond_state(problem, mode, td._precond_tau(
+            problem, td._tau(problem, prior_precision)))
+    finally:
+        bd.cholesky_banded = real
+        real.launches = capture.launches
     gen = torch.Generator(device="cuda").manual_seed(21)
     r = torch.randn((problem.L, problem.Y, problem.X), generator=gen,
                     device="cuda")
@@ -1649,8 +1785,16 @@ def solve_vs_plain(problem, label, prior_precision=None, library=False):
         out["library_max_abs_err"] = float(
             (lib.transpose(1, 2).reshape(n, L).T - want).abs().max())
         del U, lib
+    if cholesky:
+        check(len(captured) == 1, f"{len(captured)} factorisations")
+        out["cholesky"] = cholesky_vs_plain(captured[0], library=L == 600)
+        emit("banded_cholesky_vs_plain", label=label,
+             shape=list(captured[0].shape), **{
+                 k: v for k, v in out["cholesky"].items() if k != "bound"},
+             bound_ms=out["cholesky"]["bound"]["bound_ms"])
+    del captured
     emit("banded_solve_vs_plain", label=label, **{
-        k: v for k, v in out.items() if k != "bound"},
+        k: v for k, v in out.items() if k not in ("bound", "cholesky")},
         bound_ms=out["bound"]["bound_ms"], bound_by=out["bound"]["bound_by"],
         latency_steps=out["bound"]["latency_steps"],
         tol=SOLVE_TOL * scale)
@@ -1753,7 +1897,7 @@ def phase_direct(tmp, n_oracle=300, n_draws=20):
     run = d3.Run(cube, d3.MUSE(), seed=0)
     p = run.problem
     out["dense_600"] = solve_vs_plain(p, "bench 30x30x600", "auto",
-                                      library=True)
+                                      library=True, cholesky=True)
     big = d3.Run(bench_cube(L=3681, Y=60, X=60), d3.MUSE(), seed=0,
                  sampler="direct", prior_precision="auto")
     out["dense_3681"] = solve_vs_plain(big.problem, "60x60x3681")
@@ -1850,12 +1994,14 @@ def phase_direct(tmp, n_oracle=300, n_draws=20):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = bd.banded_solve.launches
+    chol_launches = bd.cholesky_banded.launches
     diag = run.diagnostics()
     consistency = chi2_consistency(run)
     run.save(os.path.join(tmp, "direct"))
     saved = os.path.isfile(os.path.join(tmp, "direct_clean.fits"))
     iters = [r["iterations"] for r in rec.solves]
     out["path"] = {"launches": launches, "draws": n_draws,
+                   "cholesky_launches": chol_launches,
                    "draws_per_sec": n_draws / dt,
                    "iterations_per_draw": iters,
                    "ms_per_iteration": sum(r["ms"] for r in rec.solves)
@@ -1870,6 +2016,7 @@ def phase_direct(tmp, n_oracle=300, n_draws=20):
     check(consistency <= 1e-5, "direct chi2 is not the from-scratch one")
     check(launches >= sum(iters) > 0,
           "the draws' CG bypassed the solve kernel")
+    check(chol_launches >= 1, "the draws built no preconditioner factors")
     check(saved, "save() files missing")
     return out
 
@@ -1893,7 +2040,8 @@ def phase_direct_field(cube):
     p = run.problem
     mode = td._resolve_precond_mode(p)
     check(mode == "banded_radial", f"the full field resolved to {mode}")
-    out = {"radial_3681": solve_vs_plain(p, "300x300x3681 radial")}
+    out = {"radial_3681": solve_vs_plain(p, "300x300x3681 radial",
+                                         cholesky=True)}
     reset_launches()
     with PCGRecorder() as rec:
         torch.cuda.synchronize()
@@ -1907,6 +2055,7 @@ def phase_direct_field(cube):
         torch.cuda.synchronize()
         draws_s = time.perf_counter() - t0
     launches = bd.banded_solve.launches
+    chol_launches = bd.cholesky_banded.launches
     peak = torch.cuda.max_memory_allocated()
     flags = run.trace("accept")[0].tolist()
     draws = rec.solves[-2:]
@@ -1922,7 +2071,7 @@ def phase_direct_field(cube):
         "draw_iterations": [d["iterations"] for d in draws],
         "draw_rel_residuals": [d["rel_residual"] for d in draws],
         "s_per_draw": draws_s / 2, "flags": flags, "solves": rec.solves,
-        "solve_launches": launches,
+        "solve_launches": launches, "cholesky_launches": chol_launches,
         "peak_bytes": peak, "profile": prof,
         "ms_per_iteration": sum(d["ms"] for d in rec.solves)
         / max(sum(d["iterations"] for d in rec.solves), 1)})
@@ -2438,6 +2587,7 @@ def main() -> int:
     coarse = phase_coarse()
     phase_band_launch()
     sharded = phase_sharded_shards()
+    phase_trunc_normal()
     positivity = phase_positivity()
     block = phase_gibbs_block()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2572,11 +2722,15 @@ def main() -> int:
             "shape": [n_sys, 3681, 11],
             "max_abs_err": at["max_abs_err"], "ms": at["ms"],
             "plain_ms": at["plain_ms"], **bound(at["bound"]),
-            "library_ms": at.get("library_ms"),
+            "library_ms": at["library_ms"],
+            "library_is": "torch.linalg.cholesky on the dense matrices"
+                          if part == "cholesky" else
+                          "torch.linalg.solve_triangular on the dense "
+                          "factor, forward then backward",
             "n_systems_324": other_shape(coarse[324][part]),
-            **({"call_ms": at["call_ms"], "ms_is": device_ms_is,
-                "latency_steps_before": 2 * 3681}
-               if part == "sample" else {}),
+            "n_systems_1": other_shape(coarse[1][part]),
+            "call_ms": at["call_ms"], "ms_is": device_ms_is,
+            "latency_steps_before": 2 * 3681 if part == "sample" else 3681,
         })
     # positivity: the same sources with the flag compiled in, on the
     # positivity Runs (resident: one chain; classic K1: two chains)
@@ -2613,7 +2767,10 @@ def main() -> int:
                                            "in",
             "n_chains_1_600x30x30": {
                 "max_abs_err": pos["classic_max_abs_err"],
-                "ms": pos["classic_ms"], "plain_ms": pos["plain_ms"]},
+                "ms": pos["classic_ms"],
+                "ms_flag_off_same_turns": pos["classic_ms_flag_off"],
+                "plain_ms": pos["plain_ms"]},
+            "ms_flag_off_same_turns": pos["chains"]["ms_flag_off"],
             "library_ms": None,
         })
     # K2 with positivity, on the positivity phase's comparison shapes
@@ -2630,6 +2787,7 @@ def main() -> int:
             "launches_path": "positivity (tiled_segment, timed sweeps)",
             "shape": tp["shape"], "tile": tp["tile"], "n_chains": 1,
             "max_abs_err": tp["max_abs_err"], "ms": tp["ms"],
+            "ms_flag_off_same_turns": tp["ms_flag_off"],
             "plain_ms": tp["plain_ms"], **bound(tp["bound"]),
             "library_ms": None,
         })
@@ -2647,6 +2805,8 @@ def main() -> int:
         "plain_ms": block[1156]["cholesky"]["plain_ms"],
         **bound(block[1156]["cholesky"]["bound"]),
         "library_ms": block[1156]["cholesky"]["library_ms"],
+        "library_is": "torch.linalg.cholesky on the dense matrices",
+        "call_ms": block[1156]["cholesky"]["call_ms"], "ms_is": device_ms_is,
     })
     lines.append({
         "name": "banded_sample_conditional<gibbs_block>", "route": "cuda",
@@ -2658,7 +2818,10 @@ def main() -> int:
         "shape": [4, 600, 11],
         "max_abs_err": block[4]["sample"]["max_abs_err"],
         "ms": block[4]["sample"]["ms"], "plain_ms": block[4]["sample"]["plain_ms"],
-        **bound(block[4]["sample"]["bound"]), "library_ms": None,
+        **bound(block[4]["sample"]["bound"]),
+        "library_ms": block[4]["sample"]["library_ms"],
+        "library_is": "torch.linalg.solve_triangular on the dense factor, "
+                      "forward then backward",
         "call_ms": block[4]["sample"]["call_ms"], "ms_is": device_ms_is,
         "latency_steps_before": 2 * 600,
         "sweep_profile": block["path"]["profile"],
@@ -2692,6 +2855,31 @@ def main() -> int:
         "radial_3681x90600": {
             **other_shape(direct["field"]["radial_3681"]),
             "launches": direct["field"]["solve_launches"],
+            "launches_path": "direct full field (1 map_estimate, 2 draws)"},
+    })
+    # the Cholesky at the direct preconditioner's shapes: launches on the
+    # direct Run (bench, dense: 480 factors) and the full field's (radial,
+    # 256); numbers on the bands those builds factor
+    chol = direct["dense_600"]["cholesky"]
+    chol_field = direct["field"]["radial_3681"]["cholesky"]
+    lines.append({
+        "name": "banded_cholesky<direct>", "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/banded.cu",
+        "replaces": "deconv3d_tpu/ops/banded.py:77-117 (lax.scan, no "
+                    "Pallas; the preconditioner's factors, "
+                    "deconv3d_tpu/ops/direct.py)",
+        "launches": direct["path"]["cholesky_launches"],
+        "launches_path": "direct (Run(sampler='direct'), bench cube: one "
+                         "preconditioner build)",
+        "shape": [480, 600, 11],
+        "max_abs_err": chol["max_abs_err"], "ms": chol["ms"],
+        "plain_ms": chol["plain_ms"], **bound(chol["bound"]),
+        "library_ms": chol["library_ms"],
+        "library_is": "torch.linalg.cholesky on the dense matrices",
+        "call_ms": chol["call_ms"], "ms_is": device_ms_is,
+        "radial_256x3681": {
+            **other_shape(chol_field),
+            "launches": direct["field"]["cholesky_launches"],
             "launches_path": "direct full field (1 map_estimate, 2 draws)"},
     })
     check(all(line["launches"] > 0 for line in lines),

@@ -63,6 +63,7 @@ _SIGNATURES = {
     "gibbs_sweep_launch": ([_P] * 16 + [_I] * 11 + [_U, _P], _I),
     "gibbs_sweep_scratch_floats": ([_I, ctypes.c_longlong, _I],
                                    ctypes.c_longlong),
+    "trunc_normal_launch": ([_P] * 4 + [_I, _P], _I),
     "tiled_mh_launch": ([_P] * 17 + [_I] * 17 + [_U, _F, _F, _P], _I),
     "tiled_gibbs_launch": ([_P] * 18 + [_I] * 18 + [_U, _P], _I),
     "task_phase_clocks": ([_P], _I),

@@ -17,9 +17,25 @@
 //   solve:     R^T z = b,  R x = z  -> x = A^-1 b, for lambda-major
 //              columns that name their factor (banded_solve_kernel below)
 //
-// The Cholesky: one thread per system walks its L rows with the last P
-// rows of R in registers; a warp of up to 32 systems stages chunks of
-// rows through shared memory.  Latency-bound by design: L dependent rows.
+// The Cholesky (right-looking): a system's rows run on a group of G lanes,
+// G a power of two above P + 1 (16 at P = 10: two systems a warp).  Lane k
+// holds entry k of the current row and entry k of each of the P rows below
+// it, reduced as far as the rows above have taken them: once row l is
+// known, it subtracts R[l, l+i] R[l, l+i+k] from entry k of row l + i
+// (i + k <= P), so every entry takes its updates in row order.  Per row,
+// every lane forms the pivot x = max(s0 (1 + jitter), eps) from lane 0's
+// entry, R[l, l] = x rsqrt(x) and R[l, l+k] = s_k rsqrt(x).  Row l + 1's
+// update goes first, by shuffles, and lane 0's entry of row l + 1 reaches
+// the other lanes before row l is known, so the chain from row to row is
+// two shuffles, an fma, the pivot's rsqrt and a multiply.  The P - 1
+// updates of the rows further down run beside it from a copy of row l in
+// shared memory (three broadcast 16-byte loads and P - 1 loads of a
+// zero-padded row: no masks): with a shuffle for each of their 2 (P - 1)
+// operands instead, issuing the shuffles made a row about three times
+// longer.
+// The bands are read one chunk of kCholRows rows ahead into registers (the
+// group's lanes on adjacent floats), the rows stored as they come.  Bound:
+// L dependent rows of that chain for one system.
 //
 // The draw and the solve: a segmented recurrence.  Both solves carry a
 // P-vector from row to row (forward: acc[k] = sum over the rows i done of
@@ -82,32 +98,11 @@ namespace deconv3d_banded {
 
 constexpr int kWarp = 32;                 // threads per block
 constexpr int kMaxP = 10;                 // lw <= 11
-constexpr int kSmemFloats = 48 * 1024 / 4;
 constexpr int kFillLanes = 32768;         // threads that fill the card
 constexpr int kChunk = 8;                 // rows of a chunk
 constexpr int kSolveWarps = 8;            // a segmented solve's block: 8
                                           // warps at ~225 registers
 constexpr int kSolveBlocks = 64;          // fewer blocks split columns finer
-
-// Rows per staged chunk for `nsys` systems of `width` floats per row; a
-// padding float after each system's rows (two per system at most) keeps
-// the threads' rows in distinct banks.
-__host__ __device__ inline int chunk_rows(int nsys, int width, int L) {
-  const int rows = (kSmemFloats / nsys - 2) / width;
-  return rows < L ? rows : L;
-}
-
-// Copy rows [l0, l0 + rows) of `nsys` systems (rows of `width` floats,
-// `L` rows per system) from `src` into `dst` (system stride `stride`).
-__device__ inline void stage(float* dst, const float* src, int sys0, int nsys,
-                             int L, int l0, int rows, int width, int stride) {
-  const int per = rows * width;
-  for (int e = threadIdx.x; e < nsys * per; e += blockDim.x) {
-    const int s = e / per, r = e - s * per;
-    dst[s * stride + r] =
-        src[(static_cast<long long>(sys0 + s) * L + l0) * width + r];
-  }
-}
 
 // Segments per system of the draw (the split rule above).
 __host__ __device__ inline int segments(int n, int L, int p) {
@@ -196,56 +191,92 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
       : "memory");
 }
 
+// The Cholesky's blocks and chunks, and its lanes per system: a power of
+// two above P + 1, so that lane G - 1 holds zeros (the source of every
+// product that falls off the band); P = 0 needs no lanes to talk.
+constexpr int kCholThreads = 64;
+constexpr int kCholRows = 16;
+__host__ __device__ constexpr int chol_lanes(int P) {
+  return P < 1 ? 1 : P < 3 ? 4 : P < 7 ? 8 : 16;
+}
+
 template <int P>
-__global__ void __launch_bounds__(kWarp)
+__global__ void __launch_bounds__(kCholThreads)
     banded_cholesky_kernel(const float* __restrict__ bands,
                            float* __restrict__ out, int n_sys, int L,
                            float jitter) {
-  constexpr int W = P + 1;
-  __shared__ float smem[kSmemFloats];
-  const int sys0 = blockIdx.x * kWarp;
-  const int nsys = min(kWarp, n_sys - sys0);
-  const int t = threadIdx.x;
-  const int rows_max = chunk_rows(nsys, W, L);
-  const int stride = rows_max * W + 1;
-  // prev[m][k] = R[l-1-m, l-1-m+k]: the last P rows
-  float prev[P > 0 ? P : 1][W];
+  constexpr int W = P + 1, G = chol_lanes(P), K = kCholRows;
+  constexpr unsigned kAll = 0xffffffffu;
+  static_assert(P == 0 || (W <= 12 && W < G),
+                "a row in three float4, and a zero lane");
+  // each group's last two rows, zero past entry P (two: the next row's
+  // stores may not overwrite the one being read)
+  __shared__ __align__(16) float rows[P > 0 ? kCholThreads / G : 1][2][32];
+  const int k = threadIdx.x % G, grp = threadIdx.x / G;
+  const int sys = blockIdx.x * (kCholThreads / G) + grp;
+  // a lane past the row's W entries or a system past n_sys holds zeros
+  // (and stores nothing), but takes part in every shuffle
+  const bool mine = sys < n_sys && k < W;
+  const float* a = bands + static_cast<long long>(mine ? sys : 0) * L * W + k;
+  float* o = out + static_cast<long long>(mine ? sys : 0) * L * W + k;
+  auto load = [&](int row) { return mine && row < L ? __ldg(a + row * W) : 0.0f; };
+  const float scale = 1.0f + jitter;
+  if (P > 0) {
+    for (int e = k; e < 64; e += G) (&rows[grp][0][0])[e] = 0.0f;
+    __syncwarp();
+  }
+  // w1 = R[l, l+1+k] comes from lane 1 + k, or the zero lane past the band
+  const int src1 = 1 + k <= P ? 1 + k : G - 1;
+  // s: entry k of the current row, reduced; s0: lane 0's; pend[i]: entry k
+  // of the row i + 1 below, reduced by the rows above the current one
+  float s = load(0);
+  float s0 = __shfl_sync(kAll, s, 0, G);
+  float pend[P > 0 ? P : 1];
 #pragma unroll
-  for (int m = 0; m < (P > 0 ? P : 1); ++m)
+  for (int i = 0; i < P; ++i) pend[i] = load(1 + i);
+  // the rows entering pend, one chunk ahead: row l + 1 + P at row l
+  float q[K], nq[K];
 #pragma unroll
-    for (int k = 0; k < W; ++k) prev[m][k] = 0.f;
-  for (int l0 = 0; l0 < L; l0 += rows_max) {
-    const int rows = min(rows_max, L - l0);
-    __syncthreads();
-    stage(smem, bands, sys0, nsys, L, l0, rows, W, stride);
-    __syncthreads();
-    if (t >= nsys) continue;
-    const float* a = smem + t * stride;
-    float* o = out + (static_cast<long long>(sys0 + t) * L + l0) * W;
-    for (int r = 0; r < rows; ++r, a += W, o += W) {
-      float s0 = a[0];
+  for (int u = 0; u < K; ++u) q[u] = load(P + 1 + u);
+  for (int l0 = 0; l0 < L; l0 += K) {
 #pragma unroll
-      for (int m = 1; m <= P; ++m) s0 -= prev[m - 1][m] * prev[m - 1][m];
-      float row[W];
-      row[0] = sqrtf(fmaxf(s0 * (1.f + jitter), 1e-30f));
+    for (int u = 0; u < K; ++u) nq[u] = load(l0 + K + P + 1 + u);
 #pragma unroll
-      for (int k = 1; k <= P; ++k) {
-        float sk = a[k];
+    for (int u = 0; u < K; ++u) {
+      // R[l, l] = sqrt(x) = x rsqrt(x), R[l, l+k] = s_k rsqrt(x)
+      const float x = fmaxf(s0 * scale, 1e-30f);
+      const float r = (k == 0 ? x : s) * rsqrtf(x);
+      if (mine && l0 + u < L) o[(l0 + u) * W] = r;
+      if constexpr (P > 0) {
+        float* row = rows[grp][u & 1];
+        if (k < W) row[k] = r;
+        // row l + 1 first, by shuffles: lane 0's entry needs only row l's
+        // R[l, l+1]^2
+        const float b0 = __shfl_sync(kAll, pend[0], 0, G);
+        const float v1 = __shfl_sync(kAll, r, 1, G);
+        const float w1 = __shfl_sync(kAll, r, src1, G);
+        s = fmaf(-v1, w1, pend[0]);
+        s0 = fmaf(-v1, v1, b0);
+        // rows l + 2 .. l + P through shared memory: R[l, l+i] by three
+        // broadcast 16-byte loads, R[l, l+i+k] from the zero-padded row
+        __syncwarp();
+        const float4 ra = *reinterpret_cast<const float4*>(row);
+        const float4 rb = *reinterpret_cast<const float4*>(row + 4);
+        const float4 rc = *reinterpret_cast<const float4*>(row + 8);
+        const float v[12] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y,
+                             rb.z, rb.w, rc.x, rc.y, rc.z, rc.w};
 #pragma unroll
-        for (int m = 1; m <= P - k; ++m)
-          sk -= prev[m - 1][m] * prev[m - 1][m + k];
-        row[k] = sk / row[0];
-      }
+        for (int i = 2; i <= P; ++i)
+          pend[i - 1] = fmaf(-v[i], row[i + k], pend[i - 1]);
 #pragma unroll
-      for (int m = P - 1; m > 0; --m)
-#pragma unroll
-        for (int k = 0; k < W; ++k) prev[m][k] = prev[m - 1][k];
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        if (P > 0) prev[0][k] = row[k];
-        o[k] = row[k];
+        for (int i = 0; i + 1 < P; ++i) pend[i] = pend[i + 1];
+        pend[P - 1] = q[u];
+      } else {
+        s = s0 = q[u];
       }
     }
+#pragma unroll
+    for (int u = 0; u < K; ++u) q[u] = nq[u];
   }
 }
 
@@ -602,9 +633,9 @@ int allow_smem(Kernel* kernel, int bytes) {
 template <int P>
 int launch_cholesky(const float* bands, float* out, int n_sys, int L,
                     float jitter, cudaStream_t st) {
-  const int blocks = (n_sys + kWarp - 1) / kWarp;
-  banded_cholesky_kernel<P><<<blocks, kWarp, 0, st>>>(bands, out, n_sys, L,
-                                                      jitter);
+  constexpr int per = kCholThreads / chol_lanes(P);
+  banded_cholesky_kernel<P><<<(n_sys + per - 1) / per, kCholThreads, 0, st>>>(
+      bands, out, n_sys, L, jitter);
   return static_cast<int>(cudaGetLastError());
 }
 

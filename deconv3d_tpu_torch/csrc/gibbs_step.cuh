@@ -31,10 +31,11 @@
 // Positivity (kPos, a compile-time flag: the flag-off code is unchanged)
 // draws each voxel from its conditional truncated to clean >= 0
 // (truncated_jump) from the same two uniforms.  Its mean depends on the
-// voxel's clean, so the window also keeps the uniforms and the step's
-// starting clean (7 arrays, not 5), read from global memory in (b); and
-// since the windows of a spaxel's slabs overlap, (b) writes the slab's
-// jumps to scratch and (c) adds them to clean, after every window is read.
+// voxel's clean, so the window also keeps the uniforms (u1, log u2) and
+// the step's starting clean (7 arrays, not 5), read from global memory in
+// (b); and since the windows of a spaxel's slabs overlap, (b) writes the
+// slab's jumps to scratch and (c) adds them to clean, after every window
+// is read.
 //
 // A task's arithmetic depends neither on the chain batch nor on the step's
 // extent, nor on lam_b (see mh_step.cuh).
@@ -69,47 +70,64 @@ __device__ __forceinline__ float gibbs_dlo_term(float ga, float qlo) {
 }
 
 // Positivity: z ~ N(0, 1) truncated to z >= alpha from two uniforms, as
-// ops/truncnorm.py transform_uniforms computes it (the inverse CDF for
-// alpha <= 2; above, 4 Newton steps on log Phi(-z) = log Phi(-alpha) +
-// log u_tail), with log Phi(-z) and the hazard phi(z) / Phi(-z) from erfcx,
-// which neither saturates nor cancels in float32 at any alpha.
+// ops/truncnorm.py computes it: the inverse CDF for alpha <= 2; above, the
+// excess d = z - alpha of the root of log Phi(-z) = log Phi(-alpha) +
+// log u_tail, from d0 = -2 log u / (alpha + sqrt(alpha^2 - 2 log u)) by
+// kTailSteps Newton steps on F(d) = E(alpha + d) - E(alpha) - d (alpha +
+// d/2) - log u, E(z) = log erfcx(z / sqrt 2), each multiplying by erfcx
+// where it would divide by the hazard.  erfcx neither saturates nor
+// cancels in float32 at any alpha.  The sweeps draw through
+// truncated_jump, with log u_tail taken at the window fill; every kernel
+// calls it, so their draws stay bit-equal.
 constexpr float kTailSwitch = 2.0f;
 constexpr float kSqrtHalf = 0.70710678118654752f;
-constexpr float kSqrt2OverPi = 0.79788456080286536f;
-constexpr float kLog2Pi = 1.8378770664093453f;
-// log Phi(-z), z >= 0
-__device__ __forceinline__ float log_sf(float z) {
-  return __fsub_rn(logf(__fmul_rn(0.5f, erfcxf(__fmul_rn(z, kSqrtHalf)))),
-                   __fmul_rn(0.5f, __fmul_rn(z, z)));
-}
-__device__ __forceinline__ float trunc_normal(float alpha, float u_body,
-                                              float u_tail) {
-  if (alpha > kTailSwitch) {
-    const float t = __fadd_rn(log_sf(alpha), logf(u_tail));
-    const float w2 = __fmul_rn(2.0f, fmaxf(-t, 2.5f));
-    float z = sqrtf(fmaxf(__fsub_rn(__fsub_rn(w2, logf(w2)), kLog2Pi), 0.25f));
+constexpr float kSqrtPiOver2 = 1.2533141373155003f;
+constexpr int kTailSteps = 2;
+// d = z - alpha of the tail draw, alpha > 2 (truncnorm.py tail_excess)
+__device__ __forceinline__ float tail_excess(float alpha, float log_u) {
+  const float z0 = sqrtf(__fsub_rn(__fmul_rn(alpha, alpha),
+                                   __fmul_rn(2.0f, log_u)));
+  float d = __fdiv_rn(__fmul_rn(-2.0f, log_u), __fadd_rn(alpha, z0));
+  const float e_alpha = logf(erfcxf(__fmul_rn(alpha, kSqrtHalf)));
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float f = __fsub_rn(log_sf(z), t);
-      const float h = __fdiv_rn(kSqrt2OverPi, erfcxf(__fmul_rn(z, kSqrtHalf)));
-      z = fmaxf(__fadd_rn(z, __fdiv_rn(f, fmaxf(h, 1.0e-30f))), 1.0e-3f);
-    }
-    return z;
+  for (int i = 0; i < kTailSteps; ++i) {
+    const float ez = erfcxf(__fmul_rn(__fadd_rn(alpha, d), kSqrtHalf));
+    const float f = __fsub_rn(
+        __fsub_rn(__fsub_rn(logf(ez), e_alpha),
+                  __fmul_rn(d, __fadd_rn(alpha, __fmul_rn(0.5f, d)))),
+        log_u);
+    d = __fadd_rn(d, __fmul_rn(__fmul_rn(f, ez), kSqrtPiOver2));
   }
+  return d;
+}
+// z of the body draw, alpha <= 2: p may round to 1, capped at alpha + 9
+__device__ __forceinline__ float body_normal(float alpha, float u_body) {
   const float cdf = normcdff(alpha);
   const float p = __fadd_rn(cdf, __fmul_rn(u_body, __fsub_rn(1.0f, cdf)));
-  return fminf(normcdfinvf(p), __fadd_rn(alpha, 9.0f));   // p may round to 1
+  return fminf(normcdfinvf(p), __fadd_rn(alpha, 9.0f));
 }
-// a live voxel's positivity draw as a jump from its clean `cur`:
-// c' ~ N(mu, 1 / qs) truncated to c' >= 0, mu = cur + linT / qs, and c'
+// z itself (truncnorm.py transform_uniforms; the elementwise check kernel)
+__device__ __forceinline__ float trunc_normal(float alpha, float u_body,
+                                              float u_tail) {
+  return alpha > kTailSwitch
+             ? __fadd_rn(alpha, tail_excess(alpha, logf(u_tail)))
+             : body_normal(alpha, u_body);
+}
+// a live voxel's positivity draw as a jump from its clean `cur`, qs =
+// max(q, 1e-30) (ops/sweep.py truncated_jump): c' = sigma d ~ N(mu, 1 / qs)
+// truncated to c' >= 0, mu = cur + linT / qs, sigma = rsqrt(qs), and c'
 // clamped at 0, where float32 rounding can land a hair below it
 __device__ __forceinline__ float truncated_jump(float linT, float qs,
                                                 float cur, float u1,
-                                                float u2) {
+                                                float log_u2) {
   const float sig = rsqrtf(qs);
-  const float mu = __fadd_rn(cur, __fdiv_rn(linT, qs));
-  const float z = trunc_normal(__fdiv_rn(-mu, sig), u1, u2);
-  return __fsub_rn(fmaxf(__fadd_rn(mu, __fmul_rn(sig, z)), 0.0f), cur);
+  // alpha = -mu / sigma as -sigma (cur qs + linT): no division
+  const float alpha = __fmul_rn(-sig, __fadd_rn(__fmul_rn(cur, qs), linT));
+  // the excess d = z - alpha of either region (truncnorm.py excess)
+  const float d = alpha > kTailSwitch
+                      ? tail_excess(alpha, log_u2)
+                      : __fsub_rn(body_normal(alpha, u1), alpha);
+  return __fsub_rn(fmaxf(__fmul_rn(sig, d), 0.0f), cur);
 }
 
 struct GibbsArgs {
@@ -282,7 +300,7 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
   float* wqv = wq + wd;                           // qvox,
   float* wnj = wqv + wd;                          // normals -> jumps,
   float* wg = wnj + wd;                           // gacc,
-  float* wu2 = wg + wd;                           // (positivity) u2,
+  float* wu2 = wg + wd;                           // (positivity) log u2,
   float* wcl = wu2 + wd;                          // the starting clean
   for (int t = blockIdx.x; t < spaxels * n_slabs; t += gridDim.x) {
     const int cs = t / n_slabs, slab = t - cs * n_slabs;
@@ -318,7 +336,7 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
       wqv[k] = a.qvox[static_cast<size_t>(sp) * L + l];
       if (kPos) {
         wnj[k] = u1;
-        wu2[k] = u2;
+        wu2[k] = logf(u2);
         wcl[k] = a.clean[(static_cast<size_t>(ch) * Yc * Xc + sp) * L + l];
       } else {
         wnj[k] = box_muller(u1, u2);

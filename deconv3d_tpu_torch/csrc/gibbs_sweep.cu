@@ -67,9 +67,33 @@ __global__ void __launch_bounds__(kMaxThreads)
   clk.flush();
 }
 
+// The sweeps' truncated-normal draw elementwise (gibbs_step.cuh
+// trunc_normal: the same device functions as their lambda-phases), a check
+// of that arithmetic against ops/truncnorm.py on the card; no sweep
+// launches it.
+__global__ void trunc_normal_kernel(const float* __restrict__ alpha,
+                                    const float* __restrict__ u_body,
+                                    const float* __restrict__ u_tail,
+                                    float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = trunc_normal(alpha[i], u_body[i], u_tail[i]);
+}
+
 }  // namespace deconv3d
 
 extern "C" {
+
+// out[i] = z ~ TN[alpha[i], inf) from (u_body[i], u_tail[i]), i < n, on
+// `stream`.  Returns a cudaError_t (0 on success).
+int trunc_normal_launch(const float* alpha, const float* u_body,
+                        const float* u_tail, float* out, int n,
+                        void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  deconv3d::trunc_normal_kernel<<<(n + 255) / 256, 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      alpha, u_body, u_tail, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Floats of scratch a step over `spaxels` (chain, spaxel)s needs (lin,
 // gacc, the per-wavelength dchi2 and quad_lo terms; with `positivity` the

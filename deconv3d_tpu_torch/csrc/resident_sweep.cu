@@ -60,8 +60,8 @@
 //   which belong to other blocks' slabs.  A spaxel's clean changes only at
 //   its own visit and global clean is written only after the sweep, so
 //   every block reads the visit's starting clean there: MH reflects the
-//   jumps of its slab and halo, gibbs keeps the window's clean and second
-//   uniforms beside it (7 window arrays, not 5) for truncated_jump.
+//   jumps of its slab and halo, gibbs keeps the window's clean and log u2
+//   beside it (7 window arrays, not 5) for truncated_jump.
 //
 // What bounds it.  The chain of f^2 dependent color steps -- not bytes or
 // flops: at 30x30x600 a sweep moves ~26 MB (MH) and does ~0.6 GFLOP, ~9 us
@@ -559,7 +559,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   float* wqv = wq + static_cast<size_t>(g.ncs) * wd;     // qvox,
   float* wnj = wqv + static_cast<size_t>(g.ncs) * wd;    // normals -> jumps,
   float* wg = wnj + static_cast<size_t>(g.ncs) * wd;     // gacc,
-  float* wu2 = wg + static_cast<size_t>(g.ncs) * wd;     // (positivity) u2,
+  float* wu2 = wg + static_cast<size_t>(g.ncs) * wd;     // (positivity) log u2,
   float* wcl = wu2 + static_cast<size_t>(g.ncs) * wd;    // starting clean
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwb = nt >> 5;
@@ -623,7 +623,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       wqv[wi] = a.qvox[static_cast<size_t>(e.sp) * L + l];
       if (kPos) {
         wnj[wi] = u1;
-        wu2[wi] = u2;
+        wu2[wi] = logf(u2);
         wcl[wi] = a.clean[(static_cast<size_t>(e.ch) * g.Yc * g.Xc + e.sp) * L + l];
       } else {
         wnj[wi] = box_muller(u1, u2);
@@ -641,7 +641,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
         if (on[cs] == 0.0f) continue;
         float *wl = wlin + cs * wd, *q_ = wq + cs * wd, *qv = wqv + cs * wd;
         float *nj = wnj + cs * wd, *ga = wg + cs * wd;
-        const float *u2_ = wu2 + cs * wd, *cl_ = wcl + cs * wd;
+        const float *lu2 = wu2 + cs * wd, *cl_ = wcl + cs * wd;
         // phase ph draws window index first + i lw, first = (ph - wlo) mod
         // lw; at window index k its update reads the phase voxel k - half +
         // r, r = (ph - (wlo + k - half)) mod lw: both step by one per phase
@@ -661,7 +661,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
               for (int d = d0; d < d1; ++d, lp -= lw - 1, --np)
                 linT = band_term(linT, *lp, *np);
               jump = kPos ? truncated_jump(linT, fmaxf(q, 1.0e-30f), cl_[k],
-                                           nj[k], u2_[k])
+                                           nj[k], lu2[k])
                           : gibbs_jump(linT, fmaxf(q, 1.0e-30f), nj[k]);
             }
             nj[k] = jump;

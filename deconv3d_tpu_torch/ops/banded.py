@@ -16,8 +16,10 @@ the matrix edge).  Every routine is batched over leading dims.  The
 λ-major columns that share factors: the direct sampler's
 preconditioner) run them on CPU tensors and, on CUDA tensors, the
 kernels of ``csrc/banded.cu``, which a failed build or launch does not
-turn into the plain loop: it raises.  The Cholesky kernel walks each
-system's rows in one thread; the draw and the solve cut each system's or
+turn into the plain loop: it raises.  The Cholesky kernel runs each
+system's rows on a group of lanes, one lane per band entry, right-looking
+(:func:`rightlooking_cholesky_reference` is its order of operations in
+plain torch, for the tests); the draw and the solve cut each system's or
 column's rows into segments solved side by side and joined by a carry of
 the p-vector state (:func:`segments`, :func:`solve_split`;
 :func:`segmented_solve_reference` is their arithmetic in plain torch, for
@@ -104,6 +106,40 @@ def cholesky_banded_reference(bands: torch.Tensor,
         out[..., l, :] = row
         if p:
             prev = torch.cat([row[..., None, :], prev[..., :-1, :]], dim=-2)
+    return out
+
+
+def rightlooking_cholesky_reference(bands: torch.Tensor,
+                                    jitter: float = 0.0) -> torch.Tensor:
+    """The Cholesky kernel's order of operations in plain torch (tests
+    only): :func:`cholesky_banded_reference`'s factor, right-looking.  Row
+    l, once known, subtracts R[l, l+i]·R[l, l+i+k] from entry k of row l +
+    i (i = 1..p, i + k ≤ p), so each entry takes its updates in row order
+    and the row's own pivot is x = max(s₀·(1 + jitter), EPS): R[l, l] =
+    x·rsqrt(x), R[l, l+k] = s_k·rsqrt(x) (``csrc/banded.cu``
+    ``banded_cholesky_kernel``, which fuses each update into an fma and
+    takes the hardware's approximate rsqrt)."""
+    L, W = bands.shape[-2:]
+    p = W - 1
+    dev = bands.device
+    i = torch.arange(1, p + 1, device=dev)[:, None]
+    k = torch.arange(W, device=dev)[None, :]
+    # U[i-1, k] = r[i]·r[i+k] for i + k <= p
+    idx = (i + k).clamp(max=p).expand(*bands.shape[:-2], p, W)
+    keep = (i + k <= p).to(bands.dtype)
+    pend = bands.clone()
+    out = torch.empty_like(bands)
+    for l in range(L):
+        s = pend[..., l, :]
+        x = torch.clamp(s[..., :1] * (1.0 + jitter), min=EPS)
+        inv = torch.rsqrt(x)
+        row = torch.cat([x * inv, s[..., 1:] * inv], dim=-1)
+        out[..., l, :] = row
+        n = min(p, L - 1 - l)
+        if n:
+            U = row[..., 1:, None] * torch.gather(
+                row[..., None, :].expand(*row.shape[:-1], p, W), -1, idx)
+            pend[..., l + 1:l + 1 + n, :] -= (U * keep)[..., :n, :]
     return out
 
 
@@ -349,9 +385,10 @@ def _launch(name: str, *args) -> None:
 def cholesky_banded(bands: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Upper banded Cholesky of ``bands`` ``[..., L, p+1]``
     (:func:`cholesky_banded_reference`): on a CUDA tensor one launch of
-    ``banded_cholesky_kernel`` (``csrc/banded.cu``) for every system of the
-    batch, counted by ``cholesky_banded.launches``; on a CPU tensor the
-    plain loop."""
+    ``banded_cholesky_kernel`` (``csrc/banded.cu``: a group of p + 1 lanes
+    or more per system, :func:`rightlooking_cholesky_reference`'s order)
+    for every system of the batch, counted by ``cholesky_banded.launches``;
+    on a CPU tensor the plain loop."""
     if bands.device.type == "cpu":
         return cholesky_banded_reference(bands, jitter)
     p = _bandwidth(bands)

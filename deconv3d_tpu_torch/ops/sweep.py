@@ -308,14 +308,15 @@ def truncated_jump(linT: torch.Tensor, qs: torch.Tensor, cur: torch.Tensor,
                    u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """A voxel's positivity draw as a jump from its current value ``cur``:
     c' ~ N(μ, σ²) truncated to c' ≥ 0, μ = cur + linT/qs, σ = qs^−½, from
-    the uniform pair (u1, u2) (``ops/truncnorm.py``).  c' is clamped at 0,
-    where float32 rounding of μ + σ·z can land a hair below it, so the
-    chain never leaves the orthant (``csrc/gibbs_step.cuh``
-    ``truncated_jump`` computes the same)."""
+    the uniform pair (u1, u2) (``ops/truncnorm.py``): with α = −μ/σ =
+    −σ·(cur·qs + linT) (no division) and the draw's excess d = z − α over
+    its bound, c' = σ·d.  c' is clamped at 0, where float32 rounding can
+    land a hair below it, so the chain never leaves the orthant
+    (``csrc/gibbs_step.cuh`` ``truncated_jump`` computes the same)."""
     sig = torch.rsqrt(qs)
-    mu = cur + linT / qs
-    z = truncnorm.transform_uniforms(-mu / sig, u1, u2)
-    return torch.clamp(mu + sig * z, min=0.0) - cur
+    alpha = -sig * (cur * qs + linT)
+    d = truncnorm.excess(alpha, u1, torch.log(u2))
+    return torch.clamp(sig * d, min=0.0) - cur
 
 
 def gibbs_phases(lin0: torch.Tensor, q: torch.Tensor, qv: torch.Tensor,

@@ -7,9 +7,11 @@ Builds ``csrc/resident_sweep.cu`` a second time with
 ``-DRESIDENT_PHASE_CLOCKS`` (thread 0 of block 0 reads the SM clock after
 every block-level phase of the color loop), runs ``N`` sweeps through the
 ordinary wrapper with that build's launchers, and prints one JSON line per
-sampler: µs per sweep in each phase (clocks over the card's clock rate),
-their sum, and the ms per sweep of the same run between CUDA events (the
-clocks cost a little: compare with ``chip_smoke.py`` phase ``resident``).
+sampler (mh, gibbs, then gibbs with ``positivity=True``, the
+truncated-normal λ-phases): µs per sweep in each phase (clocks over the
+card's clock rate), their sum, and the ms per sweep of the same run between
+CUDA events (the clocks cost a little: compare with ``chip_smoke.py`` phase
+``resident``).
 """
 
 from __future__ import annotations
@@ -36,14 +38,16 @@ PHASES = {
 }
 
 
-def phase_split(sampler: str, n: int, cube: Cube) -> dict:
-    """µs per sweep in each phase of the resident kernel (block 0)."""
+def phase_split(sampler: str, n: int, cube: Cube,
+                positivity: bool = False) -> dict:
+    """µs per sweep in each phase of the resident kernel (block 0), its
+    ``kPos`` instantiation with ``positivity``."""
     lib = _build.load_library()
     variant = _build.load_variant("resident_sweep", "RESIDENT_PHASE_CLOCKS")
     name = f"resident_{sampler}_launch"
     plain_launch = getattr(lib, name)
-    problem = sm.make_problem(cube, MUSE(), sm.RunConfig(seed=0,
-                                                         sampler=sampler))
+    problem = sm.make_problem(cube, MUSE(), sm.RunConfig(
+        seed=0, sampler=sampler, positivity=positivity))
     state = sm.init_state(problem)
     seg = sw.gibbs_segment if sampler == "gibbs" else sw.mh_segment
     clocks = (ctypes.c_ulonglong * 8)()
@@ -69,7 +73,8 @@ def phase_split(sampler: str, n: int, cube: Cube) -> dict:
     khz = torch.cuda.get_device_properties(0).clock_rate
     us = {label: clocks[k] / n / khz * 1e3
           for k, label in enumerate(PHASES[sampler])}
-    return {"sampler": sampler, "shape": [problem.L, problem.Y, problem.X],
+    return {"sampler": sampler, "positivity": positivity,
+            "shape": [problem.L, problem.Y, problem.X],
             "sweeps": n, "clock_khz": khz, "us_per_sweep": us,
             "sum_us": sum(us.values()),
             "ms_per_sweep": start.elapsed_time(end) / n}
@@ -83,8 +88,10 @@ def main() -> int:
         raise SystemExit("resident_phases: no CUDA device")
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     cube = field_cube(L=600, Y=30, X=30)      # the bench subcube's size
-    for sampler in ("mh", "gibbs"):
-        print(json.dumps(phase_split(sampler, args.sweeps, cube)), flush=True)
+    for sampler, positivity in (("mh", False), ("gibbs", False),
+                                ("gibbs", True)):
+        print(json.dumps(phase_split(sampler, args.sweeps, cube, positivity)),
+              flush=True)
     return 0
 
 

@@ -3,7 +3,9 @@
 The plain loops against a dense oracle and against the JAX package's
 ``deconv3d_tpu.ops.banded`` on the same NumPy inputs (float64), the
 conditional draw's moments, the wrappers' dispatch (plain on CPU tensors,
-the kernel or an error elsewhere), the kernels' segmented arithmetic
+the kernel or an error elsewhere), the Cholesky kernel's right-looking
+order (``rightlooking_cholesky_reference``: the factor in float64, within
+``CHOL_TOL`` in float32 at the MUSE LSF), the kernels' segmented arithmetic
 (``segmented_solve_reference``: exact in float64 on ragged splits, and in
 float32 at the MUSE LSF within twice the sequential float32 error at the
 kernels' own splits), and — marked ``gpu``, deciding inside its body —
@@ -199,14 +201,19 @@ def test_wrappers_dispatch_by_device(rng):
         bd.cholesky_banded(torch.zeros((4, 12), device="meta"))
 
 
+def _muse_lsf(L):
+    """The MUSE LSF bank at L wavelengths from 4750 Å (lw = 11)."""
+    from deconv3d_tpu_torch import MUSE
+
+    return MUSE().lsf.bank(4750.0 + 1.25 * np.arange(L), cdelt=1.25,
+                           width=None)
+
+
 @functools.lru_cache(maxsize=2)
 def _muse_factors(L, n):
     """n float64 factors of the MUSE LSF's conditional precisions at L
     wavelengths (q in [1, 2]); made once per L."""
-    from deconv3d_tpu_torch import MUSE
-
-    lsf = MUSE().lsf.bank(4750.0 + 1.25 * np.arange(L), cdelt=1.25,
-                          width=None)
+    lsf = _muse_lsf(L)
     q = 1.0 + np.random.default_rng(L).random((n, L))
     bands = bd.precision_bands(torch.tensor(lsf), torch.tensor(q))
     return bd.cholesky_banded_reference(bands)
@@ -303,6 +310,61 @@ def test_segmented_float32_at_muse_lsf(rng, L, n_path, kind):
     assert err_seg <= 2 * err_seq, (err_seg, err_seq, S, m)
 
 
+@pytest.mark.parametrize("L, lw, batch, jitter", [
+    (1, 1, (), 0.0), (12, 1, (2,), 0.0), (16, 3, (2,), 1e-3),
+    (24, 5, (), 0.0), (32, 11, (3, 2), 0.0), (7, 11, (2,), 1e-3),
+])
+def test_rightlooking_cholesky_matches_dense_and_jax(rng, L, lw, batch,
+                                                     jitter):
+    """The Cholesky kernel's order of operations
+    (``rightlooking_cholesky_reference``) is the factor: RᵀR == A (the
+    dense oracle, ``jitter`` 0) and the JAX package's ``cholesky_banded``
+    on the same float64 bands (jitter and L ≤ p included), rel 1e-10."""
+    jnp, jbd = _jax()
+    lsf, q = _system(rng, L, lw, batch)
+    bands = bd.precision_bands(torch.tensor(lsf), torch.tensor(q))
+    R = bd.rightlooking_cholesky_reference(bands, jitter)
+    Rj = np.asarray(jbd.cholesky_banded(jnp.asarray(bands.numpy()),
+                                        jitter=jitter))
+    np.testing.assert_allclose(R.numpy(), Rj, rtol=1e-10,
+                               atol=1e-10 * np.abs(Rj).max())
+    if jitter == 0.0:
+        flat_R = R.reshape(-1, L, lw).numpy()
+        flat_A = bands.reshape(-1, L, lw).numpy()
+        for Rs, As in zip(flat_R, flat_A):
+            U, A = _upper_from_bands(Rs), _dense_from_bands(As)
+            np.testing.assert_allclose(U.T @ U, A, rtol=1e-10,
+                                       atol=1e-12 * np.abs(A).max())
+
+
+def test_rightlooking_cholesky_zero_rows():
+    """A fully masked row (zero precision) takes the pivot floor, as the
+    plain loop does: the factor stays finite and equal to it."""
+    bands = torch.zeros(2, 9, 4, dtype=torch.float64)
+    bands[0, :, 0] = 2.0
+    bands[0, :8, 1] = 0.5
+    bands[1, 4:, 0] = 1.0
+    want = bd.cholesky_banded_reference(bands)
+    got = bd.rightlooking_cholesky_reference(bands)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("L", [600, 3681])
+def test_rightlooking_cholesky_float32_at_muse_lsf(L):
+    """In float32 at the MUSE LSF, the kernel's order of operations is
+    within CHOL_TOL of the float64 factor's scale (L = 600: gibbs_block
+    and the bench's preconditioner; 3681: the coarse pass and the full
+    field's)."""
+    lsf = torch.tensor(_muse_lsf(L))
+    q = 1.0 + torch.tensor(np.random.default_rng(L).random((3, L)))
+    bands = bd.precision_bands(lsf, q)
+    R64 = bd.cholesky_banded_reference(bands)
+    R32 = bd.rightlooking_cholesky_reference(bands.float())
+    err = float((R32.double() - R64).abs().max())
+    assert err <= CHOL_TOL * float(R64.abs().max()), err
+
+
 #: tolerances of the kernels against their plain versions, float32, of
 #: the output's scale: the sums run in another order, and the solves
 #: amplify rounding by the system's condition (at the MUSE LSF and the
@@ -312,18 +374,26 @@ CHOL_TOL, SAMPLE_TOL = 1e-4, 1e-3
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [(), (3,), (40,), (128,)])
-@pytest.mark.parametrize("L, lw", [(300, 11), (57, 5), (9, 1), (600, 11),
-                                   (3681, 11)])
+@pytest.mark.parametrize("L, lw, batch", [
+    *((L, lw, batch) for L, lw in ((300, 11), (57, 5), (9, 1), (600, 11),
+                                   (3681, 11))
+      for batch in ((), (3,), (40,), (128,))),
+    # the paths' own batches: the coarse pass's constants (4 × 3681),
+    # gibbs_block's factors (1156 × 600), the direct preconditioner's
+    # (480 × 600 on the bench, 256 × 3681 radial at the full field)
+    (3681, 11, (4,)), (600, 11, (1156,)), (600, 11, (480,)),
+    (3681, 11, (256,)),
+])
 def test_banded_kernels_match_plain_on_card(L, lw, batch):
     """The kernels of ``csrc/banded.cu`` against their plain versions on
     the card, float32: one system, a batch within one warp and ones over
-    several blocks; L = 300 crosses the Cholesky's staged chunks of 32
-    systems; the draw's splits of the paths (1 system at L = 3681, 128 at
-    600: 32 segments, the system in shared memory) and ragged ones (L =
-    57, 9); the solve on 2·n + 1 columns that share the n factors through
-    ``fidx``; the kernels' split rules == ``segments`` / ``solve_split``.
-    The MUSE LSF, as the coarse passes see it."""
+    several blocks; L = 300 and 57 end the Cholesky inside a chunk of 16
+    rows, L = 9 inside its first; the draw's splits of the paths (1 system
+    at L = 3681, 128 at 600: 32 segments, the system in shared memory) and
+    ragged ones (L = 57, 9); the solve on 2·n + 1 columns that share the n
+    factors through ``fidx``; the kernels' split rules == ``segments`` /
+    ``solve_split``; and the paths' batches.  The MUSE LSF, as the coarse
+    passes see it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the banded kernels have no CPU mode")
     from deconv3d_tpu_torch import MUSE

@@ -290,6 +290,41 @@ def test_gibbs_positivity_invariant(rng, dtype, tol):
                                rtol=1e-6 if dtype == np.float64 else 1e-5)
 
 
+@pytest.mark.parametrize("dtype, rel", [(np.float64, 1e-6),
+                                        (np.float32, 1e-4)])
+def test_truncated_jump_matches_jax_draw(rng, dtype, rel):
+    """``truncated_jump`` (α = −σ·(cur·qs + linT), c' = σ·d from the
+    excess d = z − α) against the JAX package's voxel line (μ = cur +
+    linT/qs, c' = μ + σ·z, ``deconv3d_tpu/sampler.py:1069-1086``) on the
+    same uniforms, α from −5 to 1e3: |Δc'| ≤ rel·σ·max(1, |z|), the
+    transform's own tolerance in units of σ; and cur + jump ≥ 0 exactly."""
+    jax.config.update("jax_enable_x64", dtype == np.float64)
+    n = 4000
+    qs = (10.0 ** rng.uniform(-2, 2, n)).astype(dtype)
+    sig = 1.0 / np.sqrt(qs)
+    alpha = np.concatenate([np.linspace(-5.0, 2.5, n // 2),
+                            np.geomspace(2.5, 1e3, n // 2)])
+    cur = np.abs(rng.standard_normal(n)) * sig
+    # linT for that α: μ = −σα, linT = (μ − cur)·qs
+    linT = ((-sig * alpha - cur) * qs).astype(dtype)
+    cur = cur.astype(dtype)
+    u1, u2 = (np.clip(rng.random(n), 2.0**-24, 1 - 2.0**-24).astype(dtype)
+              for _ in range(2))
+    got = sw.truncated_jump(*map(torch.as_tensor, (linT, qs, cur, u1, u2)))
+    j = dict(zip(("linT", "qs", "cur", "u1", "u2"),
+                 map(jnp.asarray, (linT, qs, cur, u1, u2))))
+    jsig = jax.lax.rsqrt(j["qs"])
+    mu = j["cur"] + j["linT"] / j["qs"]
+    z = jax_transform(-mu / jsig, j["u1"], j["u2"])
+    want = np.asarray(mu + jsig * z, np.float64)
+    new = cur.astype(np.float64) + got.double().numpy()
+    scale = sig * np.maximum(1.0, np.abs(np.asarray(z, np.float64)))
+    err = np.abs(new - np.maximum(want, 0.0)) / scale
+    assert err.max() <= rel, (err.max(), alpha[err.argmax()])
+    assert float((torch.as_tensor(cur) + got).min()) >= 0.0
+    assert (alpha > 2.0).sum() > n // 3
+
+
 def test_slab_phases_equal_full_loop_with_positivity(rng):
     """The kernels' slab-by-slab phase (b) (``slab_phases_reference``) is
     the full-spectrum loop bit for bit with truncated draws too."""

@@ -299,6 +299,40 @@ def test_resident_smem_formula_is_the_kernels_on_card():
 
 
 @pytest.mark.gpu
+def test_trunc_normal_kernel_matches_plain_on_card():
+    """``trunc_normal_kernel`` (the sweep kernels' device functions,
+    elementwise) against the plain transform, in float64 on the same
+    float32 inputs, over α ∈ [−5, 1e4] and uniforms in [2⁻²⁴, 1 − 2⁻²⁴]:
+    max |Δz| / max(1, |z|) ≤ 1e-4 wherever float32 resolves the draw —
+    the tail, and the body where 1 − p ≥ 2⁻¹² (nearer p = 1 an ulp of p
+    moves z by more, and p may round to 1, which caps the draw at α + 9);
+    there every draw lies in [α, α + 9]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from deconv3d_tpu_torch.ops import truncnorm as tn
+
+    alpha = np.concatenate([np.linspace(-5.0, 10.0, 301),
+                            2.0 + np.geomspace(1e-6, 1e-2, 20),
+                            np.geomspace(10.0, 1e4, 100)])
+    u = np.concatenate([np.geomspace(2.0**-24, 0.5, 40),
+                        1.0 - np.geomspace(2.0**-24, 0.5, 40)])
+    a, u1 = (torch.tensor(x.ravel(), dtype=torch.float32)
+             for x in np.meshgrid(alpha, u))
+    u2 = u1.flip(0).contiguous()
+    n0 = tn.trunc_normal.launches
+    got = tn.trunc_normal(a.cuda(), u1.cuda(), u2.cuda()).cpu()
+    assert tn.trunc_normal.launches - n0 == 1
+    want = tn.transform_uniforms(a.double(), u1.double(), u2.double())
+    err = (got.double() - want).abs() / want.abs().clamp(min=1.0)
+    one_minus_p = (1.0 - torch.special.ndtr(a.double())) * (1.0 - u1.double())
+    resolved = (a > tn.TAIL_SWITCH) | (one_minus_p >= 2.0**-12)
+    assert torch.isfinite(got).all()
+    assert float(err[resolved].max()) <= 1e-4
+    edge = ~resolved
+    assert bool(((got[edge] >= a[edge]) & (got[edge] <= a[edge] + 9.0)).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sampler", ["mh", "gibbs"])
 @pytest.mark.parametrize("n_chains", [1, 2])
 def test_positivity_kernels_match_on_card(sampler, n_chains):

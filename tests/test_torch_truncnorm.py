@@ -104,3 +104,80 @@ def test_quantiles_match_scipy():
     u = 1.0 - np.exp(norm.logsf(z) - norm.logsf(alpha))
     grid = np.linspace(0.05, 0.95, 19)
     np.testing.assert_allclose(np.quantile(u, grid), grid, atol=0.01)
+
+
+def _tail_corners(dtype):
+    """α just above the switch, at the middle and at 1e4, against u_tail
+    from the dtype's smallest normal up to its last step below 1 (the
+    corners where a short tail iteration fails first: the start is
+    farthest from the root just above α = 2, and u → 0 puts the root far
+    out; u → 1 puts it at α)."""
+    fin = np.finfo(dtype)
+    alpha = np.concatenate([2.0 + np.geomspace(float(fin.eps), 0.5, 40),
+                            np.geomspace(3.0, 1e4, 40)])
+    u = np.concatenate([np.geomspace(float(fin.tiny), 1e-6, 24),
+                        np.geomspace(1e-6, 0.5, 24),
+                        1.0 - np.geomspace(float(fin.epsneg), 0.5, 24)])
+    a, u = (x.ravel().astype(dtype) for x in np.meshgrid(alpha, u))
+    return a, u
+
+
+@pytest.mark.parametrize("dtype, rel", [(np.float64, 1e-6),
+                                        (np.float32, 1e-4)])
+def test_tail_corners_match_jax(dtype, rel):
+    """The tail's start and its NEWTON_STEPS steps against the JAX
+    package's transform (its own start and 4 steps) over the tail's hard
+    corners: α from just above 2 to 1e4 against u_tail from the smallest
+    normal float to 1 − ulp; the excess d = z − α is ≥ 0 and finite."""
+    alpha, u_tail = _tail_corners(dtype)
+    u_body = np.full_like(u_tail, 0.5)
+    want = np.asarray(jax_transform(jnp.asarray(alpha), jnp.asarray(u_body),
+                                    jnp.asarray(u_tail)), np.float64)
+    got = tn.transform_uniforms(torch.as_tensor(alpha),
+                                torch.as_tensor(u_body),
+                                torch.as_tensor(u_tail)).double().numpy()
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= rel, (err.max(), alpha[err.argmax()],
+                              u_tail[err.argmax()])
+    d = tn.tail_excess(torch.as_tensor(alpha),
+                       torch.log(torch.as_tensor(u_tail)))
+    assert torch.isfinite(d).all() and float(d.min()) >= 0.0
+
+
+def test_tail_steps_converge_in_float64():
+    """Two Newton steps from the start reach the root to ~1e-7 in float64
+    over the corners, one does not (1e-4 near α = 2): the step count is
+    the least that holds the JAX tolerance; three reach float64's
+    rounding."""
+    alpha, u_tail = (torch.as_tensor(x) for x in _tail_corners(np.float64))
+    log_u = torch.log(u_tail)
+
+    def rel_err(steps):
+        saved = tn.NEWTON_STEPS
+        tn.NEWTON_STEPS = steps
+        try:
+            z = alpha + tn.tail_excess(alpha, log_u)
+        finally:
+            tn.NEWTON_STEPS = saved
+        return z
+
+    root = rel_err(8)
+    errs = [float(((rel_err(s) - root).abs() / root).max()) for s in (1, 2, 3)]
+    assert errs[0] > 1e-5 and errs[1] < 1e-6 and errs[2] < 1e-12, errs
+    assert tn.NEWTON_STEPS == 2
+
+
+
+def test_trunc_normal_wrapper_dispatch():
+    """``trunc_normal`` is the plain transform on CPU tensors (no launch)
+    and takes CUDA tensors only otherwise: a tensor elsewhere raises before
+    any build (the card's test is ``test_torch_resident.py::
+    test_trunc_normal_kernel_matches_plain_on_card``)."""
+    a = torch.linspace(-5.0, 50.0, 101)
+    u = torch.linspace(0.01, 0.99, 101)
+    n0 = tn.trunc_normal.launches
+    assert torch.equal(tn.trunc_normal(a, u, u.flip(0)),
+                       tn.transform_uniforms(a, u, u.flip(0)))
+    assert tn.trunc_normal.launches == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        tn.trunc_normal(a.to("meta"), u.to("meta"), u.to("meta"))
