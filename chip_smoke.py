@@ -150,6 +150,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    256 × 3681 bands), one ``map_estimate`` and
    2 draws (iterations, s per draw, peak memory, a profile of 3 CG
    iterations).
+13b. direct_sharded — the direct sampler and the MAP on a spatial mesh
+   (``parallel/direct_sharded.py``), both shards on the one card
+   (``Mesh([cuda:0] * 2)``).  On the bench cube: the sharded A(v) and
+   M⁻¹(v) (dense and radial) against the unsharded ones (rel ≤ 1e-5);
+   ``banded_solve_kernel`` on one slot's kx columns (600 × 480) against
+   its plain version and ``torch.cholesky_solve``; ``Run(sampler=
+   'direct', prior_precision='auto', spatial_mesh=...)`` for 20 draws →
+   diagnostics → save (every solve converged, χ² consistency ≤ 1e-5, two
+   solve launches per preconditioner application, iterations and the
+   posterior mean beside phase ``direct``'s on the same normals, draws/s,
+   ms per CG iteration); ``map_estimate`` on the mesh ('auto' τ, tol
+   1e-6; float64 residual on the host ≤ 2 tol, distance from phase
+   ``direct``'s MAP).  After ``direct_full_field``, on its cube: the
+   sharded MAP (τ = 1e-3, tol 1e-5): iterations, ms per CG iteration
+   beside the unsharded MAP's, peak bytes, the ms of one ragged
+   all-to-all, the solve kernel at 3681 × 45,600 and 3681 × 45,000
+   columns against its plain version.
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
@@ -163,7 +180,8 @@ launches, ms and bound per band launch and per sweep; error and plain ms
 at 136×68×600);
 K2 with positivity on the ``positivity`` phase's shapes; the banded ones with their launches on the default MH
 flow of ``full_field`` and their ms at that flow's shapes; the banded
-solve with its launches on the ``direct`` run), the
+solve with its launches on the ``direct`` run, and on the
+``direct_sharded`` run with its ms at the slots' shapes), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -187,7 +205,8 @@ from deconv3d_tpu_torch.ops import banded as bd, coarse as co
 from deconv3d_tpu_torch.ops import direct as td
 from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
 from deconv3d_tpu_torch.ops import truncnorm as tn
-from deconv3d_tpu_torch.parallel import Mesh
+from deconv3d_tpu_torch.parallel import Mesh, mesh as pm
+from deconv3d_tpu_torch.parallel import direct_sharded as ds
 from deconv3d_tpu_torch.parallel import kernel_sharded as ks
 from deconv3d_tpu_torch.tile_sweep import field_cube
 
@@ -1097,14 +1116,15 @@ def chain_steps(n, L, p, kind):
 def device_ms(fn, name, n=20):
     """Mean device time of a launch of the kernels named ``name`` over
     ``n`` calls of ``fn`` (after a warm-up), from ``torch.profiler``
-    (CUPTI; the launches it recorded, taken again once if it recorded
-    none): the kernel's own time, where CUDA events around the calls time
-    the host too once a call's Python outlasts its kernel."""
+    (CUPTI; the launches it recorded, taken again up to 4 times while it
+    records none, which CUPTI on the card now and then does): the
+    kernel's own time, where CUDA events around the calls time the host
+    too once a call's Python outlasts its kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -1711,8 +1731,9 @@ def dense_bands(bands):
 
 def solve_bound(L, n, n_factors, p):
     """The least time one banded solve launch could take: b read once, x
-    written once, the factors and their index read once (z, the forward
-    solve, is the kernel's own), against the HBM rate; flops per column
+    written once, the ``n_factors`` factors that the columns reference and
+    their index read once (z, the forward solve, is the kernel's own),
+    against the HBM rate; flops per column
     and row 2·(2p + 1) (a division 1, an fma 2; both solves).  Its latency
     form: the dependent steps of one column (:func:`chain_steps`; 2·L
     before the segments)."""
@@ -1759,23 +1780,47 @@ def solve_vs_plain(problem, label, prior_precision=None, library=False,
     r = torch.randn((problem.L, problem.Y, problem.X), generator=gen,
                     device="cuda")
     b = torch.view_as_real(torch.fft.rfft2(r)).reshape(problem.L, -1)
-    x, call_ms = ms_per_call(
-        lambda: bd.banded_solve(state.R, state.fidx, b), 20)
-    ms = device_ms(lambda: bd.banded_solve(state.R, state.fidx, b),
+    out = solve_at(state.R, state.fidx, b, library)
+    out["mode"] = mode
+    if cholesky:
+        check(len(captured) == 1, f"{len(captured)} factorisations")
+        out["cholesky"] = cholesky_vs_plain(captured[0],
+                                            library=problem.L == 600)
+        emit("banded_cholesky_vs_plain", label=label,
+             shape=list(captured[0].shape), **{
+                 k: v for k, v in out["cholesky"].items() if k != "bound"},
+             bound_ms=out["cholesky"]["bound"]["bound_ms"])
+    del captured
+    emit_solve(label, out)
+    return out
+
+
+def solve_at(R, fidx, b, library=False):
+    """``banded_solve`` on columns ``b`` ``[L, n]`` (factor ``fidx[j]`` of
+    ``R`` for column j) against its plain version: error and tolerance,
+    device ms per launch, ms per call over 20 (CUDA events), the plain
+    version's ms, the bound (on the factors that ``fidx`` names: a slot's
+    columns reference only their own); with ``library`` the time of
+    ``torch.cholesky_solve`` on the dense factors of the columns' pairs,
+    same right-hand sides."""
+    x, call_ms = ms_per_call(lambda: bd.banded_solve(R, fidx, b), 20)
+    ms = device_ms(lambda: bd.banded_solve(R, fidx, b),
                    "banded_solve_kernel")
-    want, plain_ms = timed(lambda: bd.solve_banded_reference(
-        state.R, state.fidx, b))
+    want, plain_ms = timed(lambda: bd.solve_banded_reference(R, fidx, b))
     err, scale = float((x - want).abs().max()), float(want.abs().max())
     L, n = b.shape
-    out = {"shape": [L, n], "mode": mode, "factors": int(state.R.shape[0]),
-           "max_abs_err": err, "ms": ms, "call_ms": call_ms,
-           "plain_ms": plain_ms,
-           "split": bd.solve_split(n, L, int(state.R.shape[-1]) - 1),
-           "bound": solve_bound(L, n, int(state.R.shape[0]),
-                                int(state.R.shape[-1]) - 1),
+    p = int(R.shape[-1]) - 1
+    used = int(torch.unique(fidx).numel())
+    out = {"shape": [L, n], "factors": int(R.shape[0]),
+           "factors_referenced": used,
+           "max_abs_err": err, "tol": SOLVE_TOL * scale, "ms": ms,
+           "call_ms": call_ms, "plain_ms": plain_ms,
+           "split": bd.solve_split(n, L, p),
+           "bound": solve_bound(L, n, used, p),
            "library_ms": None}
     if library:
-        U = dense_upper(state.R)
+        # the real and imaginary columns of a frequency share its factor
+        U = dense_upper(R)[fidx[0::2].long()]
         rhs = b.T.reshape(-1, 2, L).transpose(1, 2).contiguous()
         with cv.no_tf32():
             lib, out["library_ms"] = timed(lambda: torch.cholesky_solve(
@@ -1785,22 +1830,18 @@ def solve_vs_plain(problem, label, prior_precision=None, library=False,
         out["library_max_abs_err"] = float(
             (lib.transpose(1, 2).reshape(n, L).T - want).abs().max())
         del U, lib
-    if cholesky:
-        check(len(captured) == 1, f"{len(captured)} factorisations")
-        out["cholesky"] = cholesky_vs_plain(captured[0], library=L == 600)
-        emit("banded_cholesky_vs_plain", label=label,
-             shape=list(captured[0].shape), **{
-                 k: v for k, v in out["cholesky"].items() if k != "bound"},
-             bound_ms=out["cholesky"]["bound"]["bound_ms"])
-    del captured
+    return out
+
+
+def emit_solve(label, out):
+    """The ``banded_solve_vs_plain`` line of a :func:`solve_at` result,
+    failing when the kernel is off its plain version."""
     emit("banded_solve_vs_plain", label=label, **{
         k: v for k, v in out.items() if k not in ("bound", "cholesky")},
         bound_ms=out["bound"]["bound_ms"], bound_by=out["bound"]["bound_by"],
-        latency_steps=out["bound"]["latency_steps"],
-        tol=SOLVE_TOL * scale)
-    check(err <= SOLVE_TOL * scale,
+        latency_steps=out["bound"]["latency_steps"])
+    check(out["max_abs_err"] <= out["tol"],
           f"banded solve kernel differs from its plain version ({label})")
-    return out
 
 
 class PCGRecorder:
@@ -1811,9 +1852,10 @@ class PCGRecorder:
         self.solves, self._pcg = [], td.pcg
 
     def __enter__(self):
-        def recording(A, Minv, b, tol, maxiter):
+        def recording(A, Minv, b, tol, maxiter, ops=td.LOCAL):
             n0 = bd.banded_solve.launches
-            res, ms = timed(lambda: self._pcg(A, Minv, b, tol, maxiter))
+            res, ms = timed(lambda: self._pcg(A, Minv, b, tol, maxiter,
+                                              ops))
             self.solves.append({"iterations": res.iterations,
                                 "rel_residual": res.rel_residual, "ms": ms,
                                 "solve_launches":
@@ -1876,6 +1918,24 @@ def toy_posterior(problem):
     return cov @ (K.T @ (w * d)), np.sqrt(np.diag(cov))
 
 
+def host_rel_residual(problem, x, tau):
+    """‖b − A x‖ / ‖b‖ of the MAP ``x`` with the port's operator in float64
+    on the host (the problem's banks, weights and data)."""
+    p = problem
+    pc = dataclasses.replace(
+        p, valid=p.valid.cpu(), **{n_: getattr(p, n_).cpu().double()
+                                   for n_ in ("fsf", "lsf", "data_pad",
+                                              "w_pad")})
+    A64 = td.make_normal_operator(pc, tau)
+    b64 = td.apply_KT(pc, td._d_in(pc) * td._w_in(pc)) * td._free_mask(pc)
+    return float((b64 - A64(x.cpu().double())).norm() / b64.norm())
+
+
+def rel_err(got, want):
+    """max |got − want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def phase_direct(tmp, n_oracle=300, n_draws=20):
     """The direct sampler and the MAP on the card (``ops/direct.py``).
     (a) ``banded_solve`` against its plain version on the preconditioner
@@ -1910,15 +1970,8 @@ def phase_direct(tmp, n_oracle=300, n_draws=20):
                                                tol=1e-6))
     launches = bd.banded_solve.launches
     res = run.last_map_result
-    pc = dataclasses.replace(
-        p, valid=p.valid.cpu(), **{n_: getattr(p, n_).cpu().double()
-                                   for n_ in ("fsf", "lsf", "data_pad",
-                                              "w_pad")})
     tau = run.last_map_prior_precision
-    A64 = td.make_normal_operator(pc, tau)
-    b64 = td.apply_KT(pc, td._d_in(pc) * td._w_in(pc)) * td._free_mask(pc)
-    x64 = m.data.cpu().double()
-    true_rel = float((b64 - A64(x64)).norm() / b64.norm())
+    true_rel = host_rel_residual(p, m.data, tau)
     with cv.no_tf32():
         A, M = td.make_normal_operator(p, tau), td.make_preconditioner(
             p, prior_precision=tau)
@@ -1941,7 +1994,9 @@ def phase_direct(tmp, n_oracle=300, n_draws=20):
     check(true_rel <= 2e-6, f"the MAP's float64 residual {true_rel:.3e} "
           "exceeds 2 tol")
     check(launches >= res.iterations, "the MAP's CG bypassed the kernel")
-    del run, pc, A64, b64, x64
+    # phase direct_sharded holds its MAP and draws against these
+    out["map_x"] = m.data.cpu()
+    del run
 
     # (c) draw statistics against the dense posterior of a toy
     gen = np.random.default_rng(5)
@@ -2018,6 +2073,7 @@ def phase_direct(tmp, n_oracle=300, n_draws=20):
           "the draws' CG bypassed the solve kernel")
     check(chol_launches >= 1, "the draws built no preconditioner factors")
     check(saved, "save() files missing")
+    out["path_mean"] = run.deconvolved_cube().data.cpu()
     return out
 
 
@@ -2059,6 +2115,7 @@ def phase_direct_field(cube):
     peak = torch.cuda.max_memory_allocated()
     flags = run.trace("accept")[0].tolist()
     draws = rec.solves[-2:]
+    map_solves = rec.solves[:-2]
     with cv.no_tf32():
         b = td.apply_KT(p, td._d_in(p) * td._w_in(p)) * td._free_mask(p)
         A, M = td.make_normal_operator(p), td.make_preconditioner(p)
@@ -2074,9 +2131,13 @@ def phase_direct_field(cube):
         "solve_launches": launches, "cholesky_launches": chol_launches,
         "peak_bytes": peak, "profile": prof,
         "ms_per_iteration": sum(d["ms"] for d in rec.solves)
-        / max(sum(d["iterations"] for d in rec.solves), 1)})
+        / max(sum(d["iterations"] for d in rec.solves), 1),
+        "map_ms_per_iteration": sum(d["ms"] for d in map_solves)
+        / max(sum(d["iterations"] for d in map_solves), 1)})
     emit("direct_full_field", shape=list(cube.shape), **{
         k: v for k, v in out.items() if k not in ("radial_3681", "profile")})
+    # phase direct_sharded_field holds its MAP against this one
+    out["map_x"] = res.x
     check(res.rel_residual <= 1e-5 and res.iterations <= 600,
           f"the full-field MAP: rel {res.rel_residual} after "
           f"{res.iterations}")
@@ -2085,6 +2146,209 @@ def phase_direct_field(cube):
           f"a full-field draw did not converge: {draws}")
     check(launches >= sum(d["iterations"] for d in rec.solves) > 0,
           "the full field's CG bypassed the solve kernel")
+    return out
+
+
+SHARD_MESH_NOTE = ("both shards on one card (Mesh([cuda:0] * 2)): the "
+                   "peak does not fall, the slots' copies and launches add")
+
+
+def phase_direct_sharded(tmp, direct, n_draws=20):
+    """13b (a): the direct sampler and the MAP on ``Mesh([cuda:0] * 2)``
+    (``parallel/direct_sharded.py``) on the bench cube.  The sharded A(v)
+    and M⁻¹(v) (dense and radial modes) against the unsharded ones on one
+    random v (rel ≤ 1e-5, float32); ``banded_solve`` on one slot's columns
+    (600 × 480) against its plain version and ``torch.cholesky_solve``;
+    ``Run(sampler='direct', prior_precision='auto', spatial_mesh=…)`` for
+    ``n_draws`` draws → diagnostics → save with the counts set to 0 just
+    before ``run()``: every solve converged, χ² consistency ≤ 1e-5, the
+    solve kernel launched once per slot and preconditioner application,
+    the iterations per draw beside phase ``direct``'s (same seed, same
+    normals) and the posterior mean within 1e-4 of that run's; then
+    ``map_estimate`` on the same mesh ('auto' τ, tol 1e-6) on the MCMC
+    run's problem, as phase ``direct`` solves it: the float64 residual on
+    the host ≤ 2 tol and the distance from phase ``direct``'s MAP."""
+    out = {}
+    cube = bench_cube()
+    mesh = Mesh([torch.device("cuda:0")] * 2)
+    run = d3.Run(cube, d3.MUSE(), max_iterations=n_draws, seed=0,
+                 sampler="direct", prior_precision="auto", spatial_mesh=mesh)
+    check(run.config.engine == "cuda", f"engine {run.config.engine}")
+    p = run.problem
+    sh = ds.shards(p, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    v = torch.randn((p.L, p.Y, p.X), generator=gen, device="cuda")
+    ops = {}
+    with cv.no_tf32():
+        ops["A"] = rel_err(sh.gather(ds.make_normal_operator(p, mesh)(
+            sh.cut(v)), v.device), td.make_normal_operator(p)(v))
+        for mode in ("banded", "banded_radial"):
+            ops[mode] = rel_err(sh.gather(ds.make_preconditioner(
+                p, mesh, mode=mode)(sh.cut(v)), v.device),
+                td.make_preconditioner(p, mode=mode)(v))
+    out["operators"] = ops
+    emit("direct_sharded_operators", shape=list(cube.shape), slots=2,
+         rows=sh.rows, kx_columns=sh.cols, rel_err=ops, tol=1e-5)
+    check(all(e <= 1e-5 for e in ops.values()),
+          f"the sharded operators are off the unsharded ones: {ops}")
+
+    st = ds.slot_precond(p, mesh)
+    a, b = sh.cols[0]
+    cols = torch.randn((p.L, p.Y * (b - a) * 2), generator=gen,
+                       device="cuda")
+    out["shard_solve"] = solve_at(st.R[0], st.fidx[0], cols, library=True)
+    out["shard_solve"]["mode"] = st.mode
+    emit_solve(f"bench 30x30x600, slot 0 of 2 (kx {a}..{b})",
+               out["shard_solve"])
+    del cols
+
+    run.states
+    reset_launches()
+    with PCGRecorder() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = bd.banded_solve.launches
+    diag = run.diagnostics()
+    consistency = chi2_consistency(run)
+    run.save(os.path.join(tmp, "direct_sharded"))
+    saved = os.path.isfile(os.path.join(tmp, "direct_sharded_clean.fits"))
+    iters = [r["iterations"] for r in rec.solves]
+    ref_iters = direct["path"]["iterations_per_draw"]
+    applications = sum(i + 1 for i in iters)
+    mean_dist = rel_err(run.deconvolved_cube().data.cpu(),
+                        direct["path_mean"])
+    out["path"] = {"launches": launches, "draws": n_draws,
+                   "preconditioner_applications": applications,
+                   "draws_per_sec": n_draws / dt,
+                   "iterations_per_draw": iters,
+                   "unsharded_iterations_per_draw": ref_iters,
+                   "ms_per_iteration": sum(r["ms"] for r in rec.solves)
+                   / max(sum(iters), 1),
+                   "unsharded_ms_per_iteration":
+                       direct["path"]["ms_per_iteration"],
+                   "chi2_consistency": consistency,
+                   "mean_rel_dist_from_unsharded": mean_dist,
+                   "flags": run.trace("accept")[0].tolist()}
+    emit("direct_sharded_run", shape=list(cube.shape), chi2=diag["chi2"],
+         note=SHARD_MESH_NOTE, **out["path"])
+    check(all(f == 1.0 for f in out["path"]["flags"]),
+          "a sharded bench draw did not converge")
+    check(consistency <= 1e-5, "sharded direct chi2 is not the from-scratch "
+          "one")
+    check(launches == 2 * applications > 0,
+          f"{launches} solve launches for {applications} preconditioner "
+          "applications on 2 slots")
+    check(abs(sum(iters) - sum(ref_iters)) <= 0.1 * sum(ref_iters),
+          f"sharded draws took {iters} iterations, unsharded {ref_iters}")
+    # same seed, same Philox normals: the two chains differ by the
+    # solver's tolerance only (the gpu test's bound on clean)
+    check(mean_dist <= 1e-4, f"the sharded posterior mean is {mean_dist:.3e}"
+          " off the unsharded one on the same normals")
+    check(saved, "save() files missing")
+    del run
+
+    # the MAP of the MCMC run's problem, as phase direct solves it
+    mrun = d3.Run(cube, d3.MUSE(), seed=0, spatial_mesh=mesh)
+    reset_launches()
+    with PCGRecorder() as rec:
+        m, ms = timed(lambda: mrun.map_estimate(prior_precision="auto",
+                                                tol=1e-6))
+    launches = bd.banded_solve.launches
+    res = mrun.last_map_result
+    true_rel = host_rel_residual(mrun.problem, m.data,
+                                 mrun.last_map_prior_precision)
+    n_it = sum(r["iterations"] for r in rec.solves)
+    out["map"] = {"iterations": res.iterations, "ms": ms,
+                  "ms_per_iteration": sum(r["ms"] for r in rec.solves)
+                  / max(n_it, 1),
+                  "unsharded_ms_per_iteration":
+                      direct["map"]["ms_per_iteration"],
+                  "unsharded_iterations": direct["map"]["iterations"],
+                  "rel_residual": res.rel_residual,
+                  "true_rel_residual_host_f64": true_rel,
+                  "rel_dist_from_unsharded": rel_err(m.data.cpu(),
+                                                     direct["map_x"]),
+                  "solves": rec.solves, "solve_launches": launches}
+    emit("direct_sharded_map", shape=list(cube.shape), **out["map"])
+    check(res.rel_residual <= 1e-6 and res.iterations <= 500,
+          f"sharded bench MAP did not converge: {res.rel_residual} after "
+          f"{res.iterations}")
+    check(true_rel <= 2e-6, f"the sharded MAP's float64 residual "
+          f"{true_rel:.3e} exceeds 2 tol")
+    check(launches == 2 * sum(r["iterations"] + 1 for r in rec.solves),
+          "the sharded MAP's preconditioner did not launch once per slot")
+    return out
+
+
+def phase_direct_sharded_field(cube, field):
+    """13b (b), after ``direct_full_field`` on its cube: ``map_estimate``
+    on ``Mesh([cuda:0] * 2)`` at τ = 1e-3, tol 1e-5, 600 iterations at
+    most: iterations, ms per CG iteration beside the unsharded MAP's, the
+    distance from it, peak bytes (both shards on one card: the peak does
+    not fall); the ms of one ragged all-to-all at the preconditioner's
+    shape; ``banded_solve`` at the slots' column counts (3681 × 45,600 and
+    3681 × 45,000) against its plain version."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = Mesh([torch.device("cuda:0")] * 2)
+    run = d3.Run(cube, d3.MUSE(), seed=0, sampler="direct",
+                 prior_precision=1e-3, direct_tol=1e-5, direct_maxiter=600,
+                 spatial_mesh=mesh)
+    p = run.problem
+    reset_launches()
+    with PCGRecorder() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.map_estimate()
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+    res = run.last_map_result
+    launches = bd.banded_solve.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_it = sum(r["iterations"] for r in rec.solves)
+    out = {"map_s": map_s, "iterations": res.iterations,
+           "rel_residual": res.rel_residual,
+           "ms_per_iteration": sum(r["ms"] for r in rec.solves)
+           / max(n_it, 1),
+           "unsharded_ms_per_iteration": field["map_ms_per_iteration"],
+           "unsharded_iterations": field["map_iterations"],
+           "rel_dist_from_unsharded": rel_err(res.x, field["map_x"]),
+           "solves": rec.solves, "solve_launches": launches,
+           "peak_bytes": peak, "unsharded_peak_bytes": field["peak_bytes"],
+           "mode": td._resolve_precond_mode(p)}
+    sh = ds.shards(p, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = [torch.fft.rfft(torch.randn((p.L, b - a, p.X), generator=gen,
+                                       device="cuda"), dim=-1)
+            for a, b in sh.rows]
+    sizes = [b - a for a, b in sh.cols]
+    moved, out["all_to_all_ms"] = ms_per_call(
+        lambda: pm.all_to_all_ragged(rows, 2, 1, sizes), 5)
+    out["all_to_all_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in moved)
+    del rows, moved
+    st = ds.slot_precond(p, mesh)
+    out["shard_solves"] = {}
+    for e, (a, b) in enumerate(sh.cols):
+        cols = torch.randn((p.L, p.Y * (b - a) * 2), generator=gen,
+                           device="cuda")
+        at = solve_at(st.R[e], st.fidx[e], cols)
+        at["mode"] = st.mode
+        emit_solve(f"300x300x3681 radial, slot {e} of 2 (kx {a}..{b})", at)
+        out["shard_solves"][at["shape"][1]] = at
+        del cols
+    emit("direct_sharded_field", shape=list(cube.shape), rows=sh.rows,
+         kx_columns=sh.cols, note=SHARD_MESH_NOTE, **{
+             k: v for k, v in out.items() if k != "shard_solves"})
+    check(res.rel_residual <= 1e-5 and res.iterations <= 600,
+          f"the sharded full-field MAP: rel {res.rel_residual} after "
+          f"{res.iterations}")
+    check(launches == 2 * sum(r["iterations"] + 1 for r in rec.solves),
+          "the sharded full-field MAP's preconditioner did not launch once "
+          "per slot")
     return out
 
 
@@ -2592,12 +2856,15 @@ def main() -> int:
     block = phase_gibbs_block()
     with tempfile.TemporaryDirectory() as tmp:
         direct = phase_direct(tmp)
+        direct_sharded = phase_direct_sharded(tmp, direct)
     cube = field_cube()
     field = {sampler: phase_full_field(sampler, n, cube)
              for sampler, n in (("gibbs", 16), ("mh", 8))}
     sharded_field = phase_sharded_field(cube, field, smi)
     direct["field"] = phase_direct_field(cube)
-    del cube
+    direct_sharded["field"] = phase_direct_sharded_field(cube,
+                                                         direct["field"])
+    del cube, direct["field"]["map_x"]
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
@@ -2856,6 +3123,32 @@ def main() -> int:
             **other_shape(direct["field"]["radial_3681"]),
             "launches": direct["field"]["solve_launches"],
             "launches_path": "direct full field (1 map_estimate, 2 draws)"},
+        "sharded_launches": direct_sharded["path"]["launches"],
+        "sharded_launches_path": "direct_sharded (Run(sampler='direct', "
+                                 "spatial_mesh=Mesh([cuda:0] * 2)), bench "
+                                 f"cube, {direct_sharded['path']['draws']} "
+                                 "draws: one launch per slot and "
+                                 "preconditioner application)",
+        # at the bench both slots hold 8 of the 16 kx: every launch of the
+        # path ran at 600 × 480; at the full field each slot's shape ran
+        # once per preconditioner application, half the path's launches
+        # (the phase checks 2 × applications)
+        "shard_600x480": {
+            **other_shape(direct_sharded["shard_solve"]),
+            "launches": direct_sharded["path"]["launches"],
+            "launches_path": "direct_sharded (the 20 draws): both slots, "
+                             "480 columns each (timed: slot 0's)",
+            "factors_referenced":
+                direct_sharded["shard_solve"]["factors_referenced"],
+            "library_ms": direct_sharded["shard_solve"]["library_ms"],
+            "mode": direct_sharded["shard_solve"]["mode"]},
+        **{f"shard_3681x{n}": {
+            **other_shape(at),
+            "launches": direct_sharded["field"]["solve_launches"] // 2,
+            "launches_path": "direct_sharded field (1 map_estimate on "
+                             "Mesh([cuda:0] * 2)): this slot's",
+            "factors_referenced": at["factors_referenced"]}
+           for n, at in direct_sharded["field"]["shard_solves"].items()},
     })
     # the Cholesky at the direct preconditioner's shapes: launches on the
     # direct Run (bench, dense: 480 factors) and the full field's (radial,

@@ -189,35 +189,52 @@ def _quad_like(problem, w: torch.Tensor) -> torch.Tensor:
     return _spatial(problem, w, torch.flip(problem.fsf, dims=(-2, -1)) ** 2)
 
 
-def _fsf_spectrum(problem, adjoint: bool) -> torch.Tensor:
+def _fsf_bank(problem, adjoint: bool, device) -> torch.Tensor:
+    """The FSF bank (``adjoint``: spatially flipped) on ``device``, cached
+    per problem."""
+    p = problem
+    return sm.cached(p, ("fsf_bank", adjoint, device), lambda: (
+        torch.flip(p.fsf, dims=(-2, -1)) if adjoint else p.fsf).to(device))
+
+
+def _fsf_spectrum(problem, adjoint: bool, height: int,
+                  device) -> torch.Tensor:
     """rfft2 of the FSF bank (``adjoint``: spatially flipped) at the padded
-    size of ``convolve.apply_fsf``, cached per problem."""
-    def build():
-        p = problem
-        bank = torch.flip(p.fsf, dims=(-2, -1)) if adjoint else p.fsf
-        return torch.fft.rfft2(bank, s=_fft_size(p))
+    size of ``convolve.apply_fsf`` for ``height`` rows, on ``device``,
+    cached per problem."""
+    return sm.cached(problem, ("fsf_hat", adjoint, height, device),
+                     lambda: torch.fft.rfft2(
+                         _fsf_bank(problem, adjoint, device),
+                         s=_fft_size(problem, height)))
 
-    return sm.cached(problem, ("fsf_hat", adjoint), build)
 
-
-def _fft_size(problem) -> Tuple[int, int]:
+def _fft_size(problem, height: Optional[int] = None) -> Tuple[int, int]:
+    """The padded rfft2 size of a 'same' FSF convolution over ``height``
+    rows (default: the field's Y)."""
     p = problem
-    return (cv._next_fast_len(p.Y + p.f - 1), cv._next_fast_len(p.X + p.f - 1))
+    height = p.Y if height is None else height
+    return (cv._next_fast_len(height + p.f - 1),
+            cv._next_fast_len(p.X + p.f - 1))
 
 
-def _fsf(problem, r: torch.Tensor, adjoint: bool = False) -> torch.Tensor:
-    """Per-λ 'same' convolution of ``r`` ``[L, Y, X]`` with the FSF (its
+def _fsf(problem, r: torch.Tensor, adjoint: bool = False,
+         halo: int = 0) -> torch.Tensor:
+    """Per-λ 'same' convolution of ``r`` ``[L, H, X]`` with the FSF (its
     flip for the adjoint): ``convolve.apply_fsf`` on the cached spectrum
-    (``direct_spatial='fft'``, the 'auto' choice), or the grouped conv."""
+    (``direct_spatial='fft'``, the 'auto' choice), or the grouped conv.
+    ``halo``: ``r`` is a slab whose first and last ``halo`` rows only
+    feed its middle rows (a shard's neighbours' rows, or zeros past the
+    field's edges); the result is those middle H − 2·halo rows."""
     p = problem
+    H = r.shape[1]
     if p.f == 1 or cv.resolve_spatial(p.config.direct_spatial) == "direct":
-        return _spatial(p, r, torch.flip(p.fsf, dims=(-2, -1)) if adjoint
-                        else p.fsf)
-    py, px = _fft_size(p)
+        return _spatial(p, r, _fsf_bank(p, adjoint, r.device))[
+            :, halo : H - halo]
+    s = _fft_size(p, H)
     h = p.f // 2
-    full = torch.fft.irfft2(torch.fft.rfft2(r, s=(py, px))
-                            * _fsf_spectrum(p, adjoint), s=(py, px))
-    return full[:, h : h + p.Y, h : h + p.X].to(r.dtype)
+    full = torch.fft.irfft2(torch.fft.rfft2(r, s=s)
+                            * _fsf_spectrum(p, adjoint, H, r.device), s=s)
+    return full[:, h + halo : h + H - halo, h : h + p.X].to(r.dtype)
 
 
 def _lsf_matrix(problem) -> Optional[torch.Tensor]:
@@ -245,22 +262,32 @@ def _lsf_T(x: torch.Tensor, lsf: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def lsf_apply(c: torch.Tensor, mat: Optional[torch.Tensor],
+              lsf: torch.Tensor) -> torch.Tensor:
+    """M c along the leading λ axis: the dense LSF matrix ``mat``
+    (:func:`_lsf_matrix`), or the band loop when it is None."""
+    return (cv.apply_lsf_matrix(c, mat) if mat is not None
+            else cv.apply_lsf_banded(c, lsf))
+
+
+def lsf_adjoint(s: torch.Tensor, mat: Optional[torch.Tensor],
+                lsf: torch.Tensor) -> torch.Tensor:
+    """Mᵀ s, the adjoint of :func:`lsf_apply`."""
+    return (cv.apply_lsf_matrix(s, mat.T) if mat is not None
+            else _lsf_T(s, lsf))
+
+
 def apply_K(problem, c: torch.Tensor) -> torch.Tensor:
     """K c on ``[L, Y, X]``: the LSF band, then the per-λ FSF — the
     forward model of ``convolve.convolve_cube`` (``direct_spatial``)."""
-    mat = _lsf_matrix(problem)
-    s = (cv.apply_lsf_matrix(c, mat) if mat is not None
-         else cv.apply_lsf_banded(c, problem.lsf))
-    return _fsf(problem, s)
+    return _fsf(problem, lsf_apply(c, _lsf_matrix(problem), problem.lsf))
 
 
 def apply_KT(problem, r: torch.Tensor) -> torch.Tensor:
     """Kᵀ r = Mᵀ (Sᵀ r): the spatial adjoint is the 'same' convolution with
     the flipped FSF (exact for odd kernels), Mᵀ the transposed LSF band."""
-    s = _fsf(problem, r, adjoint=True)
-    mat = _lsf_matrix(problem)
-    return (cv.apply_lsf_matrix(s, mat.T) if mat is not None
-            else _lsf_T(s, problem.lsf))
+    return lsf_adjoint(_fsf(problem, r, adjoint=True), _lsf_matrix(problem),
+                       problem.lsf)
 
 
 def make_normal_operator(problem, prior_precision=None
@@ -408,10 +435,15 @@ def make_preconditioner(problem, mode: Optional[str] = None,
     diagonal.  The constants are built once per problem, mode and τ_m."""
     p = problem
     mode = _resolve_precond_mode(p, mode)
-    tau_m = _precond_tau(p, _tau(p, prior_precision))
-    state = sm.cached(p, ("precond", mode, tau_m),
-                    lambda: _precond_state(p, mode, tau_m))
+    state = precond_state(p, mode, _precond_tau(p, _tau(p, prior_precision)))
     return lambda r: _precond_apply(p, state, r)
+
+
+def precond_state(problem, mode: str, tau_m: float) -> PrecondState:
+    """:func:`_precond_state`, built once per problem, resolved mode and
+    M-side ridge."""
+    return sm.cached(problem, ("precond", mode, tau_m),
+                     lambda: _precond_state(problem, mode, tau_m))
 
 
 # ---------------------------------------------------------------------------
@@ -424,38 +456,66 @@ class PCGResult(NamedTuple):
     rel_residual: float
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+class VectorOps:
+    """:func:`pcg`'s vector operations on one tensor: ``map`` applies a
+    function to the vectors' tensors, ``dot`` gives a 0-d tensor, ``norm``
+    a float, ``axpy`` is y += value · s · v in place (``s`` 0-d, on the
+    first tensor's device).  A sharded solve passes its own
+    (``parallel/direct_sharded.py::ShardOps``, a vector = the slots'
+    tensors)."""
+
+    @staticmethod
+    def map(fn, *vecs):
+        return fn(*vecs)
+
+    @staticmethod
+    def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    @staticmethod
+    def norm(a: torch.Tensor) -> float:
+        return float(torch.linalg.vector_norm(a))
+
+    @staticmethod
+    def axpy(y: torch.Tensor, s: torch.Tensor, v: torch.Tensor,
+             value: float = 1.0) -> torch.Tensor:
+        return y.addcmul_(v, s, value=value)
 
 
-def pcg(A, Minv, b: torch.Tensor, tol: float, maxiter: int) -> PCGResult:
+LOCAL = VectorOps()
+
+
+def pcg(A, Minv, b, tol: float, maxiter: int,
+        ops: VectorOps = LOCAL) -> PCGResult:
     """Preconditioned CG for SPD ``A`` from x = 0: the JAX package's loop
     (stop when ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations; α = 0 where
     pᵀAp ≤ 0, β = 0 where rᵀz ≤ 0).  The carried vectors update in place;
-    the stop test reads ‖r‖ on the host once per iteration."""
-    bnorm = max(float(torch.linalg.vector_norm(b)), 1e-30)
-    x = torch.zeros_like(b)
-    r = b.clone()
+    the stop test reads ‖r‖ on the host once per iteration.  ``ops``: the
+    vector operations (:class:`VectorOps`), so that the sharded solve runs
+    this same body on its slots' tensors."""
+    bnorm = max(ops.norm(b), 1e-30)
+    x = ops.map(torch.zeros_like, b)
+    r = ops.map(torch.clone, b)
     z = Minv(r)
-    rz = _dot(r, z)
+    rz = ops.dot(r, z)
     pvec = z
-    rnorm = float(torch.linalg.vector_norm(r))
+    rnorm = ops.norm(r)
     it = 0
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros_like(rz)
     while it < maxiter and rnorm > tol * bnorm:
         Ap = A(pvec)
-        denom = _dot(pvec, Ap)
+        denom = ops.dot(pvec, Ap)
         alpha = torch.where(denom <= 0, zero,
                             rz / torch.clamp(denom, min=1e-30))
-        x.addcmul_(pvec, alpha)
-        r.addcmul_(Ap, alpha, value=-1.0)
+        ops.axpy(x, alpha, pvec)
+        ops.axpy(r, alpha, Ap, -1.0)
         del Ap
         z = Minv(r)
-        rz_new = _dot(r, z)
+        rz_new = ops.dot(r, z)
         beta = torch.where(rz <= 0, zero, rz_new / torch.clamp(rz, min=1e-30))
-        pvec = z.addcmul_(pvec, beta)
+        pvec = ops.axpy(z, beta, pvec)
         rz = rz_new
-        rnorm = float(torch.linalg.vector_norm(r))
+        rnorm = ops.norm(r)
         it += 1
     return PCGResult(x=x, iterations=it, rel_residual=rnorm / bnorm)
 
@@ -490,6 +550,12 @@ def posterior_mean(problem, tol=None, maxiter=None,
     cfg = p.config
     tol = cfg.direct_tol if tol is None else tol
     maxiter = cfg.direct_maxiter if maxiter is None else maxiter
+
+    def make64():
+        p64 = _float64(p)
+        return (make_normal_operator(p64, prior_precision),
+                apply_KT(p64, _d_in(p64) * _w_in(p64)) * _free_mask(p64))
+
     with cv.no_tf32():
         A = make_normal_operator(p, prior_precision)
         M = make_preconditioner(p, prior_precision=prior_precision)
@@ -497,21 +563,29 @@ def posterior_mean(problem, tol=None, maxiter=None,
                   tol, maxiter)
         if p.data_pad.dtype == torch.float64:
             return res
-        p64 = _float64(p)
-        A64 = make_normal_operator(p64, prior_precision)
-        b64 = apply_KT(p64, _d_in(p64) * _w_in(p64)) * _free_mask(p64)
-        bnorm = max(float(torch.linalg.vector_norm(b64)), 1e-30)
-        x, it, rounds = res.x, res.iterations, 0
-        while True:
-            r64 = b64 - A64(x.double())
-            rnorm = float(torch.linalg.vector_norm(r64))
-            if (rnorm <= tol * bnorm or it >= maxiter
-                    or rounds == MAX_REFINE):
-                break
-            corr = pcg(A, M, r64.to(x.dtype), tol * bnorm / rnorm,
-                       maxiter - it)
-            x, it, rounds = x + corr.x, it + corr.iterations, rounds + 1
-        return PCGResult(x=x, iterations=it, rel_residual=rnorm / bnorm)
+        return refine(A, M, res, make64, tol, maxiter)
+
+
+def refine(A, M, res: PCGResult, make64, tol: float, maxiter: int,
+           ops: VectorOps = LOCAL) -> PCGResult:
+    """The refinement of :func:`posterior_mean` after the float32 solve
+    ``res`` of ``A x = b``: ``make64()`` = (A64, b64), the operator and
+    right-hand side in float64; while ‖b64 − A64 x‖ exceeds ``tol``·‖b64‖,
+    a correction solve on ``A`` (at most :data:`MAX_REFINE` rounds,
+    ``maxiter`` iterations in all)."""
+    A64, b64 = make64()
+    bnorm = max(ops.norm(b64), 1e-30)
+    x, it, rounds = res.x, res.iterations, 0
+    while True:
+        r64 = ops.map(torch.sub, b64, A64(ops.map(torch.Tensor.double, x)))
+        rnorm = ops.norm(r64)
+        if rnorm <= tol * bnorm or it >= maxiter or rounds == MAX_REFINE:
+            break
+        corr = pcg(A, M, ops.map(lambda r_, x_: r_.to(x_.dtype), r64, x),
+                   tol * bnorm / rnorm, maxiter - it, ops)
+        x, it, rounds = (ops.map(torch.add, x, corr.x),
+                         it + corr.iterations, rounds + 1)
+    return PCGResult(x=x, iterations=it, rel_residual=rnorm / bnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -543,14 +617,29 @@ def draw_rhs(problem, key: int, sweep: int, z=None, z2=None) -> torch.Tensor:
     return b
 
 
-def _draws(problem, state, n_sweeps: int, normals):
-    """One chain's ``n_sweeps`` draws (``state`` unbatched)."""
+def _local_draw(problem):
+    """The draw of :func:`direct_run_sweeps` on one device: ``draw(key,
+    sweep, z, z2)`` → (PCGResult, K x, None: χ² from the residual)."""
+    p = problem
+    cfg = p.config
+    A = make_normal_operator(p)
+    Minv = make_preconditioner(p)
+
+    def draw(key, sweep, z, z2):
+        res = pcg(A, Minv, draw_rhs(p, key, sweep, z, z2), cfg.direct_tol,
+                  cfg.direct_maxiter)
+        return res, apply_K(p, res.x), None
+
+    return draw
+
+
+def _draws(problem, state, n_sweeps: int, normals, draw):
+    """One chain's ``n_sweeps`` draws (``state`` unbatched), each solved by
+    ``draw`` (:func:`_local_draw`, or the sharded one)."""
     p = problem
     cfg = p.config
     h = p.f // 2
     dt = p.data_pad.dtype
-    A = make_normal_operator(p)
-    Minv = make_preconditioner(p)
     free = _free_mask(p)
     n_free = float(free.sum()) * p.L
     validf = p.valid.to(dt)
@@ -563,16 +652,16 @@ def _draws(problem, state, n_sweeps: int, normals):
     for i in range(n_sweeps):
         z, z2 = (None, None) if normals is None else (
             normals[0][i], None if normals[1] is None else normals[1][i])
-        b = draw_rhs(p, key, sweep0 + i, z, z2)
-        res = pcg(A, Minv, b, cfg.direct_tol, cfg.direct_maxiter)
-        del b
+        res, kx, chi2 = draw(key, sweep0 + i, z, z2)
         clean = torch.zeros((p.L, p.Yc, p.Xc), dtype=dt, device=p.device)
         clean[:, : p.Y, : p.X] = res.x
         resid = p.data_pad.clone()
-        resid[:, h : h + p.Y, h : h + p.X] -= apply_K(p, res.x)
+        resid[:, h : h + p.Y, h : h + p.X] -= kx
+        del kx
         resid = torch.where(p.w_pad > 0, resid, torch.zeros((), dtype=dt,
                                                             device=p.device))
-        chi2 = torch.sum(resid * resid * p.w_pad, dtype=torch.float32)
+        if chi2 is None:
+            chi2 = torch.sum(resid * resid * p.w_pad, dtype=torch.float32)
         kc = keep[i]
         st = dataclasses.replace(
             st, clean=clean, resid=resid, chi2=chi2,
@@ -613,18 +702,26 @@ def direct_run_sweeps(problem, state, n_sweeps: int, normals=None):
     alone under its own key, so it is the same in any batch.  ``normals``
     = (z, z2) ``[n_sweeps, (C,) L, Y, X]`` (z2 may be None) replaces the
     Philox normals."""
+    with cv.no_tf32():
+        return run_draws(problem, state, n_sweeps, normals,
+                         _local_draw(problem))
+
+
+def run_draws(problem, state, n_sweeps: int, normals, draw):
+    """:func:`direct_run_sweeps` with each draw's solve by ``draw(key,
+    sweep, z, z2)`` → (PCGResult with x ``[L, Y, X]``, K x, χ² or None),
+    every chain of a chain-stacked ``state`` alone."""
     from .. import chains as ch
 
-    with cv.no_tf32():
-        if state.clean.dim() == 3:
-            return _draws(problem, state, n_sweeps, normals)
-        results = []
-        for c in range(state.clean.shape[0]):
-            nc = None if normals is None else tuple(
-                None if t is None else t[:, c] for t in normals)
-            results.append(_draws(problem, ch.select_chains(state, c),
-                                  n_sweeps, nc))
-        return ch.stack_chains(results)
+    if state.clean.dim() == 3:
+        return _draws(problem, state, n_sweeps, normals, draw)
+    results = []
+    for c in range(state.clean.shape[0]):
+        nc = None if normals is None else tuple(
+            None if t is None else t[:, c] for t in normals)
+        results.append(_draws(problem, ch.select_chains(state, c),
+                              n_sweeps, nc, draw))
+    return ch.stack_chains(results)
 
 
 def draw_bytes(problem) -> int:

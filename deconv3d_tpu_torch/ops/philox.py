@@ -217,19 +217,27 @@ def pass_normals(key: int, sweep: int, slots, n_anchor: int, L: int,
 
 
 def cube_normals(key: int, sweep: int, streams, L: int, Y: int, X: int,
-                 device=None, dtype=torch.float32) -> torch.Tensor:
+                 device=None, dtype=torch.float32,
+                 rows=None) -> torch.Tensor:
     """Box-Muller normals of a whole ``[L, Y, X]`` cube, one per voxel:
     sqrt(−2 log u1)·cos(2π u2) with u1, u2 from ``streams`` = (s1, s2),
     word ``λ & 3`` of the block at counter (λ >> 2, sweep, 0, s << 24 |
     y·X + x) — the layout of :func:`_slot_uniforms` with one slot and the
     spaxels as rows (Y·X < 2²⁴).  Each block is computed once for its four
-    λs, :data:`NORMALS_CHUNK_L` λs at a time; the normals take ``dtype``."""
+    λs, :data:`NORMALS_CHUNK_L` λs at a time; the normals take ``dtype``.
+    ``rows`` = (y0, y1): only the spaxel rows [y0, y1) of the cube,
+    ``[L, y1 − y0, X]``, bit-equal to those rows of the whole cube's."""
     if Y * X >= 1 << 24:
         raise ValueError(f"{Y}x{X} spaxels exceed the 24-bit row field")
+    y0, y1 = (0, Y) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= y0 <= y1 <= Y:
+        raise ValueError(f"rows {rows} outside the cube's 0..{Y}")
     dev = torch.device(device) if device is not None else None
-    ij = torch.arange(Y * X, dtype=torch.int64, device=dev)
+    ij = torch.arange(y0 * X, y1 * X, dtype=torch.int64, device=dev)
     kw = key_words(key)
-    out = torch.empty((L, Y, X), dtype=dtype, device=dev)
+    out = torch.empty((L, y1 - y0, X), dtype=dtype, device=dev)
+    if y1 == y0 or X == 0:
+        return out
     two_pi = torch.tensor(2.0 * torch.pi, dtype=torch.float32)
     for lo in range(0, L, NORMALS_CHUNK_L):
         hi = min(L, lo + NORMALS_CHUNK_L)
@@ -240,10 +248,10 @@ def cube_normals(key: int, sweep: int, streams, L: int, Y: int, X: int,
             words = philox4x32((q, sweep & M32, 0, (stream << 24) | ij), kw)
             # [blocks, 4, Y·X] → λ-major rows 4·block + word
             bits = torch.stack(torch.broadcast_tensors(*words), dim=1)
-            u.append(bits_to_uniform(bits.reshape(-1, Y * X))
+            u.append(bits_to_uniform(bits.reshape(-1, ij.shape[0]))
                      [lo - 4 * (lo >> 2): hi - 4 * (lo >> 2)])
         z = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos(two_pi * u[1])
-        out[lo:hi] = z.reshape(hi - lo, Y, X).to(dtype)
+        out[lo:hi] = z.reshape(hi - lo, y1 - y0, X).to(dtype)
     return out
 
 

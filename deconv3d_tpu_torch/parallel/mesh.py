@@ -8,8 +8,10 @@ data.  The port keeps that shape.  A :class:`Mesh` is an array of
 tensor per slot, and the collectives below are explicit copies between the
 slots' tensors (device to device; on a CUDA device never through the
 host).  Slots may repeat a device: ``Mesh([cuda:0] * 2, ("sp",))`` runs
-two shards, and their strip exchanges, on one card.  Several processes
-(``torch.distributed``) come with ``parallel/multihost.py``.
+two shards, and their strip exchanges, on one card.  ``all_to_all_ragged``
+takes uneven chunks (the sharded direct solve's frequency columns).
+Several processes (``torch.distributed``) come with
+``parallel/multihost.py``.
 """
 
 from __future__ import annotations
@@ -105,12 +107,18 @@ def gather(parts: Sequence[torch.Tensor], device, dim: int = 0) -> torch.Tensor:
     return torch.cat([t.to(device) for t in parts], dim=dim)
 
 
-def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def slot_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The sum over the slots, summed in slot order on the first slot's
-    device, then copied to every slot (JAX's ``psum``)."""
-    total = parts[0].clone()
+    device."""
+    total = parts[0]
     for t in parts[1:]:
         total = total + t.to(total.device)
+    return total
+
+
+def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`slot_sum`, copied to every slot (JAX's ``psum``)."""
+    total = slot_sum(parts)
     return [total.to(t.device, copy=True) for t in parts]
 
 
@@ -142,6 +150,27 @@ def all_to_all(parts: Sequence[torch.Tensor], split_axis: int,
                 f"split axis of size {t.shape[split_axis]} must be "
                 f"divisible by the mesh size {n}")
     chunks = [torch.chunk(t, n, dim=split_axis) for t in parts]
+    return [torch.cat([chunks[i][j].to(parts[j].device) for i in range(n)],
+                      dim=concat_axis) for j in range(n)]
+
+
+def all_to_all_ragged(parts: Sequence[torch.Tensor], split_axis: int,
+                      concat_axis: int,
+                      sizes: Sequence[int]) -> List[torch.Tensor]:
+    """:func:`all_to_all` with uneven chunks: slot i cuts its tensor along
+    ``split_axis`` into chunks of ``sizes`` (one per slot, zeros allowed)
+    and sends chunk j to slot j, which concatenates the chunks it receives
+    in slot order along ``concat_axis``."""
+    n = len(parts)
+    sizes = [int(k) for k in sizes]
+    if len(sizes) != n or min(sizes) < 0:
+        raise ValueError(f"{len(sizes)} chunk sizes {sizes} for {n} slots")
+    for t in parts:
+        if t.shape[split_axis] != sum(sizes):
+            raise ValueError(
+                f"split axis of size {t.shape[split_axis]} is not the sum "
+                f"of the chunk sizes {sizes}")
+    chunks = [torch.split(t, sizes, dim=split_axis) for t in parts]
     return [torch.cat([chunks[i][j].to(parts[j].device) for i in range(n)],
                       dim=concat_axis) for j in range(n)]
 

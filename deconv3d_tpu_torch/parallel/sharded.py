@@ -22,7 +22,7 @@ from typing import List, Sequence
 import torch
 
 from .. import convolve as cv
-from .mesh import all_to_all, ppermute
+from .mesh import all_to_all, ppermute, slot_sum
 
 
 def convolve_cube_sharded(clean: Sequence[torch.Tensor],
@@ -73,9 +73,8 @@ def sharded_chi2(data: Sequence[torch.Tensor], model: Sequence[torch.Tensor],
                  weights: Sequence[torch.Tensor]) -> torch.Tensor:
     """Global χ² of sharded (data, model, weights): each slot's float32 sum,
     the sums added in slot order on the first slot's device."""
-    total = None
+    parts = []
     for d, m, w in zip(data, model, weights):
         r = d - m
-        part = torch.sum(r * r * w, dtype=torch.float32)
-        total = part if total is None else total + part.to(total.device)
-    return total
+        parts.append(torch.sum(r * r * w, dtype=torch.float32))
+    return slot_sum(parts)

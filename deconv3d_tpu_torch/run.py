@@ -31,9 +31,11 @@ package's single controller does): ``mesh`` splits the chains over its
 ``'chains'`` slots; ``spatial_mesh`` (a Mesh, or an int k: the first k
 CUDA devices, ``parallel.make_mesh``, or k slots of the CPU for a CPU run)
 shards ONE chain's sweep along Y — ``'mh'``/``'gibbs'`` on the band
-launches of the tiled kernel (``parallel/kernel_sharded.py``), the other
-modes on the plain color step (``parallel/sweep_sharded.py``); with
-``n_chains > 1`` it is a 2-D ``(chains, spatial)`` mesh, one chain per row.
+launches of the tiled kernel (``parallel/kernel_sharded.py``),
+``'direct'`` and ``map_estimate`` as a Y-sharded PCG
+(``parallel/direct_sharded.py``), the other modes on the plain color step
+(``parallel/sweep_sharded.py``); with ``n_chains > 1`` it is a 2-D
+``(chains, spatial)`` mesh, one chain per row.
 Several shards on one card: ``spatial_mesh=Mesh([torch.device('cuda:0')] *
 2)``.
 """
@@ -109,8 +111,6 @@ class Run:
                     "torch versions on the CPU")
             device = "cuda"
         self.device = torch.device(device)
-        if sampler == "direct" and spatial_mesh is not None:
-            raise sm.not_ported("spatial_mesh", spatial_mesh)
         if isinstance(cube, str):
             cube = Cube.from_file(cube, device=self.device)
         cube = cube.to(self.device)
@@ -245,8 +245,10 @@ class Run:
                     "parallelism use `mesh` instead.")
             self._spatial_chains = True
         self._spatial_kernel = spatial_mesh is not None and kernel_rate
+        # 'direct' shards its PCG (parallel/direct_sharded.py) and leaves
+        # the engine alone, as the JAX package does
         if (spatial_mesh is not None and not kernel_rate
-                and engine != "auto"):
+                and sampler != "direct" and engine != "auto"):
             logger.warning(
                 "spatial_mesh with sampler=%r runs the plain color step on "
                 "every shard; engine=%r is ignored (kernel-rate sharded "
@@ -337,8 +339,9 @@ class Run:
 
     def _run_segment(self, n: int) -> ch.MultiChainResult:
         """``n`` sweeps of every chain on the run's route: chains ×
-        spatial, one chain sharded (band launches, or the plain color
-        step), or the chains on their own (split over ``mesh``)."""
+        spatial, one chain sharded (band launches, the plain color step,
+        or for ``'direct'`` the sharded PCG), or the chains on their own
+        (split over ``mesh``)."""
         if self._spatial_chains:
             from .parallel.kernel_sharded import run_chains_kernel_sharded
 
@@ -346,6 +349,11 @@ class Run:
             return run_chains_kernel_sharded(
                 self.problem, self.n_chains, n, self.spatial_mesh,
                 states=self.states, chain_axis=names[0], axis_name=names[1])
+        if self.spatial_mesh is not None and self.config.sampler == "direct":
+            from .parallel.direct_sharded import run_direct_sweeps_sharded
+
+            return ch.MultiChainResult(result=run_direct_sweeps_sharded(
+                self.problem, self.states, n, self.spatial_mesh))
         if self.spatial_mesh is not None:
             if self._spatial_kernel:
                 from .parallel.kernel_sharded import (
@@ -555,10 +563,9 @@ class Run:
         solve's iterations and relative residual are kept in
         ``last_map_result``, the τ it used in
         ``last_map_prior_precision``; a solve that stops short of ``tol``
-        warns.
+        warns.  With ``spatial_mesh`` the solve shards over the mesh's last
+        axis (``parallel/direct_sharded.py::posterior_mean_sharded``).
         """
-        if self.spatial_mesh is not None:
-            raise sm.not_ported("spatial_mesh", self.spatial_mesh)
         if self.config.positivity:
             # the unconstrained Gaussian optimum is not the MAP of the
             # truncated model
@@ -577,8 +584,18 @@ class Run:
         self.last_map_prior_precision = (
             prior_precision if prior_precision is not None
             else self.config.prior_precision)
-        res = posterior_mean(self.problem, tol=tol, maxiter=maxiter,
-                             prior_precision=prior_precision)
+        if self.spatial_mesh is not None:
+            from .parallel.direct_sharded import posterior_mean_sharded
+
+            # on a 2-D (chains, spatial) mesh the one solve shards over
+            # the spatial axis only
+            res = posterior_mean_sharded(
+                self.problem, self.spatial_mesh,
+                axis_name=self.spatial_mesh.axis_names[-1], tol=tol,
+                maxiter=maxiter, prior_precision=prior_precision)
+        else:
+            res = posterior_mean(self.problem, tol=tol, maxiter=maxiter,
+                                 prior_precision=prior_precision)
         self.last_map_result = res
         if res.rel_residual > (tol if tol is not None
                                else self.config.direct_tol):

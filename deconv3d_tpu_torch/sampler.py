@@ -69,8 +69,6 @@ from .metrics import logger
 #: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
 _NOT_PORTED = {
     "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
-    "spatial_mesh": "Queue 1 item 16b (parallel/direct_sharded.py: the "
-                    "direct sampler and map_estimate on a spatial mesh)",
 }
 
 

@@ -138,8 +138,9 @@ def test_cli_run_tabulated_kernels(tmp_path, rng, capsys):
 
 def test_cli_refuses_spatial_shards(tmp_path, rng):
     """``--spatial-shards 2 --device cpu`` shards the chain over two slots
-    of the CPU and runs to its products; ``sampler='direct'`` on a spatial
-    mesh is still refused."""
+    of the CPU and runs to its products; so does ``--sampler direct
+    --spatial-shards 2`` (the sharded PCG; it was refused before
+    ``parallel/direct_sharded.py``)."""
     data = rng.normal(size=(16, 20, 10)).astype(np.float32)
     path = str(tmp_path / "tall.fits")
     Cube.from_data(data, variance=np.full_like(data, 0.04), crval=4750.0,
@@ -153,9 +154,15 @@ def test_cli_refuses_spatial_shards(tmp_path, rng):
                  *CPU]) == 0
     with open(f"{out}_stats.json") as fh:
         assert json.load(fh)["sweeps"] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["run", "--cube", path, "--spatial-shards", "2", "--sampler",
-              "direct", *CPU])
+    out = str(tmp_path / "dsh")
+    assert main(["run", "--cube", path, "--out", out, "--iterations", "2",
+                 "--spatial-shards", "2", "--sampler", "direct",
+                 "--prior-precision", "auto", *narrow,
+                 *CPU]) == 0
+    with open(f"{out}_stats.json") as fh:
+        stats = json.load(fh)
+    assert stats["sweeps"] == 2 and stats["acceptance_rate"] == 1.0
+    assert os.path.exists(out + "_clean.fits")
 
 
 def test_cli_module_entry_point(tmp_path, rng):

@@ -75,3 +75,26 @@ def test_sweep_uniforms_layout():
     # absolute-sweep keyed: another sweep or key draws other numbers
     assert not torch.equal(u, philox.sweep_uniforms(key, sweep + 1, n_colors, nij, L))
     assert not torch.equal(u, philox.sweep_uniforms(key + 1, sweep, n_colors, nij, L))
+
+
+@pytest.mark.parametrize("Y, cuts", [(7, [(0, 7)]), (7, [(0, 3), (3, 5),
+                                                          (5, 7)]),
+                                     (10, [(0, 4), (4, 7), (7, 10)]),
+                                     (5, [(2, 2), (0, 1), (4, 5)])])
+def test_cube_normals_rows_are_the_whole_cubes_rows(Y, cuts, monkeypatch):
+    """``cube_normals`` with ``rows`` = (y0, y1) is bit-equal to rows
+    [y0, y1) of the whole cube's normals (the draws of a sharded direct
+    solve), uneven and empty cuts too, with λ chunks of 6 that do not
+    divide L; rows outside the cube raise."""
+    monkeypatch.setattr(philox, "NORMALS_CHUNK_L", 6)
+    key, sweep, L, X = (3 << 32) | 9, 5, 11, 6
+    streams = (philox.STREAM_DRAW_U1, philox.STREAM_DRAW_U2)
+    whole = philox.cube_normals(key, sweep, streams, L, Y, X,
+                                dtype=torch.float64)
+    for y0, y1 in cuts:
+        got = philox.cube_normals(key, sweep, streams, L, Y, X,
+                                  dtype=torch.float64, rows=(y0, y1))
+        assert got.shape == (L, y1 - y0, X)
+        assert torch.equal(got, whole[:, y0:y1])
+    with pytest.raises(ValueError, match="rows"):
+        philox.cube_normals(key, sweep, streams, L, Y, X, rows=(0, Y + 1))

@@ -180,25 +180,31 @@ def test_run_two_chains_diagnostics(rng):
 
 
 def test_run_refuses_what_is_not_ported(rng):
-    """``sampler='direct'`` on a spatial mesh (and ``map_estimate`` there)
-    still raises; ``map_estimate`` works on an MCMC run (a converged MAP
-    cube of the run's shape, no chain state built)."""
+    """``sampler='direct'`` on a spatial mesh and ``map_estimate`` there
+    run (``parallel/direct_sharded.py``; they raised before it was
+    ported): converged draws, and the sharded MAP equal to the unsharded
+    one.  ``map_estimate`` works on an MCMC run (a converged MAP cube of
+    the run's shape, no chain state built)."""
     from deconv3d_tpu_torch.parallel import Mesh
 
     cube, inst = _make_toy(rng, dtype=np.float32)
     kw = dict(fsf_size=5, lsf_width=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*16b"):
-        d3.Run(cube, inst, sampler="direct", spatial_mesh=Mesh(["cpu"] * 2),
-               **kw)
+    direct = d3.Run(cube, inst, sampler="direct", max_iterations=2,
+                    prior_precision="auto", spatial_mesh=Mesh(["cpu"] * 2),
+                    **kw).run()
+    assert np.all(direct.trace("accept") == 1.0)
     sharded = d3.Run(cube, inst, spatial_mesh=Mesh(["cpu"] * 2), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*16b"):
-        sharded.map_estimate()
+    got = sharded.map_estimate(prior_precision="auto", tol=1e-5,
+                               maxiter=2000)
+    assert sharded.last_map_result.rel_residual <= 1e-5
     run = d3.Run(cube, inst, **kw)
     m = run.map_estimate(prior_precision="auto", tol=1e-5, maxiter=2000)
     assert isinstance(m, d3.Cube) and tuple(m.shape) == tuple(cube.shape)
     assert np.isfinite(m.data.numpy()).all()
     assert run.last_map_result.rel_residual <= 1e-5
     assert run._states is None
+    np.testing.assert_allclose(got.data.numpy(), m.data.numpy(), rtol=0,
+                               atol=1e-4 * float(m.data.abs().max()))
 
 
 def test_run_enables_coarse_passes_on_a_large_field():
