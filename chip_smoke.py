@@ -167,6 +167,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    beside the unsharded MAP's, peak bytes, the ms of one ragged
    all-to-all, the solve kernel at 3681 × 45,600 and 3681 × 45,000
    columns against its plain version.
+13c. multihost — the port over 2 processes (``parallel/multihost.py``),
+   both ranks on ``cuda:0`` (this script re-run with ``--multihost``, each
+   process killed with the others if one fails or its limit passes).  The
+   transport: 2 NCCL ranks on one card, then with a distinct
+   ``NCCL_HOSTID`` per rank (``nccl_two_ranks_one_card``); NCCL where one
+   works, else gloo staged through pinned host buffers (``backend``); a
+   1-rank NCCL group through one band segment against the one-slot run.
+   Then the 2 ranks, ``initialize(file://…)`` and ``global_mesh(
+   local_devices=[cuda:0])``: (a) the band sweeps at 136×68×600 (MH 2,
+   gibbs 1, ``run_sweeps_kernel_sharded``), bit-equal to this process's
+   ``Mesh([cuda:0] * 2)`` run; (c) 2 chains on a 2 × 1 global mesh, one
+   chain row per rank, each chain bit-equal to itself alone; (d) 6 direct
+   draws (phase ``direct_sharded`` takes 20: across the ranks of one card
+   a CG iteration costs about 15 ms) and the MAP (tol 1e-6) at the bench cube
+   against this process's run of them on ``Mesh([cuda:0] * 2)``:
+   iterations equal, states and MAP bit-equal (or within 1e-6), one solve
+   launch per rank and application, ms per CG iteration; (b) the full field, the default MH flow (8 sweeps and the
+   pass) and 3 gibbs sweeps through ``Run(spatial_mesh=global_mesh())``:
+   the final state's digest equal to ``sharded_field``'s D = 2 run's, χ²
+   consistency ≤ 1e-5, per rank the band launches' ms per sweep (CUDA
+   events), the strip exchanges' ms, bytes and count and the segment-end
+   gathers' ms (host clock, synchronised), sweeps/s, peak GB.  Every
+   rank's digests equal rank 0's.
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
@@ -181,7 +204,8 @@ at 136×68×600);
 K2 with positivity on the ``positivity`` phase's shapes; the banded ones with their launches on the default MH
 flow of ``full_field`` and their ms at that flow's shapes; the banded
 solve with its launches on the ``direct`` run, and on the
-``direct_sharded`` run with its ms at the slots' shapes), the
+``direct_sharded`` run with its ms at the slots' shapes; the band and solve
+launches of each rank of ``multihost``), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -2718,6 +2742,7 @@ def phase_sharded_field(cube, unsharded, card, n=8, n_gibbs=3):
         dt = time.perf_counter() - t0
         launches = counter.launches
         peak = torch.cuda.max_memory_allocated()
+        final_digest = digest(run.states)
         consistency = chi2_consistency(run)
         diag = run.diagnostics()
         devices = run.spatial_mesh.rows("sp")[0]
@@ -2784,9 +2809,472 @@ def phase_sharded_field(cube, unsharded, card, n=8, n_gibbs=3):
         out[label] = {"launches": launches, "band_ms": band_ms,
                       "launches_ms": launches_ms, "seg_ms": seg_ms,
                       "bounds": bounds, "bound_ms": bound_ms, "plan": plan,
-                      "sweeps": n_run}
+                      "sweeps": n_run, "sweeps_per_sec": rate,
+                      "digest": final_digest, "peak_bytes": peak,
+                      "chi2_consistency": consistency}
         del run, state
     return out
+
+
+# ---------------------------------------------------------------------------
+# 13c. multihost: the port over 2 processes on the one card
+# ---------------------------------------------------------------------------
+
+#: a rank's seconds for any collective; the parent's limits on a probe and
+#: on the ranks
+RANK_TIMEOUT_S, PROBE_LIMIT_S, RANKS_LIMIT_S = 120, 60, 420
+#: (d)'s direct draws, fewer than phase direct_sharded's 20: across two
+#: ranks of one H100 (NCCL) a bench CG iteration takes 14.6 ms, against
+#: 1.8 in one process
+MULTIHOST_DRAWS = 6
+
+
+def digest(obj) -> str:
+    """A digest of every tensor of a dataclass, a dict or a tensor,
+    computed on its device: per tensor its shape, dtype, the sum of its words and
+    their sum weighted by odd per-position weights (int64, wrapping), so
+    that any one changed word changes it."""
+    import hashlib
+
+    items = ([("", obj)] if isinstance(obj, torch.Tensor) else sorted(
+        (obj if isinstance(obj, dict) else vars(obj)).items()))
+    h = hashlib.sha256()
+    chunk = 1 << 24
+    for name, t in items:
+        t = t.detach().contiguous().reshape(-1)
+        words = t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                        8: torch.int64}[t.element_size()]).to(torch.int64) \
+            if t.dtype != torch.bool else t.to(torch.int64)
+        plain = weighted = 0
+        for i in range(0, words.numel(), chunk):
+            w = words[i:i + chunk]
+            pos = torch.arange(i, i + w.numel(), dtype=torch.int64,
+                               device=w.device)
+            plain += int(w.sum())
+            weighted += int((w * (pos * 2654435761 * 2 + 1)).sum())
+        h.update(f"{name}:{tuple(t.shape)}:{t.dtype}:{plain}:{weighted};"
+                 .encode())
+    return h.hexdigest()[:32]
+
+
+def state_tensors(state) -> dict:
+    return {k: v.detach().cpu() for k, v in vars(state).items()}
+
+
+def band_cube():
+    """136×68×600 (f = 17, ny = 8): 4 block rows a shard at D = 2."""
+    return bench_cube(L=600, Y=136, X=68)
+
+
+def band_runs(mesh, cube):
+    """(a): MH 2 sweeps and gibbs 1 through the band launches of
+    ``run_sweeps_kernel_sharded`` on ``mesh`` from the initial state:
+    {sampler: final state}, and the band launches."""
+    out, launches = {}, {}
+    for sampler, n in (("mh", 2), ("gibbs", 1)):
+        problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(
+            seed=0, sampler=sampler))
+        counter = band_counter(sampler)
+        n0 = counter.launches
+        out[sampler] = ks.run_sweeps_kernel_sharded(
+            problem, sm.init_state(problem), n, mesh, interior="cuda").state
+        torch.cuda.synchronize()
+        launches[sampler] = counter.launches - n0
+    return out, launches
+
+
+def direct_runs(mesh, n_draws=MULTIHOST_DRAWS):
+    """(d): ``n_draws`` direct draws of ``Run(bench cube,
+    sampler='direct', prior_precision='auto')`` and the MAP ('auto' τ, tol
+    1e-6) of the MH ``Run``, phase ``direct_sharded``'s two runs, on
+    ``mesh``: their results and counts."""
+    cube = bench_cube()
+    run = d3.Run(cube, d3.MUSE(), max_iterations=n_draws, seed=0,
+                 sampler="direct", prior_precision="auto", spatial_mesh=mesh)
+    run.states
+    reset_launches()
+    with PCGRecorder() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = bd.banded_solve.launches
+    iters = [s["iterations"] for s in rec.solves]
+    # ms per solve launch on this process's first slot's kx columns
+    p = run.problem
+    e = mesh.rows("sp")[0].local().index(True)
+    a, b = ds.shards(p, mesh).cols[e]
+    st = ds.slot_precond(p, mesh)
+    cols = torch.randn((p.L, p.Y * (b - a) * 2), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(22))
+    _, solve_ms = ms_per_call(lambda: bd.banded_solve(st.R[e], st.fidx[e],
+                                                      cols), 20)
+    del cols, st
+    mrun = d3.Run(cube, d3.MUSE(), seed=0, spatial_mesh=mesh)
+    with PCGRecorder() as mrec:
+        m = mrun.map_estimate(prior_precision="auto", tol=1e-6)
+    return {"state": state_tensors(ch.select_chains(run.states, 0)),
+            "map_x": m.data.cpu(), "shape": list(cube.shape),
+            "draws": n_draws, "draws_per_sec": n_draws / dt,
+            "iterations_per_draw": iters,
+            "applications": sum(i + 1 for i in iters),
+            "solve_launches": launches, "solve_shape": [p.L, p.Y * (b - a) * 2],
+            "solve_call_ms": solve_ms,
+            "ms_per_iteration": sum(s["ms"] for s in rec.solves)
+            / max(sum(iters), 1),
+            "map_iterations": mrun.last_map_result.iterations,
+            "map_ms_per_iteration": sum(s["ms"] for s in mrec.solves)
+            / max(sum(s["iterations"] for s in mrec.solves), 1)}
+
+
+def spawn_ranks(role, n, tmp, backend, env=None):
+    """``n`` processes of this script in the role ``role`` (rank r of n),
+    started together, their output in files under ``tmp``."""
+    procs = []
+    for r in range(n):
+        fd, log = tempfile.mkstemp(prefix=f"{role}_{r}_", suffix=".log",
+                                   dir=tmp)
+        with os.fdopen(fd, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multihost",
+                 role, str(r), str(n), backend, tmp],
+                env={**os.environ, **(env[r] if env else {})},
+                stdout=fh, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_ranks(procs, limit):
+    """Every process's (exit code, last lines of its output): all of them
+    killed as soon as one fails or when the limit passes (None exit codes
+    for those killed)."""
+    deadline = time.monotonic() + limit
+    while any(pr.poll() is None for pr, _ in procs):
+        failed = any(pr.poll() not in (None, 0) for pr, _ in procs)
+        if failed or time.monotonic() > deadline:
+            for pr, _ in procs:
+                if pr.poll() is None:
+                    pr.kill()
+            break
+        time.sleep(0.2)
+    out = []
+    for pr, log in procs:
+        pr.wait()
+        with open(log) as fh:
+            out.append((pr.returncode if pr.returncode >= 0 else None,
+                        fh.read()[-3000:]))
+    return out
+
+
+def phase_multihost(sharded_field, card):
+    """13c: the port over 2 processes (``parallel/multihost.py``), both on
+    the one card: which transport two ranks of one card can use (NCCL,
+    NCCL with a distinct ``NCCL_HOSTID`` per rank, else gloo staged
+    through pinned host buffers), a 1-rank NCCL group through one band
+    segment, then the 2 ranks through (a) the band sweeps at 136×68×600,
+    (c) 2 chains × 1 slot, one chain row per rank, (d) the direct draws and
+    MAP at the bench cube and (b) the full field in the default MH flow
+    and 3 gibbs sweeps, each against this process's one-process run of the
+    same slots (that of (a), (c) and (d) here, of (b) phase
+    ``sharded_field``'s), every rank's states against rank 0's."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="multihost_")
+    dev = torch.device("cuda", 0)
+    # (a)'s one-process reference: the same slots in one process
+    cube = band_cube()
+    ref, _ = band_runs(Mesh([dev, dev], ("sp",)), cube)
+    one_slot, _ = band_runs(Mesh([dev], ("sp",)), cube)
+    direct = direct_runs(Mesh([dev, dev], ("sp",)))
+    torch.save({
+        "band": {s: state_tensors(st) for s, st in ref.items()},
+        "one_slot": {s: state_tensors(st) for s, st in one_slot.items()},
+        "direct": direct,
+        "field": {k: sharded_field[k]["digest"] for k in ("D2", "gibbs_D2")},
+    }, os.path.join(tmp, "reference.pt"))
+    del cube, ref, one_slot
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the transport: NCCL refuses two ranks on one card ("Duplicate GPU");
+    # a distinct NCCL_HOSTID per rank makes them two hosts to it.  Both
+    # probes and the 1-rank NCCL group run at once.
+    hostid = [{"NCCL_HOSTID": f"rank{r}", "NCCL_SOCKET_IFNAME": "lo"}
+              for r in range(2)]
+    probes = {
+        "nccl": spawn_ranks("probe", 2, tmp, "nccl"),
+        "nccl_hostid": spawn_ranks("probe", 2, tmp, "nccl", env=hostid),
+        "gloo": spawn_ranks("probe", 2, tmp, "gloo"),
+        "one_rank_nccl": spawn_ranks("one_rank", 1, tmp, "nccl"),
+    }
+    deadline = time.monotonic() + PROBE_LIMIT_S
+    outcome = {k: wait_ranks(v, deadline - time.monotonic())
+               for k, v in probes.items()}
+
+    def summary(res):
+        """ok, and the probe's timings or the first error it printed."""
+        ok = all(rc == 0 for rc, _ in res)
+        out = {"ok": ok, "exit_codes": [rc for rc, _ in res]}
+        if ok and res[0][1].strip().endswith("}"):
+            out.update(json.loads(res[0][1].strip().splitlines()[-1]))
+        elif not ok:
+            out["said"] = [next((ln for ln in log.splitlines()
+                                 if "rror" in ln), log.strip()[-300:])[:300]
+                           for _, log in res]
+        return out
+
+    transports = {k: summary(outcome[k])
+                  for k in ("nccl", "nccl_hostid", "gloo")}
+    one = summary(outcome["one_rank_nccl"])
+    if one["ok"]:
+        with open(os.path.join(tmp, "one_rank.json")) as fh:
+            one.update(json.load(fh))
+    backend = ("nccl" if transports["nccl"]["ok"]
+               or transports["nccl_hostid"]["ok"] else "gloo")
+    env = hostid if backend == "nccl" and not transports["nccl"]["ok"] \
+        else None
+    emit("multihost_transport", card=card,
+         nccl_two_ranks_one_card={k: transports[k]
+                                  for k in ("nccl", "nccl_hostid")},
+         gloo=transports["gloo"], backend=backend, one_rank_nccl=one,
+         parent_allocated_bytes=torch.cuda.memory_allocated(),
+         probe_s=time.perf_counter() - t0)
+    check(one["ok"] and one.get("bit_equal"), f"the 1-rank NCCL group: {one}")
+
+    res = wait_ranks(spawn_ranks("rank", 2, tmp, backend, env),
+                     RANKS_LIMIT_S)
+    for r, (rc, log) in enumerate(res):
+        check(rc == 0, f"multihost rank {r} exited {rc}:\n{log}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    for r, out in enumerate(ranks):
+        out["direct"]["one_process_ms_per_iteration"] = direct[
+            "ms_per_iteration"]
+        out["direct"]["one_process_map_ms_per_iteration"] = direct[
+            "map_ms_per_iteration"]
+        out["direct"]["one_process_solve_call_ms"] = direct["solve_call_ms"]
+        for label in ("mh", "gibbs"):
+            one = sharded_field["D2" if label == "mh" else "gibbs_D2"]
+            out["field"][label]["one_process_sweeps_per_sec"] = one[
+                "sweeps_per_sec"]
+            out["field"][label]["rate_to_one_process"] = out["field"][
+                label]["sweeps_per_sec"] / one["sweeps_per_sec"]
+        for part in ("band", "chains", "direct", "field"):
+            emit(f"multihost_{part}", rank=r, backend=backend, card=card,
+                 **out[part])
+    # every rank's states equal rank 0's
+    digests = [out["digests"] for out in ranks]
+    emit("multihost", backend=backend, ranks=2, digests_equal=all(
+        d == digests[0] for d in digests), seconds=time.perf_counter() - t0)
+    check(all(d == digests[0] for d in digests),
+          f"the ranks' states differ: {digests}")
+    for r, out in enumerate(ranks):
+        check(all(out["band"]["bit_equal"].values()),
+              f"rank {r}: the band sweeps differ from one process's")
+        check(all(out["chains"]["chain_alone_bit_equal"]),
+              f"rank {r}: a chain differs from itself alone")
+        check(out["direct"]["iterations_equal"], f"rank {r}: the direct "
+              "draws' iterations differ from one process's")
+        check(out["direct"]["state_bit_equal"] or out["direct"][
+            "state_rel_err"] <= 1e-6, f"rank {r}: the direct draws differ")
+        check(out["direct"]["map_bit_equal"] or out["direct"][
+            "map_rel_err"] <= 1e-6, f"rank {r}: the MAP differs")
+        check(out["direct"]["solve_launches"] == out["direct"][
+            "applications"] > 0, f"rank {r}: one solve launch per "
+              "preconditioner application on its slot")
+        for label in ("mh", "gibbs"):
+            f = out["field"][label]
+            check(f["digest_equal_one_process"], f"rank {r}: the {label} "
+                  "field differs from the one-process D = 2 run")
+            check(f["chi2_consistency"] <= 1e-5, f"rank {r}: {label} chi2 "
+                  "drifted from full_chi2")
+    return {"backend": backend, "ranks": ranks, "transports": transports}
+
+
+def multihost_worker(role, rank, world, backend, tmp) -> int:
+    """A process of phase ``multihost`` (this script run with
+    ``--multihost``): ``probe`` joins a 2-rank group and moves 64 MB each
+    way; ``one_rank`` runs one band segment on a 1-rank group; ``rank``
+    runs (a)-(d)."""
+    from deconv3d_tpu_torch.parallel import multihost as mh
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    store = f"file://{tmp}/store_{role}_{backend}_" + (
+        os.environ.get("NCCL_HOSTID", "") and "hostid")
+    mh.initialize(store, world, rank, backend=backend,
+                  timeout=RANK_TIMEOUT_S)
+    if role == "probe":
+        # 64 MB each way (checked), then the ms of one exchange of a
+        # scalar (a slot sum) and of 64 MB each way, 20 of each
+        x = torch.full((16 << 20,), float(rank), device=dev)
+        parts = [x, None] if rank == 0 else [None, x]
+        one = [x[:1], None] if rank == 0 else [None, x[:1]]
+
+        def both_ways():
+            return pm.ppermute(parts, 1, (0, 1)), pm.ppermute(parts, -1,
+                                                              (0, 1))
+        fwd, back = both_ways()
+        got = back[0] if rank == 0 else fwd[1]
+        check(float(got.mean()) == 1 - rank, "the probe's data")
+        _, round_ms = timed(lambda: [pm.slot_sum(one, (0, 1))
+                                     for _ in range(20)])
+        _, bulk_ms = timed(lambda: [both_ways() for _ in range(20)])
+        print(json.dumps({"round_ms": round_ms / 20,
+                          "gb_per_s_each_way": 2 * 64e6 * 20
+                          / (bulk_ms * 1e6)}))
+        torch.distributed.destroy_process_group()
+        return 0
+    mesh = mh.global_mesh("sp", local_devices=[dev])
+    reference = torch.load(os.path.join(tmp, "reference.pt"),
+                           weights_only=False)
+    if role == "one_rank":
+        states, launches = band_runs(mesh, band_cube())
+        equal = all(torch.equal(v.cpu(), reference["one_slot"][s][k])
+                    for s, st in states.items()
+                    for k, v in vars(st).items())
+        with open(os.path.join(tmp, "one_rank.json"), "w") as fh:
+            json.dump({"slots": mesh.shape["sp"], "band_launches": launches,
+                       "bit_equal": equal, "shape": [600, 136, 68]}, fh)
+        torch.distributed.destroy_process_group()
+        return 0
+    out = {"digests": {}}
+    # (a) the band sweeps at 136×68×600
+    cube = band_cube()
+    states, launches = band_runs(mesh, cube)
+    out["band"] = {"shape": list(cube.shape), "sweeps": {"mh": 2, "gibbs": 1},
+                   "band_launches": launches, "bit_equal": {
+                       s: all(torch.equal(v.cpu(), reference["band"][s][k])
+                              for k, v in vars(st).items())
+                       for s, st in states.items()}}
+    out["digests"].update({f"band_{s}": digest(st)
+                           for s, st in states.items()})
+    # (c) 2 chains on a 2 x 1 mesh, one chain row per rank
+    problem = sm.make_problem(cube, d3.MUSE(), sm.RunConfig(seed=0))
+    chains0 = ch.init_chain_states(problem, 2)
+    mesh2 = Mesh(mesh.devices.reshape(2, 1), ("ch", "sp"),
+                 ranks=mesh.ranks.reshape(2, 1))
+    mc = ch.run_chains(problem, 2, 2, mesh=mesh2, states=chains0,
+                       axis_name="ch", spatial_axis="sp").result.state
+    alone = [ks.run_sweeps_kernel_sharded(
+        problem, ch.select_chains(chains0, i), 2, Mesh([dev], ("sp",))).state
+        for i in range(2)]
+    out["chains"] = {"shape": list(cube.shape), "mesh": "2 x 1", "sweeps": 2,
+                     "chain_alone_bit_equal": [
+                         all(torch.equal(getattr(mc, k)[i], getattr(a, k))
+                             for k in vars(a)) for i, a in enumerate(alone)],
+                     "chains_differ": not torch.equal(mc.clean[0],
+                                                      mc.clean[1])}
+    out["digests"]["chains"] = digest(mc)
+    del cube, problem, chains0, mc, alone, states
+    # (d) the direct draws and the MAP at the bench cube
+    got, want = direct_runs(mesh), reference["direct"]
+    errs = {k: rel_err(v, want["state"][k]) for k, v in got["state"].items()
+            if v.is_floating_point() and v.dim()
+            and bool(want["state"][k].any())}
+    out["digests"]["direct"] = digest(got["state"])
+    out["digests"]["map"] = digest(got["map_x"])
+    out["direct"] = {
+        **{k: v for k, v in got.items() if k not in ("state", "map_x")},
+        "iterations_equal": got["iterations_per_draw"]
+        == want["iterations_per_draw"],
+        "state_bit_equal": all(torch.equal(v, want["state"][k])
+                               for k, v in got["state"].items()),
+        "state_rel_err": max(errs.values()),
+        "map_iterations_equal": got["map_iterations"]
+        == want["map_iterations"],
+        "map_bit_equal": torch.equal(got["map_x"], want["map_x"]),
+        "map_rel_err": rel_err(got["map_x"], want["map_x"])}
+    del got
+    # (b) the full field: the default MH flow (8 sweeps, the pass), gibbs 3
+    out["field"] = {}
+    cube = field_cube()
+    for label, sampler, n in (("mh", "mh", 8), ("gibbs", "gibbs", 3)):
+        out["field"][label] = field_run(cube, sampler, n, mesh,
+                                        reference["field"][
+                                            "D2" if label == "mh"
+                                            else "gibbs_D2"])
+        out["digests"][f"field_{label}"] = out["field"][label]["digest"]
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def field_run(cube, sampler, n, mesh, want_digest):
+    """(b) on one rank: ``Run(spatial_mesh=global mesh)`` of ``n`` sweeps
+    in the default flow, with CUDA events around every band launch of the
+    run, the host clock around every strip exchange (``ppermute``) and
+    every gather of the segment's end (``mesh.gather``), both synchronised
+    on entry; its final state's digest against the one-process D = 2
+    run's."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = d3.Run(cube, d3.MUSE(), max_iterations=n, burn_in=n // 2, seed=0,
+                 sampler=sampler, spatial_mesh=mesh)
+    run.states
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    events, strips, gathers = [], [], []
+    band_sweep, ppermute, gather = tl.band_sweep, ks.ppermute, pm.gather
+
+    def timed_band(k, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        band_sweep(k, *args)
+        end.record()
+        events.append((start, end))
+
+    def host_timed(fn, log):
+        def wrapped(parts, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn(parts, *args, **kw)
+            torch.cuda.synchronize()
+            log.append(((time.perf_counter() - t) * 1e3, sum(
+                p.numel() * p.element_size() for p in parts
+                if p is not None)))
+            return got
+        return wrapped
+
+    reset_launches()
+    tl.band_sweep = timed_band
+    ks.ppermute = host_timed(ppermute, strips)
+    pm.gather = host_timed(gather, gathers)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run(n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        tl.band_sweep, ks.ppermute, pm.gather = band_sweep, ppermute, gather
+    launches = band_counter(sampler).launches
+    peak = torch.cuda.max_memory_allocated()
+    got_digest = digest(run.states)
+    consistency = chi2_consistency(run)
+    band_ms = sum(s.elapsed_time(e) for s, e in events)
+    del run
+    torch.cuda.empty_cache()
+    return {"shape": list(cube.shape), "sweeps": n,
+            "band_launches": launches, "setup_s": setup_s,
+            "sweeps_per_sec": n / dt,
+            "band_launches_ms_per_sweep": band_ms / n,
+            "strip_exchanges": len(strips),
+            "strip_exchange_ms": sum(t for t, _ in strips) / max(
+                len(strips), 1),
+            "strip_exchange_bytes_sent": sum(b for _, b in strips) / max(
+                len(strips), 1),
+            "strip_exchange_ms_per_sweep": sum(t for t, _ in strips) / n,
+            "segment_end_gathers": len(gathers),
+            "segment_end_gather_ms": sum(t for t, _ in gathers),
+            "segment_end_gather_bytes_held": sum(b for _, b in gathers),
+            "peak_gb": peak / 1e9, "chi2_consistency": consistency,
+            "digest": got_digest,
+            "digest_equal_one_process": got_digest == want_digest}
 
 
 class WarningCounts(logging.Handler):
@@ -2865,6 +3353,7 @@ def main() -> int:
     direct_sharded["field"] = phase_direct_sharded_field(cube,
                                                          direct["field"])
     del cube, direct["field"]["map_x"]
+    multihost = phase_multihost(sharded_field, smi)
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
@@ -2905,7 +3394,17 @@ def main() -> int:
                 "band_max_abs_err_600x136x68":
                     sharded[sampler]["max_abs_err"],
                 "band_plain_ms_per_sweep_600x136x68":
-                    sharded[sampler]["plain_ms"]}
+                    sharded[sampler]["plain_ms"],
+                "multihost_band_launches_per_rank": [
+                    r["field"][sampler]["band_launches"]
+                    for r in multihost["ranks"]],
+                "multihost_band_launches_path": "multihost (b), Run("
+                f"spatial_mesh=global_mesh()), sampler={sampler!r}, 2 ranks "
+                f"on cuda:0 ({multihost['backend']}), "
+                f"{multihost['ranks'][0]['field'][sampler]['sweeps']} sweeps",
+                "multihost_band_launches_ms_per_sweep_per_rank": [
+                    r["field"][sampler]["band_launches_ms_per_sweep"]
+                    for r in multihost["ranks"]]}
 
     # every entry's launches, ms and bound_ms come from the one path that
     # launches it (its ms between CUDA events on that path's state);
@@ -3124,6 +3623,17 @@ def main() -> int:
             "launches": direct["field"]["solve_launches"],
             "launches_path": "direct full field (1 map_estimate, 2 draws)"},
         "sharded_launches": direct_sharded["path"]["launches"],
+        "multihost_launches_per_rank": [
+            r["direct"]["solve_launches"] for r in multihost["ranks"]],
+        "multihost_call_ms_per_rank": [
+            r["direct"]["solve_call_ms"] for r in multihost["ranks"]],
+        "multihost_call_ms_shape": multihost["ranks"][0]["direct"][
+            "solve_shape"],
+        "multihost_launches_path": "multihost (d), Run(sampler='direct', "
+                                   "spatial_mesh=global_mesh()), bench cube, "
+                                   f"{MULTIHOST_DRAWS} draws, 2 ranks on "
+                                   "cuda:0: one launch per rank and "
+                                   "preconditioner application",
         "sharded_launches_path": "direct_sharded (Run(sampler='direct', "
                                  "spatial_mesh=Mesh([cuda:0] * 2)), bench "
                                  f"cube, {direct_sharded['path']['draws']} "
@@ -3187,4 +3697,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost"]:
+        role, rank, world, backend, tmp = sys.argv[2:7]
+        sys.exit(multihost_worker(role, int(rank), int(world), backend, tmp))
     sys.exit(main())

@@ -85,16 +85,28 @@ def effective_sample_size(traces) -> float:
 
 def _fieldwise(fn, items):
     """``fn`` of each field's values across ``items`` (dataclasses of
-    tensors, nested ones recursed), as a dataclass of the same type."""
-    first = items[0]
+    tensors, nested ones recursed; a None item gives None values), as a
+    dataclass of the same type."""
+    first = next(it for it in items if it is not None)
     out = {}
     for fld in dataclasses.fields(first):
-        vals = [getattr(it, fld.name) for it in items]
+        vals = [None if it is None else getattr(it, fld.name) for it in items]
         out[fld.name] = (
-            _fieldwise(fn, vals) if dataclasses.is_dataclass(vals[0])
+            _fieldwise(fn, vals)
+            if dataclasses.is_dataclass(getattr(first, fld.name))
             else fn(vals)
         )
     return type(first)(**out)
+
+
+def gather_chains(groups, slots, device):
+    """Chain-stacked dataclasses, one per slot of ``slots``
+    (``parallel.mesh.Slots``; None where another rank holds it), joined
+    along the chain axis on ``device`` on every rank of ``slots``."""
+    from .parallel import mesh as pm
+
+    return _fieldwise(lambda vals: pm.gather(vals, device, 0, slots.ranks),
+                      groups)
 
 
 def stack_chains(items):
@@ -304,7 +316,10 @@ def _run_chains_mesh(problem, n_chains, n_sweeps, mesh, states, axis_name):
                          f"mesh's {axis_name!r} size {D}")
     per = n_chains // D
     results = []
-    for d, dev in enumerate(devices):
+    for d, (dev, mine) in enumerate(zip(devices, devices.local())):
+        if not mine:                     # another rank runs this group
+            results.append(None)
+            continue
         p_d = problem if dev == problem.device else sm.cached(
             problem, ("on", str(dev)), lambda: problem.to(dev))
         group = to_device(select_chains(states, slice(d * per, (d + 1) * per)),
@@ -313,7 +328,8 @@ def _run_chains_mesh(problem, n_chains, n_sweeps, mesh, states, axis_name):
             _run_chains_local(p_d, per, n_sweeps, group).result,
             problem.device))
     return MultiChainResult(result=results[0] if D == 1
-                            else _fieldwise(torch.cat, results))
+                            else gather_chains(results, devices,
+                                               problem.device))
 
 
 def _run_chains_local(problem, n_chains, n_sweeps, states):

@@ -481,6 +481,10 @@ class VectorOps:
              value: float = 1.0) -> torch.Tensor:
         return y.addcmul_(v, s, value=value)
 
+    def dot_norm(self, a, b):
+        """(a·b, ‖a‖) — one exchange where the vectors span ranks."""
+        return self.dot(a, b), self.norm(a)
+
 
 LOCAL = VectorOps()
 
@@ -497,9 +501,8 @@ def pcg(A, Minv, b, tol: float, maxiter: int,
     x = ops.map(torch.zeros_like, b)
     r = ops.map(torch.clone, b)
     z = Minv(r)
-    rz = ops.dot(r, z)
+    rz, rnorm = ops.dot_norm(r, z)
     pvec = z
-    rnorm = ops.norm(r)
     it = 0
     zero = torch.zeros_like(rz)
     while it < maxiter and rnorm > tol * bnorm:
@@ -511,11 +514,10 @@ def pcg(A, Minv, b, tol: float, maxiter: int,
         ops.axpy(r, alpha, Ap, -1.0)
         del Ap
         z = Minv(r)
-        rz_new = ops.dot(r, z)
+        rz_new, rnorm = ops.dot_norm(r, z)
         beta = torch.where(rz <= 0, zero, rz_new / torch.clamp(rz, min=1e-30))
         pvec = ops.axpy(z, beta, pvec)
         rz = rz_new
-        rnorm = ops.norm(r)
         it += 1
     return PCGResult(x=x, iterations=it, rel_residual=rnorm / bnorm)
 

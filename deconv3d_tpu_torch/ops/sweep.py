@@ -49,6 +49,7 @@ import torch
 from .. import chains as ch
 from .. import convolve as cv
 from .. import sampler as sm
+from ..parallel import mesh as pm
 from . import banded, philox, resident, truncnorm
 
 
@@ -718,12 +719,24 @@ def cut_state(s: sm.SamplerState, f: int, by0: int, nyb: int,
 
 
 def shard_problems(p: sm.Problem, devices: Sequence[torch.device]):
-    """The D shard problems of ``p`` on ``devices`` (:func:`cut_problem`),
-    built once per problem and device list (``sampler.cached``)."""
+    """The D shard problems of ``p`` on ``devices`` (:func:`cut_problem`;
+    None for the slots of other ranks when ``devices`` is a
+    ``parallel.mesh.Slots``), built once per problem and slots
+    (``sampler.cached``)."""
     D = len(devices)
     nyl = p.ny // D
-    return sm.cached(p, ("shards", tuple(map(str, devices))), lambda: [
-        cut_problem(p, d * nyl, nyl, dev) for d, dev in enumerate(devices)])
+    mine = _mine(devices)
+    return sm.cached(p, ("shards", tuple(map(str, devices)),
+                         getattr(devices, "ranks", None)), lambda: [
+        cut_problem(p, d * nyl, nyl, dev) if m else None
+        for d, (dev, m) in enumerate(zip(devices, mine))])
+
+
+def _mine(devices) -> List[bool]:
+    """Per slot of ``devices``: does this process own it (a plain device
+    list is all this process's)?"""
+    return devices.local() if hasattr(devices, "local") else [True] * len(
+        devices)
 
 
 def overlap_join(blocks: Sequence[torch.Tensor], f: int,
@@ -829,13 +842,18 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     per-spaxel outputs of the other rows stay 0).
 
     ``devices`` (the callers in ``parallel/``): the state's block rows cut
-    into ``len(devices)`` shards (:func:`cut_state`, :func:`shard_problems`), shard d's segment layout on
-    ``devices[d]``, and every sweep ``make_sweep(shards)(sweep, adapt,
-    uniforms, out_a, out_b)`` on the shards' lists (each shard's rows of
-    the field's uniforms — the kernels draw their own —, and of the
-    outputs); the outputs gathered in the field's row order, the
-    accumulators kept per shard, the flux summed over the shards' sums,
-    the new state in the standard layout on the problem's device."""
+    into ``len(devices)`` shards (:func:`cut_state`,
+    :func:`shard_problems`), shard d's segment layout on ``devices[d]``,
+    and every sweep ``make_sweep(shards)(sweep, adapt, uniforms, out_a,
+    out_b)`` on the shards' lists (each shard's rows of the field's
+    uniforms — the kernels draw their own —, and of the outputs).  Where
+    ``devices`` is a ``parallel.mesh.Slots`` whose slots other ranks own,
+    this process builds and sweeps its own shards only (the others' entries
+    of those lists are None).  After the sweeps the outputs are gathered in
+    the field's row order, the flux summed over the shards' sums in slot
+    order, and the new state in the standard layout joined on the
+    problem's device — on every rank, bit-equal to the one-process
+    segment."""
     p, cfg = problem, problem.config
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
@@ -869,6 +887,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     dt, f32 = p.data_pad.dtype, torch.float32
     layout = dict(kernel=counter is not None, tile=tile, classic=classic,
                   waves=waves, stages=stages, lam_b=lam_b, rows=rows, gy0=gy0)
+    ranks = None
     if devices is None:
         devices, parts = [dev], [states]
         ks = [sweep_state(p, states, mode, **layout)]
@@ -878,12 +897,15 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                              f"mesh size {len(devices)}")
         if record_uniforms:
             raise ValueError("a sharded segment records no uniforms")
+        ranks = getattr(devices, "ranks", None)
         nyl = p.ny // len(devices)
-        parts = [cut_state(states, f, d * nyl, nyl, d_)
-                 for d, d_ in enumerate(devices)]
-        ks = [sweep_state(sp, st, mode, **layout)
+        # this process's shards; None for the slots of other ranks
+        parts = [cut_state(states, f, d * nyl, nyl, d_) if m else None
+                 for d, (d_, m) in enumerate(zip(devices, _mine(devices)))]
+        ks = [None if st is None else sweep_state(sp, st, mode, **layout)
               for sp, st in zip(shard_problems(p, devices), parts)]
     D, nijl = len(ks), nij // len(ks)
+    local = [d for d, k in enumerate(ks) if k is not None]
     # draws in torch: the plain sweeps and gibbs_block's
     plain_draws = counter is None or mode == "gibbs_block"
     sweep = (make_sweep or _sweep_of(mode, counter))(ks)
@@ -891,7 +913,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     adapt = sm.adapt_schedule(ids, cfg).tolist()
     keep = sm.keep_schedule(ids, cfg).tolist()
 
-    Yc, Xc, BYl = p.Yc, p.Xc, ks[0].ny * f
+    Yc, Xc, BYl = p.Yc, p.Xc, ks[local[0]].ny * f
     mon = p.monitor_idx
     # monitored voxels: (shard, the voxel's index in its λ-last clean)
     lam, yy, xx = (mon // (Yc * Xc), (mon % (Yc * Xc)) // Xc, mon % Xc)
@@ -899,23 +921,30 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     mon_at = [(torch.nonzero(owner == d).reshape(-1),
                (((yy - d * BYl) * Xc + xx) * L + lam)[owner == d])
               for d in range(D)]
-    sum_clean = [_lambda_last(st.sum_clean.to(dt)) for st in parts]
+    sum_clean = [None if st is None else _lambda_last(st.sum_clean.to(dt))
+                 for st in parts]
     sum_sq = [_lambda_last(st.sum_sq.to(dt)) if cfg.track_variance
-              else None for st in parts]
+              and st is not None else None for st in parts]
     del parts
     chi2, chi2c = states.chi2.clone(), states.chi2_comp.clone()
     n_kept = states.n_kept.clone()
 
-    accept = torch.zeros((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
-    dchi = torch.zeros((n_sweeps, C, n_colors, nij), dtype=dt, device=dev)
+    # every sweep's per-(color, spaxel) outputs, flux partial sums and
+    # monitored voxels, per shard; gathered in the field's order after the
+    # sweeps (the sweeps read none of them)
+    outs = [None if k is None else tuple(
+        torch.zeros((n_sweeps, C, n_colors, nijl), dtype=dt,
+                    device=dev if D == 1 else devices[d]) for _ in range(2))
+        for d, k in enumerate(ks)]
+    flux_sh = [[] if k is not None else None for k in ks]
+    mon_sh = [[] if k is not None else None for k in ks]
     u_rec = (
         torch.empty((n_sweeps, C, n_colors, nij, *per), dtype=dt, device=dev)
         if record_uniforms else None
     )
     draws = {"mh": philox.sweep_uniforms, "gibbs": philox.gibbs_sweep_uniforms,
              "gibbs_block": philox.block_sweep_uniforms}[mode]
-    keys = ks[0].keys
-    chi2_t, flux_t, mon_tr = [], [], []
+    keys = ks[local[0]].keys
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
         u_out = None if u_rec is None else u_rec[s]
@@ -930,18 +959,46 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
             if u_out is not None:
                 u_out.copy_(u)
         if D == 1:
-            us, outs_a, outs_b = [u], [accept[s]], [dchi[s]]
+            us = [u]
         else:
-            us = [None if u is None
+            us = [None if u is None or k is None
                   else u[:, :, d * nijl:(d + 1) * nijl].to(d_).contiguous()
-                  for d, d_ in enumerate(devices)]
-            outs_a = [torch.zeros((C, n_colors, nijl), dtype=dt, device=d_)
-                      for d_ in devices]
-            outs_b = [torch.zeros_like(o) for o in outs_a]
-        sweep(sweep0 + s, adapt[s], us, outs_a, outs_b, u_out)
-        if D > 1:
-            accept[s] = torch.cat([o.to(dev) for o in outs_a], dim=2)
-            dchi[s] = torch.cat([o.to(dev) for o in outs_b], dim=2)
+                  for d, (d_, k) in enumerate(zip(devices, ks))]
+        sweep(sweep0 + s, adapt[s], us,
+              [None if o is None else o[0][s] for o in outs],
+              [None if o is None else o[1][s] for o in outs], u_out)
+        if keep[s]:
+            for d in local:
+                k = ks[d]
+                sum_clean[d] += k.clean
+                if cfg.track_variance:
+                    sum_sq[d] += k.clean * k.clean
+            n_kept = n_kept + 1.0
+        for d in local:
+            k = ks[d]
+            flux_sh[d].append(torch.sum(k.clean * k.valid[..., None],
+                                        dim=(1, 2, 3), dtype=f32).to(dev))
+            slots, flat = mon_at[d]
+            mon_sh[d].append(k.clean.reshape(C, -1)[
+                :, flat.to(k.clean.device)].to(dev))
+
+    def joined(tensors, dim):
+        """The shards' tensors concatenated along ``dim`` on ``dev``, on
+        every rank."""
+        if D == 1:
+            return tensors[0]
+        return pm.gather(tensors, dev, dim, ranks)
+
+    accept = joined([None if o is None else o[0] for o in outs], 3)
+    dchi = joined([None if o is None else o[1] for o in outs], 3)
+    # the flux: the shards' partial sums added in slot order
+    flux_all = pm.slot_sum([None if t is None else torch.stack(t)
+                            for t in flux_sh], ranks)
+    mon_all = joined([None if t is None else torch.stack(t) for t in mon_sh],
+                     2)
+    order = torch.cat([slots for slots, _ in mon_at])
+    chi2_t, flux_t, mon_tr = [], [], []
+    for s in range(n_sweeps):
         # committed Δχ² summed in a fixed order, then the Kahan update
         committed = dchi[s].double()
         if mode == "mh":
@@ -950,23 +1007,10 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         t = chi2 + y
         chi2c = (t - chi2) - y
         chi2 = t
-        if keep[s]:
-            for d, k in enumerate(ks):
-                sum_clean[d] += k.clean
-                if cfg.track_variance:
-                    sum_sq[d] += k.clean * k.clean
-            n_kept = n_kept + 1.0
         chi2_t.append(chi2)
-        flux = None
-        for k in ks:
-            part = torch.sum(k.clean * k.valid[..., None], dim=(1, 2, 3),
-                             dtype=f32).to(dev)
-            flux = part if flux is None else flux + part
-        flux_t.append(flux)
+        flux_t.append(flux_all[s])
         vals = torch.empty((C, mon.numel()), dtype=dt, device=dev)
-        for k, (slots, flat) in zip(ks, mon_at):
-            vals[:, slots] = k.clean.reshape(C, -1)[
-                :, flat.to(k.clean.device)].to(dev)
+        vals[:, order] = mon_all[s]
         mon_tr.append(vals)
 
     n_valid = float(p.valid.sum())
@@ -986,23 +1030,22 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
 
     def rows_of(tensors):
         """The shards' λ-last blocks as one λ-first tensor on ``dev``."""
-        if D == 1:
-            return _lambda_first(tensors[0])
-        return torch.cat([_lambda_first(t).to(dev) for t in tensors], dim=-2)
+        return joined([None if t is None else _lambda_first(t)
+                       for t in tensors], -2)
 
-    if D == 1:
-        resid = _lambda_first(ks[0].resid[..., :L])
-    else:
-        resid = overlap_join([_lambda_first(k.resid[..., :L]) for k in ks],
-                             f, dev)
+    # the residual: every shard's owned rows, then the field's tail pad
+    # rows, which only the last shard holds
+    resid = joined([None if k is None else _lambda_first(k.resid[..., :L])
+                    .narrow(-2, 0, BYl + (f - 1 if d == D - 1 else 0))
+                    for d, k in enumerate(ks)], -2)
     new_state = sm.SamplerState(
-        clean=rows_of([k.clean for k in ks]),
+        clean=rows_of([None if k is None else k.clean for k in ks]),
         resid=resid,
         key=states.key.clone(),
         chi2=chi2,
         chi2_comp=chi2c,
-        log_scale=(ks[0].log_scale if D == 1 else torch.cat(
-            [k.log_scale.to(dev) for k in ks], dim=-2)),
+        log_scale=joined([None if k is None else k.log_scale for k in ks],
+                         -2),
         n_accept=states.n_accept + n_acc,
         n_propose=states.n_propose + n_prop,
         sum_clean=rows_of(sum_clean),

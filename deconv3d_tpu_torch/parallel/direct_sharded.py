@@ -36,6 +36,15 @@ hand, on the slots of a ``parallel.Mesh`` axis:
     ``rows``), so a sharded chain draws the numbers of an unsharded one.
     The state enters and leaves each segment whole on the problem's
     device; only the CG vectors and the FFT transients are sharded.
+  * Ranks.  The slots may belong to several ranks
+    (``parallel/multihost.py``'s global mesh, as the JAX package's GSPMD
+    program runs over a global mesh): a rank holds and computes its own
+    slots' blocks only (the others' entries are None), the slabs' halo
+    rows, the all-to-alls and the gathers cross the ranks
+    (``mesh.route``), each rank launches the solve once per slot of its
+    own, and the dots are the slots' partial dots added in slot order on
+    every rank, so the ranks iterate alike and end bit-equal to the
+    one-process mesh.
 
 Not ported: ``_PROGRAM_CACHE``, ``_placed`` and ``_out_shardings`` (jit
 and GSPMD machinery).  Where Y does not divide by D the JAX package
@@ -55,6 +64,7 @@ from .. import convolve as cv
 from .. import sampler as sm
 from ..ops import banded, philox
 from ..ops import direct as _dr
+from . import mesh as pm
 from .mesh import Mesh, all_to_all_ragged, slot_sum
 
 
@@ -76,27 +86,41 @@ def _cut(n: int, d: int) -> List[Tuple[int, int]]:
     return [(int(b - k), int(b)) for k, b in zip(sizes, np.cumsum(sizes))]
 
 
+def _each(fn, *vecs):
+    """``fn`` slot by slot over sharded vectors: None where this process
+    holds no part."""
+    return [None if args[0] is None else fn(*args) for args in zip(*vecs)]
+
+
 class ShardOps(_dr.VectorOps):
     """``pcg``'s vector operations on sharded vectors: part by part; a dot
-    is the slots' partial dots added in slot order on the first slot."""
+    is the slots' partial dots added in slot order (``ranks``: the slots'
+    owners; across ranks every rank adds the same parts in that order)."""
 
-    @staticmethod
-    def map(fn, *vecs):
-        return [fn(*parts) for parts in zip(*vecs)]
+    def __init__(self, ranks=None):
+        self.ranks = ranks
 
-    @staticmethod
-    def dot(a, b) -> torch.Tensor:
-        return slot_sum([torch.dot(x.reshape(-1), y.reshape(-1))
-                         for x, y in zip(a, b)])
+    def map(self, fn, *vecs):
+        return _each(fn, *vecs)
 
-    @staticmethod
-    def norm(a) -> float:
-        return float(torch.sqrt(ShardOps.dot(a, a)))
+    def dot(self, a, b) -> torch.Tensor:
+        return slot_sum(_each(lambda x, y: torch.dot(x.reshape(-1),
+                                                     y.reshape(-1)), a, b),
+                        self.ranks)
 
-    @staticmethod
-    def axpy(y, s, v, value: float = 1.0):
-        return [y_.addcmul_(v_, s.to(y_.device), value=value)
-                for y_, v_ in zip(y, v)]
+    def norm(self, a) -> float:
+        return float(torch.sqrt(self.dot(a, a)))
+
+    def dot_norm(self, a, b):
+        """(a·b, ‖a‖) from one slot-order sum of the slots' [a·b, a·a]."""
+        both = slot_sum(_each(lambda x, y: torch.stack([
+            torch.dot(x.reshape(-1), y.reshape(-1)),
+            torch.dot(x.reshape(-1), x.reshape(-1))]), a, b), self.ranks)
+        return both[0], float(torch.sqrt(both[1]))
+
+    def axpy(self, y, s, v, value: float = 1.0):
+        return _each(lambda y_, v_: y_.addcmul_(v_, s.to(y_.device),
+                                                value=value), y, v)
 
 
 SHARDED = ShardOps()
@@ -117,21 +141,20 @@ class Shards:
             raise ValueError(f"{p.Y} spaxel rows cannot be cut into {D} "
                              "row blocks")
         self.devices = list(devices)
+        # the slots' owners: this process's slots only are built here
+        self.ranks = getattr(devices, "ranks", (pm.process_rank(),) * D)
+        self.mine = [r == pm.process_rank() for r in self.ranks]
+        self.ops = ShardOps(self.ranks)
         self.L, self.Y, self.X = p.L, p.Y, p.X
         self.h = p.f // 2
         self.dtype = p.data_pad.dtype
         self.rows = _cut(p.Y, D)
         self.cols = _cut(p.X // 2 + 1, D)
         w, d, free = _dr._w_in(p), _dr._d_in(p), _dr._free_mask(p)
-        self.w = [w[:, a:b].to(dev) for (a, b), dev in zip(self.rows,
-                                                           devices)]
-        self.d = [d[:, a:b].to(dev) for (a, b), dev in zip(self.rows,
-                                                           devices)]
-        self.free = [free[:, a:b].to(dev) for (a, b), dev in zip(self.rows,
-                                                                 devices)]
+        self.w, self.d, self.free = self.cut(w), self.cut(d), self.cut(free)
         mat = _dr._lsf_matrix(p)
         self.lsf, self.lsf_mat = {}, {}
-        for dev in set(self.devices):
+        for dev in {d_ for d_, m in zip(self.devices, self.mine) if m}:
             self.lsf[dev] = p.lsf.to(dev)
             self.lsf_mat[dev] = None if mat is None else mat.to(dev)
         # slab d: rows [y0 − h, y1 + h) = top zeros, pieces (slot, a, b)
@@ -147,27 +170,47 @@ class Shards:
     # -- layout --------------------------------------------------------------
 
     def cut(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """``x`` ``[..., Y, X]`` cut into the slots' row blocks (copies
-        on their devices)."""
-        return [x[..., a:b, :].to(dev, copy=True)
-                for (a, b), dev in zip(self.rows, self.devices)]
+        """``x`` ``[..., Y, X]`` cut into this process's slots' row blocks
+        (copies on their devices; None for the slots of other ranks)."""
+        return [x[..., a:b, :].to(dev, copy=True) if m else None
+                for (a, b), dev, m in zip(self.rows, self.devices,
+                                          self.mine)]
 
-    @staticmethod
-    def gather(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
-        """The slots' row blocks joined on ``device``."""
-        return torch.cat([t.to(device) for t in parts], dim=-2)
+    def gather(self, parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+        """The slots' row blocks joined on ``device`` (on every rank)."""
+        return pm.gather(parts, device, -2, self.ranks)
 
-    def slab(self, parts: Sequence[torch.Tensor], d: int) -> torch.Tensor:
-        """Rows [y0 − h, y1 + h) of the sharded ``parts`` on slot d, from
-        whichever slots own them; zeros past the field's edges."""
-        top, bottom, pieces = self.plan[d]
-        x = parts[d]
-        seq = [parts[e][:, a:b].to(x.device) for e, a, b in pieces]
-        if top:
-            seq.insert(0, x.new_zeros((x.shape[0], top, x.shape[2])))
-        if bottom:
-            seq.append(x.new_zeros((x.shape[0], bottom, x.shape[2])))
-        return torch.cat(seq, dim=1)
+    def slabs(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Per slot of this process, rows [y0 − h, y1 + h) of the sharded
+        ``parts``, from whichever slots (and ranks) own them; zeros past
+        the field's edges."""
+        me = pm.process_rank()
+        if all(self.mine):
+            got = {(e, d): parts[e][:, a:b].to(parts[d].device)
+                   for d, (_, _, pieces) in enumerate(self.plan)
+                   for e, a, b in pieces}
+        else:
+            got = pm.route([
+                (e, d, parts[e][:, a:b] if self.mine[e] else None,
+                 ((parts[d].shape[0], b - a, parts[d].shape[2]),
+                  parts[d].dtype, parts[d].device) if self.mine[d] else None)
+                for d, (_, _, pieces) in enumerate(self.plan)
+                for e, a, b in pieces
+                if e != d and me in (self.ranks[e], self.ranks[d])],
+                self.ranks)
+        out = []
+        for d, (top, bottom, pieces) in enumerate(self.plan):
+            x = parts[d]
+            if x is None:
+                out.append(None)
+                continue
+            seq = [x[:, a:b] if e == d else got[e, d] for e, a, b in pieces]
+            if top:
+                seq.insert(0, x.new_zeros((x.shape[0], top, x.shape[2])))
+            if bottom:
+                seq.append(x.new_zeros((x.shape[0], bottom, x.shape[2])))
+            out.append(torch.cat(seq, dim=1))
+        return out
 
     # -- operators -----------------------------------------------------------
 
@@ -175,36 +218,35 @@ class Shards:
             ) -> List[torch.Tensor]:
         """The per-λ 'same' FSF convolution (``adjoint``: the flipped FSF)
         of a sharded ``[L, Y, X]`` vector, slab by slab."""
-        return [_dr._fsf(problem, self.slab(parts, d), adjoint, self.h)
-                for d in range(len(self.rows))]
+        return _each(lambda slab: _dr._fsf(problem, slab, adjoint, self.h),
+                     self.slabs(parts))
 
     def K(self, problem, c) -> List[torch.Tensor]:
         """K c of a sharded vector (``ops/direct.py::apply_K``)."""
-        return self.fsf(problem, [
-            _dr.lsf_apply(x, self.lsf_mat[x.device], self.lsf[x.device])
-            for x in c])
+        return self.fsf(problem, _each(
+            lambda x: _dr.lsf_apply(x, self.lsf_mat[x.device],
+                                    self.lsf[x.device]), c))
 
     def KT(self, problem, r) -> List[torch.Tensor]:
         """Kᵀ r of a sharded vector (``ops/direct.py::apply_KT``)."""
-        return [_dr.lsf_adjoint(s, self.lsf_mat[s.device], self.lsf[s.device])
-                for s in self.fsf(problem, r, adjoint=True)]
+        return _each(lambda s: _dr.lsf_adjoint(s, self.lsf_mat[s.device],
+                                               self.lsf[s.device]),
+                     self.fsf(problem, r, adjoint=True))
 
     def normal_operator(self, problem, tau: float):
         """A(c) = P (Kᵀ W K + τ I) P c on sharded vectors."""
         def A(c):
-            out = self.KT(problem, [k * w for k, w in zip(
-                self.K(problem, [x * m for x, m in zip(c, self.free)]),
-                self.w)])
+            out = self.KT(problem, _each(torch.mul, self.K(
+                problem, _each(torch.mul, c, self.free)), self.w))
             if tau > 0:
-                out = [o + tau * x for o, x in zip(out, c)]
-            return [o * m for o, m in zip(out, self.free)]
+                out = _each(lambda o, x: o + tau * x, out, c)
+            return _each(torch.mul, out, self.free)
         return A
 
     def mean_rhs(self, problem) -> List[torch.Tensor]:
         """Kᵀ W d on the free voxels, sharded: the MAP's right-hand side."""
-        return [b * m for b, m in zip(
-            self.KT(problem, [d * w for d, w in zip(self.d, self.w)]),
-            self.free)]
+        return _each(torch.mul, self.KT(problem, _each(
+            torch.mul, self.d, self.w)), self.free)
 
 
 def shards(problem, mesh: Mesh, axis_name: Optional[str] = None) -> Shards:
@@ -247,9 +289,10 @@ def _slot_precond(problem, sh: Shards, mode: str, tau_m: float
     Xr = p.X // 2 + 1
     fidx = st.fidx.view(p.Y, Xr, 2)
     return SlotPrecond(
-        mode, R=[st.R.to(dev) for dev in sh.devices],
-        fidx=[fidx[:, a:b].reshape(-1).to(dev)
-              for (a, b), dev in zip(sh.cols, sh.devices)],
+        mode, R=[st.R.to(dev) if m else None
+                 for dev, m in zip(sh.devices, sh.mine)],
+        fidx=[fidx[:, a:b].reshape(-1).to(dev) if m else None
+              for (a, b), dev, m in zip(sh.cols, sh.devices, sh.mine)],
         s_map=None if st.s_map is None else sh.cut(st.s_map))
 
 
@@ -257,15 +300,17 @@ def _precond_apply(sh: Shards, st: SlotPrecond, r) -> List[torch.Tensor]:
     """M⁻¹ r on sharded vectors: rfft over X, all-to-all to kx columns,
     FFT over Y, one solve launch per slot, and back."""
     if st.mode == "jacobi":
-        return [x * g * m for x, g, m in zip(r, st.diag, sh.free)]
+        return _each(lambda x, g, m: x * g * m, r, st.diag, sh.free)
     if st.s_map is not None:
-        r = [s * x for s, x in zip(st.s_map, r)]
+        r = _each(torch.mul, st.s_map, r)
     L = sh.L
-    rows = [torch.fft.rfft(x, dim=-1) for x in r]            # [L, Y_d, Xr]
-    cols = all_to_all_ragged(rows, 2, 1, [b - a for a, b in sh.cols])
+    rows = _each(lambda x: torch.fft.rfft(x, dim=-1), r)      # [L, Y_d, Xr]
+    row_sizes = [b - a for a, b in sh.rows]
+    col_sizes = [b - a for a, b in sh.cols]
+    cols = all_to_all_ragged(rows, 2, 1, col_sizes, sh.ranks, row_sizes)
     del rows
-    spec = []
-    for c, R, fidx in zip(cols, st.R, st.fidx):               # [L, Y, Xr_e]
+
+    def solve(c, R, fidx):                                    # [L, Y, Xr_e]
         if c.shape[2]:
             # the FFT over a middle axis may hand back permuted strides:
             # the solve runs in place on the λ-major real view
@@ -273,14 +318,17 @@ def _precond_apply(sh: Shards, st: SlotPrecond, r) -> List[torch.Tensor]:
             v = torch.view_as_real(c).view(L, -1)
             banded.banded_solve(R, fidx, v, out=v)
             c = torch.fft.ifft(c, dim=1)
-        spec.append(c)
+        return c
+
+    spec = _each(solve, cols, st.R, st.fidx)
     del cols
-    rows = all_to_all_ragged(spec, 1, 2, [b - a for a, b in sh.rows])
+    rows = all_to_all_ragged(spec, 1, 2, row_sizes, sh.ranks, col_sizes)
     del spec
-    out = [torch.fft.irfft(x, n=sh.X, dim=-1).to(sh.dtype) for x in rows]
+    out = _each(lambda x: torch.fft.irfft(x, n=sh.X, dim=-1).to(sh.dtype),
+                rows)
     if st.s_map is not None:
-        out = [s * x for s, x in zip(st.s_map, out)]
-    return [x * m for x, m in zip(out, sh.free)]
+        out = _each(torch.mul, st.s_map, out)
+    return _each(torch.mul, out, sh.free)
 
 
 def slot_precond(problem, mesh: Mesh, axis_name=None,
@@ -335,22 +383,25 @@ def _sharded_draw(problem, mesh: Mesh, axis_name: str):
     def draw(key, sweep, z, z2):
         streams = (philox.STREAM_DRAW_U1, philox.STREAM_DRAW_U2)
         b = [dd * w + torch.sqrt(w) * normals(key, sweep, streams, z, d)
+             if dd is not None else None
              for d, (dd, w) in enumerate(zip(sh.d, sh.w))]
-        b = [x * m for x, m in zip(sh.KT(p, b), sh.free)]
+        b = _each(torch.mul, sh.KT(p, b), sh.free)
         if tau > 0:
             streams = (philox.STREAM_PRIOR_U1, philox.STREAM_PRIOR_U2)
             b = [x + float(np.sqrt(tau)) * normals(key, sweep, streams, z2,
                                                    d) * m
+                 if x is not None else None
                  for d, (x, m) in enumerate(zip(b, sh.free))]
         res = _dr.pcg(A, Minv, b, cfg.direct_tol, cfg.direct_maxiter,
-                      SHARDED)
+                      sh.ops)
         del b
         kx = sh.K(p, res.x)
-        parts = []
-        for dd, k, w in zip(sh.d, kx, sh.w):
+
+        def chi2_part(dd, k, w):
             r = torch.where(w > 0, dd - k, torch.zeros_like(k))
-            parts.append(torch.sum(r * r * w, dtype=torch.float32))
-        chi2 = slot_sum(parts)
+            return torch.sum(r * r * w, dtype=torch.float32)
+
+        chi2 = slot_sum(_each(chi2_part, sh.d, kx, sh.w), sh.ranks)
         return (_dr.PCGResult(x=sh.gather(res.x, p.device),
                               iterations=res.iterations,
                               rel_residual=res.rel_residual),
@@ -404,9 +455,9 @@ def posterior_mean_sharded(problem, mesh: Mesh,
         A = sh.normal_operator(p, tau)
         M = make_preconditioner(p, mesh, axis_name,
                                 prior_precision=prior_precision)
-        res = _dr.pcg(A, M, sh.mean_rhs(p), tol, maxiter, SHARDED)
+        res = _dr.pcg(A, M, sh.mean_rhs(p), tol, maxiter, sh.ops)
         if p.data_pad.dtype != torch.float64:
-            res = _dr.refine(A, M, res, make64, tol, maxiter, SHARDED)
+            res = _dr.refine(A, M, res, make64, tol, maxiter, sh.ops)
     return _dr.PCGResult(x=sh.gather(res.x, p.device),
                          iterations=res.iterations,
                          rel_residual=res.rel_residual)

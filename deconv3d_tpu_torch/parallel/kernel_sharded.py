@@ -25,6 +25,16 @@ exchanges per sweep:
     shard's head), then the tail replicas refreshed from their owners'
     final rows, so that they stay bit-equal to them.
 
+Several processes: on a mesh whose slots belong to several ranks
+(``parallel/multihost.py``'s global mesh) each rank launches the bands of
+its own shards, the strip pushes and the tail refresh go through the
+rank-aware ``ppermute``, and every rank ends each segment with the whole
+state, bit-equal to the one-process mesh of the same slots; the
+whole-field steps between segments (χ² rebaseline, coarse pass) run on
+every rank on that same state.  On a (chains, spatial) mesh a rank runs
+the chain rows it holds slots of, and the rows' results are gathered
+along the chain axis.
+
 The band decomposition is a fixed scan order of the same single-site
 updates, so the chain targets the posterior of every other engine.  The
 Philox draws are keyed by the field's spaxel row and the absolute sweep:
@@ -117,50 +127,60 @@ def _check_kernel_shardable(p: sm.Problem, mesh: Mesh, axis_name: str,
     return interior
 
 
-def _band_sweep(plan, mode: str, kernel: bool):
+def _band_sweep(plan, mode: str, kernel: bool, ranks=None):
     """``make_sweep`` of a sharded ``ops.sweep._run_segment``: per shard
     one carried state and a view of it per band (the band's tile, waves
     and rows; the shard's field row ``gy0``), run in the module's scan
-    order."""
+    order on this process's shards (``ranks``: the slots' owners)."""
     def make(ks: List[sw._SweepState]):
-        f = ks[0].f
-        halo, BYl = f - 1, ks[0].ny * f
-        nyl, D = ks[0].ny, len(ks)
-        bands = [[dataclasses.replace(
-            k, tile=tile_b, rows=(rows0 // f, nyb), gy0=d * nyl,
-            waves=tiled.wave_schedule(nyb // tile_b[0], k.nx // tile_b[1]),
+        mine = [d for d, k in enumerate(ks) if k is not None]
+        f = ks[mine[0]].f
+        halo, BYl = f - 1, ks[mine[0]].ny * f
+        nyl, D = ks[mine[0]].ny, len(ks)
+        bands = {d: [dataclasses.replace(
+            ks[d], tile=tile_b, rows=(rows0 // f, nyb), gy0=d * nyl,
+            waves=tiled.wave_schedule(nyb // tile_b[0],
+                                      ks[d].nx // tile_b[1]),
             wave_tables=None, scratch=None)
-            for (_, rows0, nyb, _, tile_b) in plan] for d, k in enumerate(ks)]
+            for (_, rows0, nyb, _, tile_b) in plan] for d in mine}
+
+        def each(fn, *lists):
+            return [fn(*args) if args[0] is not None else None
+                    for args in zip(*lists)]
 
         def sweep(sweep_abs, adapt, us, outs_a, outs_b, u_out):
             def run(bi):
-                for d in range(D):
+                for d in mine:
                     tiled.band_sweep(bands[d][bi], mode, sweep_abs, adapt,
                                      us[d], outs_a[d], outs_b[d], kernel)
 
             if len(plan) == 3:
                 run(1)                 # interior first: no shared rows
-            old_top = [k.resid[:, :halo].clone() for k in ks]
+            old_top = each(lambda k: k.resid[:, :halo].clone(), ks)
             run(0)                     # tops
             if D > 1 and halo:
                 # my head strip's change belongs on the previous shard's
                 # tail replicas
-                d_top = [o - k.resid[:, :halo] for o, k in zip(old_top, ks)]
-                for k, dn in zip(ks, ppermute(d_top, -1)):
-                    k.resid[:, BYl:] -= dn
-            old_bot = [k.resid[:, BYl:].clone() for k in ks]
+                d_top = each(lambda o, k: o - k.resid[:, :halo], old_top, ks)
+                for k, dn in zip(ks, ppermute(d_top, -1, ranks)):
+                    if k is not None:
+                        k.resid[:, BYl:] -= dn
+            old_bot = each(lambda k: k.resid[:, BYl:].clone(), ks)
             run(len(plan) - 1)         # bottoms: see the tops' pushes
             if D > 1 and halo:
-                d_bot = [o - k.resid[:, BYl:] for o, k in zip(old_bot, ks)]
-                for k, dp in zip(ks, ppermute(d_bot, 1)):
-                    k.resid[:, :halo] -= dp
+                d_bot = each(lambda o, k: o - k.resid[:, BYl:], old_bot, ks)
+                for k, dp in zip(ks, ppermute(d_bot, 1, ranks)):
+                    if k is not None:
+                        k.resid[:, :halo] -= dp
                 # the lumped strip changes land within an ulp of the
                 # owners' own per-color updates: refresh the tail replicas
                 # from the owners' final head rows (the last shard's tail
                 # rows are the field's pad rows and keep their values)
-                heads = ppermute([k.resid[:, :halo] for k in ks], -1)
+                heads = ppermute(each(lambda k: k.resid[:, :halo], ks), -1,
+                                 ranks)
                 for k, h in zip(ks[:-1], heads[:-1]):
-                    k.resid[:, BYl:] = h
+                    if k is not None:
+                        k.resid[:, BYl:] = h
         return sweep
     return make
 
@@ -178,7 +198,9 @@ def segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     return sw._run_segment(problem, state, n_sweeps, uniforms, False, mode,
                            counter=counter if kernel else None,
                            tile=plan[0][4], devices=devices,
-                           make_sweep=_band_sweep(plan, mode, kernel))
+                           make_sweep=_band_sweep(
+                               plan, mode, kernel,
+                               getattr(devices, "ranks", None)))
 
 
 def run_sweeps_kernel_sharded(
@@ -241,11 +263,31 @@ def run_chains_kernel_sharded(
     if states is None:
         states = ch.init_chain_states(p, n_chains)
     rows = mesh.rows(axis_name)
+    columns = mesh.rows(chain_axis)
 
     def inner(s, k):
-        return ch.stack_chains([
-            segment(p, ch.select_chains(s, i), k, rows[i], interior).result
-            for i in range(n_chains)])
+        # this process's chain rows; every chain on every rank after
+        results = [ch.stack_chains([segment(
+            p, ch.select_chains(s, i), k, rows[i], interior).result])
+            if any(rows[i].local()) else None for i in range(n_chains)]
+        return _join_rows(results, columns, p.device)
 
     return ch.MultiChainResult(result=sm.interleaved(p, states, n_sweeps,
                                                      inner))
+
+
+def _join_rows(results, columns, device):
+    """The chain rows' results (each whole on its row's ranks, None on the
+    others) joined along the chain axis on every rank of the mesh: one
+    gather over each column of the chain axis that reaches a rank the
+    earlier ones did not."""
+    reached, joined = set(), None
+    for col in columns:
+        if set(col.ranks) <= reached:
+            continue
+        reached |= set(col.ranks)
+        got = ch.gather_chains([r if mine else None for r, mine in
+                                zip(results, col.local())], col, device) \
+            if any(col.local()) else None
+        joined = joined or got
+    return joined

@@ -6,7 +6,10 @@ color-decomposed sweep runs on every shard.  The state enters and leaves
 every segment whole, on the problem's device, which so holds the whole
 field besides its own shard: D devices share the sweep's work but do not
 lower that device's peak memory (shard states kept across segments are
-still to come).
+still to come).  The slots may belong to several ranks
+(``parallel/multihost.py``'s global mesh): each rank then sweeps its own
+shards, the strip pushes cross the ranks, and every rank ends the segment
+with the whole state (gathered by ``ops/sweep.py`` ``_run_segment``).
 
   * Shard d owns the spaxel block rows [d·nyl, (d+1)·nyl) and holds the
     padded residual rows [d·nyl·f, d·nyl·f + nyl·f + f − 1): the last f − 1
@@ -18,8 +21,9 @@ still to come).
     their patches stay disjoint and the color decomposition holds.
   * After every color each shard's committed patch delta on its first and
     last f − 1 rows goes to its neighbours (``parallel/mesh.py``
-    ``ppermute``) and is subtracted there: the replicas get the very
-    operation their owners got, so they stay bit-equal.
+    ``ppermute``, across ranks where the neighbour is another rank's) and
+    is subtracted there: the replicas get the very operation their owners
+    got, so they stay bit-equal.
 
 Random numbers: every shard reads its rows of the whole field's uniforms
 (Philox keyed by the field's spaxel row, ``ops/philox.py``), so a D-shard
@@ -115,19 +119,22 @@ def edge_deltas(delta: torch.Tensor, c: int, f: int, Wp: int):
     return head, tail
 
 
-def _color_sweep(mode: str):
+def _color_sweep(mode: str, ranks=None):
     """``make_sweep`` of a sharded ``ops.sweep._run_segment`` for the plain
     color step: per color every shard's step, then its head and tail
-    deltas pushed to the neighbours' replicas."""
+    deltas pushed to the neighbours' replicas (``ranks``: the slots'
+    owners; this process steps its own shards)."""
     def make(ks):
-        f = ks[0].f
-        halo, BYl = f - 1, ks[0].ny * f
-        Wp = ks[0].resid.shape[2]
+        mine = [d for d, k in enumerate(ks) if k is not None]
+        f = ks[mine[0]].f
+        halo, BYl = f - 1, ks[mine[0]].ny * f
+        Wp = ks[mine[0]].resid.shape[2]
 
         def sweep(sweep_abs, adapt, us, outs_a, outs_b, u_out):
             for c in range(f * f):
-                heads, tails = [], []
-                for k, u, a, b in zip(ks, us, outs_a, outs_b):
+                heads, tails = [None] * len(ks), [None] * len(ks)
+                for d in mine:
+                    k, u, a, b = ks[d], us[d], outs_a[d], outs_b[d]
                     if mode == "mh":
                         delta = sw._mh_step_torch(k, c, 0, 0, adapt, u, a, b)
                     elif mode == "gibbs":
@@ -136,17 +143,16 @@ def _color_sweep(mode: str):
                         delta = sw._block_step(k, c, u, a, b,
                                                banded.sample_conditional)
                     if halo and len(ks) > 1:
-                        head, tail = edge_deltas(delta, c, f, Wp)
-                        heads.append(head)
-                        tails.append(tail)
-                if not heads:
+                        heads[d], tails[d] = edge_deltas(delta, c, f, Wp)
+                if not halo or len(ks) == 1:
                     continue
                 # the next shard's head delta lands on my tail replicas, the
                 # previous shard's tail delta on my head rows
-                for k, nxt, prv in zip(ks, ppermute(heads, -1),
-                                       ppermute(tails, 1)):
-                    k.resid[:, BYl:] -= nxt
-                    k.resid[:, :halo] -= prv
+                for k, nxt, prv in zip(ks, ppermute(heads, -1, ranks),
+                                       ppermute(tails, 1, ranks)):
+                    if k is not None:
+                        k.resid[:, BYl:] -= nxt
+                        k.resid[:, :halo] -= prv
         return sweep
     return make
 
@@ -181,6 +187,7 @@ def run_sweeps_sharded(problem: sm.Problem, state: sm.SamplerState,
     def inner(s, k):
         return sw._run_segment(problem, s, k, uniforms, False, mode,
                                devices=devices,
-                               make_sweep=_color_sweep(mode)).result
+                               make_sweep=_color_sweep(mode, devices.ranks)
+                               ).result
 
     return sm.interleaved(problem, state, n_sweeps, inner)

@@ -26,9 +26,8 @@ a large blurred field interleaves global coarse pattern passes
 samples until R̂ / ESS targets hold, ``resume`` restarts from a checkpoint
 bit-exactly, ``map_estimate`` solves for the MAP on any run.
 
-Meshes (``parallel.Mesh``, one process driving every slot, as the JAX
-package's single controller does): ``mesh`` splits the chains over its
-``'chains'`` slots; ``spatial_mesh`` (a Mesh, or an int k: the first k
+Meshes (``parallel.Mesh``: device slots, each owned by one process):
+``mesh`` splits the chains over its ``'chains'`` slots; ``spatial_mesh`` (a Mesh, or an int k: the first k
 CUDA devices, ``parallel.make_mesh``, or k slots of the CPU for a CPU run)
 shards ONE chain's sweep along Y — ``'mh'``/``'gibbs'`` on the band
 launches of the tiled kernel (``parallel/kernel_sharded.py``),
@@ -37,7 +36,11 @@ launches of the tiled kernel (``parallel/kernel_sharded.py``),
 (``parallel/sweep_sharded.py``); with ``n_chains > 1`` it is a 2-D
 ``(chains, spatial)`` mesh, one chain per row.
 Several shards on one card: ``spatial_mesh=Mesh([torch.device('cuda:0')] *
-2)``.
+2)``.  Several processes: ``parallel.initialize()`` then
+``spatial_mesh=parallel.global_mesh()`` (or ``mesh=global_mesh('chains')``,
+or a 2-D mesh of its slots) in every rank; every rank runs its own slots
+and holds the whole state and traces after each segment, so
+``diagnostics()`` is the same on every rank (write files from one).
 """
 
 from __future__ import annotations

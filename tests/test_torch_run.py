@@ -233,6 +233,8 @@ def test_import_leaves_jax_out():
         "deconv3d_tpu_torch.parallel.sharded, "
         "deconv3d_tpu_torch.parallel.sweep_sharded, "
         "deconv3d_tpu_torch.parallel.kernel_sharded, "
+        "deconv3d_tpu_torch.parallel.direct_sharded, "
+        "deconv3d_tpu_torch.parallel.multihost, "
         "deconv3d_tpu_torch.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv3d_tpu' or m.startswith('deconv3d_tpu.')]\n"
