@@ -147,7 +147,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    sampler at 300×300×3681 (τ = 1e-3, tol 1e-5, at most 600 iterations):
    the preconditioner resolves to radial, the kernel against its plain
    version on its 256 factors and 90,600 columns (and the Cholesky of its
-   256 × 3681 bands), one ``map_estimate`` and
+   256 × 3681 bands), each beside its library yardstick where the dense
+   factors do not fit at once (``torch.cholesky_solve`` with the columns
+   grouped by factor, ``torch.linalg.cholesky`` 32 systems a call; the
+   calls' times summed), one ``map_estimate`` and
    2 draws (iterations, s per draw, peak memory, a profile of 3 CG
    iterations).
 13b. direct_sharded — the direct sampler and the MAP on a spatial mesh
@@ -191,6 +194,38 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    gathers' ms (host clock, synchronised), sweeps/s, peak GB.  Every
    rank's digests equal rank 0's.
 
+14. statistics — every sweep kernel held to the exact posterior
+   (``deconv3d_tpu_torch/posterior_check.py``, the port's copy of the JAX
+   package's ``tests/test_mcmc_vs_direct.py`` machinery).  (a) The
+   exact-start rows on both 24×10×10 fields (f = 5; Moffat FWHM 0.7″ heavy,
+   0.3″ mild): 32 chains started at exact posterior draws (the JAX
+   package's 8 keys and 24 more; the starts from its start seed's normals
+   through one Cholesky factor) as one batch, gibbs 300 /
+   MH 600 sweeps (heavy) and gibbs 400 / MH 1200 (mild) through the
+   whole-cube engine (the resident kernel where ``plan_slabs`` fits the
+   batch; the plan is printed), classic K1 pinned and K2 in (1, 1) tiles;
+   MH with ``coarse_every=8`` 300 sweeps (the banded draw kernel) and
+   ``gibbs_block`` 80 sweeps (a draw launch per color) on the whole-cube
+   engine; the JAX package's bounds: max |z_mean| < 7, q95 < 4, the
+   variance ratio in (0.08, 8), on the mild field the sharp-variance gates
+   (|z_var| max < 7, q95 < 4.5 over the functionals of ≥ 64 dof; at least
+   50% (gibbs) / 3% (MH) of them sharp); one launch per sweep of the row's
+   kernel.  Each row also prints the figures of its chains 0–7, the JAX
+   package's 8-chain row, which are not held: at 8 chains the rows fail
+   under the null in the JAX package too (``posterior_check.N_CHAINS``).  (b) The analytic toys of ``tests/test_sampler.py`` (8×4×4,
+   float32) through the resident kernel: MH 8000 and gibbs 3000 sweeps,
+   mean |z| < 0.2, max |z| < 1, median σ ratio within 0.1 of 1, MH tail
+   acceptance in (0.15, 0.35).  (c) 24 seeded geometries (L ∈ {9, 37,
+   130}, Y, X ∈ [5, 23], f ∈ {3, 5, 7}, lw ∈ {1, 3, 11}, a masked spaxel,
+   mh / gibbs, positivity, C ∈ {1, 3}): 12 sweeps through the resident
+   kernel (where it fits), classic K1 and K2 in (1, 1) and (1, 2) tiles on
+   their Philox draws — the invariant at 1e-5 of the data's scale, χ²
+   within 1e-5, masked spaxels at 0, clean ≥ 0 with positivity — and each
+   against its plain version on the same Philox draws (MH untied; the first
+   sweep).  One ``{"statistics": ...}`` line; any failure
+   fails the smoke.  ``python3 chip_smoke.py --phase statistics`` runs it
+   alone after the build (so does ``--phase direct_field``).
+
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
 resident, classic K1 and tiled kernels, each with its launches, ms per
@@ -225,9 +260,11 @@ import torch
 import deconv3d_tpu_torch as d3
 from deconv3d_tpu_torch import _build, chains as ch, sampler as sm
 from deconv3d_tpu_torch import convolve as cv
+from deconv3d_tpu_torch import posterior_check as pc
 from deconv3d_tpu_torch.ops import banded as bd, coarse as co
 from deconv3d_tpu_torch.ops import direct as td
 from deconv3d_tpu_torch.ops import philox, sweep as sw, tiled as tl
+from deconv3d_tpu_torch.ops import resident as rs
 from deconv3d_tpu_torch.ops import truncnorm as tn
 from deconv3d_tpu_torch.parallel import Mesh, mesh as pm
 from deconv3d_tpu_torch.parallel import direct_sharded as ds
@@ -1162,16 +1199,55 @@ def device_ms(fn, name, n=20):
     return sum(e.device_time_total for e in keys) / count / 1e3
 
 
-def cholesky_library_ms(bands):
+def cholesky_library_ms(bands, chunk=None):
     """ms of ``torch.linalg.cholesky`` on the dense matrices of ``bands``
     (the same function as the banded Cholesky: its lower factor is Rᵀ),
-    one call after a warm-up, CUDA events."""
-    A = dense_bands(bands)
+    one call after a warm-up, CUDA events.  ``chunk``: that many systems
+    per call (the full field's 256 dense 3681² matrices take 13.9 GB), the
+    calls' times summed; the dense matrices are built outside the timed
+    calls."""
+    chunk = chunk or bands.shape[0]
+    ms = 0.0
     with cv.no_tf32():
-        torch.linalg.cholesky(A)
-        ms = timed(lambda: torch.linalg.cholesky(A))[1]
-    del A
+        for lo in range(0, bands.shape[0], chunk):
+            A = dense_bands(bands[lo:lo + chunk])
+            if lo == 0:
+                torch.linalg.cholesky(A)
+            ms += timed(lambda: torch.linalg.cholesky(A))[1]
+            del A
     return ms
+
+
+#: factors per dense call of the full field's library yardsticks (8 calls
+#: of 1.7 GB each)
+LIBRARY_CHUNK = 32
+
+
+def solve_library_grouped_ms(R, fidx, b, want, chunk=LIBRARY_CHUNK):
+    """ms of ``torch.cholesky_solve`` on the dense factors of ``R`` with
+    the columns of ``b`` ``[L, n]`` grouped by the factor ``fidx`` names
+    (one call per referenced factor on all its columns; the full field's
+    90,600 columns share 256 factors), summed over the calls (CUDA events;
+    the dense factors and the gathered columns are built outside them,
+    ``chunk`` factors at a time, after a warm-up call); and the largest
+    difference from ``want``, the plain version's solution."""
+    groups = [(k, torch.nonzero(fidx == k).reshape(-1))
+              for k in torch.unique(fidx).tolist()]
+    ms, err = 0.0, 0.0
+    with cv.no_tf32():
+        for lo in range(0, len(groups), chunk):
+            part = groups[lo:lo + chunk]
+            U = dense_upper(R[[k for k, _ in part]])
+            rhs = [b[:, cols].contiguous() for _, cols in part]
+            if lo == 0:
+                torch.cholesky_solve(rhs[0], U[0], upper=True)
+            out, t = timed(lambda: [torch.cholesky_solve(r, U[i], upper=True)
+                                    for i, r in enumerate(rhs)])
+            ms += t
+            for (_, cols), x in zip(part, out):
+                err = max(err, float((x - want[:, cols]).abs().max()))
+            del U, rhs, out
+    return ms, err
 
 
 def cholesky_vs_plain(bands, library=False):
@@ -1773,7 +1849,7 @@ def solve_bound(L, n, n_factors, p):
 
 
 def solve_vs_plain(problem, label, prior_precision=None, library=False,
-                   cholesky=False):
+                   cholesky=False, library_grouped=False):
     """``banded_solve`` on the preconditioner factors of ``problem``'s
     solves under ``prior_precision`` (default the config's; the shape its
     CG iterations give the kernel: the real view of an rfft2 cube,
@@ -1782,7 +1858,11 @@ def solve_vs_plain(problem, label, prior_precision=None, library=False,
     ``torch.cholesky_solve`` on the dense factors, same right-hand sides;
     with ``cholesky`` the Cholesky kernel on the bands that the
     preconditioner factors (:func:`cholesky_vs_plain`, the library at L =
-    600)."""
+    600); with ``library_grouped`` the library times where the dense
+    factors do not fit at once: ``torch.cholesky_solve`` with the columns
+    grouped by factor (:func:`solve_library_grouped_ms`) and
+    ``torch.linalg.cholesky`` in chunks of :data:`LIBRARY_CHUNK`
+    systems."""
     mode = td._resolve_precond_mode(problem)
     if prior_precision == "auto":
         prior_precision = td.suggest_prior_precision(problem)
@@ -1806,10 +1886,23 @@ def solve_vs_plain(problem, label, prior_precision=None, library=False,
     b = torch.view_as_real(torch.fft.rfft2(r)).reshape(problem.L, -1)
     out = solve_at(state.R, state.fidx, b, library)
     out["mode"] = mode
+    if library_grouped:
+        want = bd.solve_banded_reference(state.R, state.fidx, b)
+        out["library_ms"], out["library_max_abs_err"] = \
+            solve_library_grouped_ms(state.R, state.fidx, b, want)
+        out["library_is"] = ("torch.cholesky_solve on the dense factors, "
+                             "one call per factor on its columns, summed")
+        del want
     if cholesky:
         check(len(captured) == 1, f"{len(captured)} factorisations")
         out["cholesky"] = cholesky_vs_plain(captured[0],
                                             library=problem.L == 600)
+        if library_grouped:
+            out["cholesky"]["library_ms"] = cholesky_library_ms(
+                captured[0], LIBRARY_CHUNK)
+            out["cholesky"]["library_is"] = (
+                f"torch.linalg.cholesky on the dense matrices, "
+                f"{LIBRARY_CHUNK} systems a call, summed")
         emit("banded_cholesky_vs_plain", label=label,
              shape=list(captured[0].shape), **{
                  k: v for k, v in out["cholesky"].items() if k != "bound"},
@@ -2121,7 +2214,7 @@ def phase_direct_field(cube):
     mode = td._resolve_precond_mode(p)
     check(mode == "banded_radial", f"the full field resolved to {mode}")
     out = {"radial_3681": solve_vs_plain(p, "300x300x3681 radial",
-                                         cholesky=True)}
+                                         cholesky=True, library_grouped=True)}
     reset_launches()
     with PCGRecorder() as rec:
         torch.cuda.synchronize()
@@ -3277,6 +3370,327 @@ def field_run(cube, sampler, n, mesh, want_digest):
             "digest_equal_one_process": got_digest == want_digest}
 
 
+# ---------------------------------------------------------------------------
+# Phase statistics: every sweep kernel held to the exact posterior
+# ---------------------------------------------------------------------------
+
+#: the seeded geometries of phase statistics (c), their sweeps, and the
+#: first sweeps compared with the plain versions: on the card a plain
+#: gibbs sweep at lw = 11 takes 0.5–1.6 s of launches, and the plain tiled
+#: scan pays a step per tile and color (up to 64 tiles here); one sweep
+#: compares every draw, decision and log-scale update once
+STAT_CASES, STAT_CASE_SEED, STAT_SWEEPS = 24, 14, 12
+STAT_COMPARE_SWEEPS = {"whole": 1, "tiled": 1}
+#: sweeps of the gibbs_block exact-start row (the JAX package has none;
+#: the chains are stationary from sweep 0, so depth adds power only): a
+#: block sweep takes ~0.3 s on the card at 32 chains (0.1 s at 8), and 80
+#: keep the phase within its 120 s
+BLOCK_SWEEPS = 80
+#: float32 kernels: data − resid against conv(clean), of the data's scale
+#: (tests/test_torch_run.py's float32 bound); running against full χ²
+STAT_INVARIANT_TOL, STAT_CHI2_TOL = 1e-5, 1e-5
+
+
+def stat_engines(sampler):
+    """The engines of an exact-start row, ``{name: (RunConfig fields,
+    segment or None)}``: ``whole`` the whole-cube engine's own choice (the
+    resident kernel where ``plan_slabs`` fits the batch), ``classic`` K1
+    pinned (the coarse passes between its segments, as ``run_sweeps``
+    places them), ``tiled`` K2 in (1, 1) tiles."""
+    def pinned(p, s, n):
+        return sm.interleaved(p, s, n, lambda s_, k: classic_of(sampler)(
+            p, s_, k).result)
+    return {"whole": ({"engine": "cuda"}, None),
+            "classic": ({"engine": "cuda"}, pinned),
+            "tiled": ({"engine": "cuda_tiled", "tile": (1, 1)}, None)}
+
+
+def launch_counts():
+    return {"resident": sw.mh_segment.resident_launches
+            + sw.gibbs_segment.resident_launches,
+            "classic": sw.mh_segment.launches + sw.gibbs_segment.launches,
+            "tiled": tl.tiled_mh.launches + tl.tiled_gibbs.launches,
+            "banded_sample": bd.sample_conditional.launches}
+
+
+def exact_start_row(dt, row, engine, n=None):
+    """One exact-start row (``posterior_check.ROWS``; ``n`` sweeps in
+    place of its own): the field's chains (``posterior_check.N_CHAINS``)
+    as one batch through ``engine`` (``'block'``: the heavy field with
+    ``sampler='gibbs_block'``), their monitored voxels and box sums
+    against the exact posterior under the JAX package's bounds; the row's
+    figures and failures."""
+    field, sampler, n_row, coarse_every, _ = pc.ROWS[row]
+    n = n or n_row
+    if engine == "block":
+        sampler = "gibbs_block"
+        fields, segment = {"engine": "cuda"}, None
+    else:
+        fields, segment = stat_engines(sampler)[engine]
+    reset_launches()
+    t0 = time.perf_counter()
+    tr, p, boxes, _ = pc.chain_traces(dt, sampler, n,
+                                      coarse_every=coarse_every,
+                                      device="cuda", segment=segment,
+                                      **fields)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    figures, failures = pc.row_failures(dt, row, tr, p, boxes)
+    # chains 0-7: the JAX package's 8-chain row (printed, not held: its
+    # verdict fails under the null in either package, posterior_check)
+    ref_figures, ref_failures = pc.row_failures(
+        dt, row, tr[:pc.REFERENCE_CHAINS], p, boxes)
+    # every sweep on the row's kernel (gibbs_block: one draw launch per
+    # color for the batch)
+    kernel = {"whole": "resident" if launches["resident"] else "classic",
+              "classic": "classic", "tiled": "tiled",
+              "block": "banded_sample"}[engine]
+    want = n * (p.n_colors if engine == "block" else 1)
+    if launches[kernel] != want:
+        failures.append(f"{launches[kernel]} {kernel} launches for {want}")
+    if coarse_every and not launches["banded_sample"]:
+        failures.append("the coarse passes never launched the draw kernel")
+    return {"row": row, "field": field, "engine": engine, "kernel": kernel,
+            "sampler": sampler, "sweeps": n, "n_chains": tr.shape[0],
+            "coarse_every": coarse_every, **figures,
+            "reference_chains": {"n_chains": pc.REFERENCE_CHAINS,
+                                 **ref_figures, "failures": ref_failures},
+            "launches": launches, "seconds": seconds, "failures": failures}
+
+
+def analytic_row(sampler):
+    """The JAX package's analytic toy (``tests/test_sampler.py``: its rng
+    seed 42, run seed 13, depth and bounds) in float32 through the
+    whole-cube engine: the chain's moments against the exact posterior."""
+    cube, inst, mean, sig = pc.analytic_toy(np.random.default_rng(42),
+                                            dtype=np.float32,
+                                            device="cuda")
+    n, burn = pc.ANALYTIC_RUNS[sampler]
+    p = sm.make_problem(cube, inst, sm.RunConfig(
+        max_iterations=n, burn_in=burn, seed=pc.ANALYTIC_SEED,
+        dtype=np.float32, fsf_size=3, lsf_width=3, sampler=sampler))
+    reset_launches()
+    t0 = time.perf_counter()
+    r = sm.run_sweeps(p, sm.init_state(p), n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    acc = float(r.accept_trace[-1000:].mean()) if sampler == "mh" else None
+    failures, figures = pc.analytic_failures(
+        mean, sig,
+        sm.posterior_mean(p, r.state).double().cpu().numpy().ravel(),
+        sm.posterior_std(p, r.state).double().cpu().numpy().ravel(), acc)
+    if launches["resident"] != n:
+        failures.append(f"{launches['resident']} resident launches for {n}")
+    return {"sampler": sampler, "sweeps": n, "burn_in": burn, **figures,
+            "launches": launches, "seconds": seconds, "failures": failures}
+
+
+def stat_geometries(n=STAT_CASES, seed=STAT_CASE_SEED):
+    """``n`` seeded cases over L ∈ {9, 37, 130}, Y, X ∈ [5, 23], f ∈
+    {3, 5, 7}, lw ∈ {1, 3, 11}, one masked spaxel or none, mh / gibbs,
+    positivity, C ∈ {1, 3}, the FSF's FWHM in [0.1, 0.8] and a data seed."""
+    rng = np.random.default_rng(seed)
+    return [dict(L=int(rng.choice([9, 37, 130])),
+                 Y=int(rng.integers(5, 24)), X=int(rng.integers(5, 24)),
+                 f=int(rng.choice([3, 5, 7])), lw=int(rng.choice([1, 3, 11])),
+                 mask=bool(rng.random() < 0.5),
+                 sampler=str(rng.choice(["mh", "gibbs"])),
+                 positivity=bool(rng.random() < 0.5),
+                 C=int(rng.choice([1, 3])),
+                 fwhm=float(rng.uniform(0.1, 0.8)),
+                 seed=int(rng.integers(2**16)))
+            for _ in range(n)]
+
+
+def invariant_errors(p, state):
+    """The worst over the chains of ``state``: |data − resid − conv(clean)|
+    over the weighted voxels, of the data's scale; |χ²_running − χ²_full| /
+    χ²_full; |clean| at masked spaxels; and min(clean)."""
+    h = p.f // 2
+    scale = float(p.data_pad.abs().max())
+    w = p.w_pad[:, h:h + p.Y, h:h + p.X] > 0
+    frozen = ~p.valid[: p.Y, : p.X]
+    out = {"invariant": 0.0, "chi2": 0.0, "masked": 0.0,
+           "clean_min": float("inf")}
+    chains = [state] if state.clean.dim() == 3 else [
+        ch.select_chains(state, c) for c in range(state.clean.shape[0])]
+    for s in chains:
+        clean = s.clean[:, : p.Y, : p.X]
+        conv = cv.convolve_cube(clean, p.fsf, p.lsf)
+        model = (p.data_pad - s.resid)[:, h:h + p.Y, h:h + p.X]
+        full = float(sm.full_chi2(p, s))
+        out["invariant"] = max(out["invariant"], float(
+            (model - conv).abs()[w].max()) / scale)
+        out["chi2"] = max(out["chi2"], abs(float(s.chi2) - full) / full)
+        if bool(frozen.any()):
+            out["masked"] = max(out["masked"],
+                                float(clean[:, frozen].abs().max()))
+        out["clean_min"] = min(out["clean_min"], float(clean.min()))
+    return out
+
+
+def philox_uniforms(p, state, n):
+    """The MH uniforms ``[n, (C,) n_colors, nij, L + 1]`` that ``state``'s
+    chains draw from Philox over its next ``n`` sweeps (``ops/philox.py``,
+    the plain sweeps' and the kernels' streams)."""
+    sweep0 = int(state.sweep.reshape(-1)[0])
+    u = torch.stack([torch.stack([
+        philox.sweep_uniforms(key, sweep0 + s, p.n_colors, p.ny * p.nx, p.L,
+                              device="cuda")
+        for key in sw._chain_keys(state.key)]) for s in range(n)])
+    return u if state.clean.dim() == 4 else u[:, 0]
+
+
+def stat_case(g):
+    """One geometry of (c): 12 sweeps from one state of C chains through
+    the whole-cube engine's kernel (resident where ``plan_slabs`` fits),
+    classic K1 pinned, and K2 in (1, 1) tiles and, where nx is even, (1, 2)
+    tiles; each on its own Philox draws against the residual invariant, χ²,
+    the masked spaxel and, with positivity, clean ≥ 0; and each against its
+    plain version on the same Philox draws (MH: untied) over
+    :data:`STAT_COMPARE_SWEEPS`, under ``compare``'s tolerances."""
+    rng = np.random.default_rng(g["seed"])
+    L, Y, X = g["L"], g["Y"], g["X"]
+    data = rng.normal(size=(L, Y, X)).astype(np.float32)
+    mask = None
+    if g["mask"]:
+        mask = np.zeros((Y, X), bool)
+        mask[rng.integers(Y), rng.integers(X)] = True
+    cube = d3.Cube.from_data(data, variance=np.full_like(data, 0.25),
+                             mask=mask, crval=4750.0, cdelt=1.25,
+                             device="cuda")
+    inst = d3.Instrument(fsf=d3.GaussianFSF(fwhm=g["fwhm"]),
+                         lsf=d3.GaussianLSF(fwhm=1.5))
+    sampler, C, n = g["sampler"], g["C"], STAT_SWEEPS
+    base = dict(max_iterations=n, burn_in=4, seed=g["seed"],
+                fsf_size=g["f"], lsf_width=g["lw"], sampler=sampler,
+                positivity=g["positivity"])
+    p = sm.make_problem(cube, inst, sm.RunConfig(engine="cuda", **base))
+    state = ch.init_chain_states(p, C) if C > 1 else sm.init_state(p)
+    S, lw = int(p.fsf_spec.shape[0]), int(p.lsf.shape[1])
+    plan = rs.plan_slabs(C, p.f, p.ny, p.nx, L, S, lw, sampler,
+                         *rs.device_limits("cuda"),
+                         positivity=g["positivity"])
+    plain_whole = {"mh": sw.mh_segment_reference,
+                   "gibbs": sw.gibbs_segment_reference}[sampler]
+    runs = [("whole", p, segment_of(sampler), plain_whole),
+            ("classic", p, classic_of(sampler), plain_whole)]
+    for tile in [(1, 1)] + ([(1, 2)] if p.nx % 2 == 0 else []):
+        pt = sm.make_problem(cube, inst, sm.RunConfig(
+            engine="cuda_tiled", tile=tile, **base))
+        runs.append((f"tiled_{tile[0]}x{tile[1]}", pt, tl.tiled_segment,
+                     tl.tiled_segment_reference))
+    out = {"case": dict(g, f_resolved=p.f, ny=p.ny, nx=p.nx, lw_resolved=lw,
+                        rank=S), "plan": plan, "kernels": {}, "failures": []}
+    plain_of = {}
+    t_case = time.perf_counter()
+    for name, prob, seg, ref in runs:
+        k = STAT_COMPARE_SWEEPS["whole" if prob.config.tile is None
+                                else "tiled"]
+        t0 = time.perf_counter()
+        if name != "classic":       # classic K1 takes the whole-cube one's
+            if sampler == "mh":
+                u, plain = sw.untie_uniforms(prob, state, k, philox_uniforms(
+                    prob, state, k), reference=ref)
+            else:
+                u, plain = None, ref(prob, copy_state(state), k)
+            plain_of = (u, plain)
+        u, plain = plain_of
+        plain_s = time.perf_counter() - t0
+        before = launch_counts()
+        own = seg(prob, copy_state(state), n)
+        errs = invariant_errors(prob, own.result.state)
+        kern = (seg(prob, copy_state(state), k) if u is None
+                else seg(prob, copy_state(state), k, u))
+        torch.cuda.synchronize()
+        after = launch_counts()
+        errs["launches"] = {kk: after[kk] - before[kk]
+                            for kk in ("resident", "classic", "tiled")}
+        errs["compared_sweeps"], errs["plain_seconds"] = k, plain_s
+        try:
+            cmp = compare(plain, kern, sampler)
+        except AssertionError as e:
+            cmp = {}
+            out["failures"].append(f"{name}: against its plain version: {e}")
+        errs.update({kk: cmp.get(kk) for kk in (
+            "resid_max_abs_err", "resid_tol", "clean_max_abs_err",
+            "chi2_rel_err", "decisions_or_counts_equal")})
+        bad = []
+        if errs["invariant"] > STAT_INVARIANT_TOL:
+            bad.append(f"invariant {errs['invariant']:.3e}")
+        if errs["chi2"] > STAT_CHI2_TOL:
+            bad.append(f"chi2 {errs['chi2']:.3e}")
+        if errs["masked"] != 0.0:
+            bad.append(f"a masked spaxel moved by {errs['masked']:.3e}")
+        if g["positivity"] and errs["clean_min"] < 0.0:
+            bad.append(f"clean below 0 ({errs['clean_min']:.3e})")
+        out["failures"] += [f"{name}: {b}" for b in bad]
+        out["kernels"][name] = errs
+    out["seconds"] = time.perf_counter() - t_case
+    return out
+
+
+def phase_statistics():
+    """Every sweep kernel held to the exact posterior, and the residual
+    invariant over a seeded list of geometries (module docstring, 14)."""
+    t_phase = time.perf_counter()
+    truths = {field: pc.make_truth(fwhm) for field, fwhm in pc.FWHM.items()}
+    # the coarse row on the whole-cube engine: the pass is the same
+    # code after every engine's segment
+    rows = [exact_start_row(truths[pc.ROWS[row][0]], row, engine)
+            for row in pc.ROWS for engine in ("whole", "classic", "tiled")
+            if engine == "whole" or not pc.ROWS[row][3]]
+    rows.append(exact_start_row(truths["heavy"], "heavy-gibbs", "block",
+                                BLOCK_SWEEPS))
+    for row in rows:
+        emit("statistics_row", **row)
+    # the kernel the whole-cube engine takes for the fields' chain batch
+    p = sm.make_problem(truths["heavy"]["cube"].to("cuda"),
+                        truths["heavy"]["inst"],
+                        sm.RunConfig(fsf_size=pc.FIELD["fsf_size"]))
+    S, lw = int(p.fsf_spec.shape[0]), int(p.lsf.shape[1])
+    plans = {mode: rs.plan_slabs(pc.N_CHAINS, p.f, p.ny, p.nx, p.L, S, lw,
+                                 mode, *rs.device_limits("cuda"))
+             for mode in ("mh", "gibbs")}
+    analytic = [analytic_row(sampler) for sampler in ("mh", "gibbs")]
+    for row in analytic:
+        emit("statistics_analytic", **row)
+    cases = []
+    for g in stat_geometries():
+        cases.append(stat_case(g))
+        emit("statistics_case", **cases[-1])
+    seconds = time.perf_counter() - t_phase
+    worst = {k: max(kern[k] for c in cases for kern in c["kernels"].values())
+             for k in ("invariant", "chi2", "masked")}
+    print(json.dumps({"statistics": {
+        "seconds": seconds,
+        "whole_engine_plan": {"n_chains": pc.N_CHAINS, **{
+            m: None if v is None else {"lam_b": v[0], "blocks": v[1]}
+            for m, v in plans.items()}},
+        "rows": [{k: r.get(k) for k in (
+            "row", "field", "engine", "kernel", "sampler", "sweeps",
+            "coarse_every", "max_abs_z_mean", "q95_abs_z_mean",
+            "var_ratio_range", "sharp_fraction", "max_abs_z_var_sharp",
+            "q95_abs_z_var_sharp", "reference_chains", "seconds",
+            "failures")} for r in rows],
+        "analytic": analytic,
+        "cases": [{"case": c["case"], "plan": c["plan"],
+                   "kernels": c["kernels"], "failures": c["failures"]}
+                  for c in cases],
+        "worst_case_errors": worst}}), flush=True)
+    failed = ([f"row {r['row']} {r['engine']} ({r['sampler']}): "
+               f"{r['failures']}" for r in rows if r["failures"]]
+              + [f"analytic {r['sampler']}: {r['failures']}"
+                 for r in analytic if r["failures"]]
+              + [f"case {i}: {c['failures']}"
+                 for i, c in enumerate(cases) if c["failures"]])
+    check(not failed, f"phase statistics: {failed}")
+    return {"seconds": seconds, "rows": rows, "analytic": analytic,
+            "cases": cases}
+
+
 class WarningCounts(logging.Handler):
     """Counts the port's log warnings by their first clause, so that the
     warnings of the many runs of a smoke fit one line."""
@@ -3354,6 +3768,7 @@ def main() -> int:
                                                          direct["field"])
     del cube, direct["field"]["map_x"]
     multihost = phase_multihost(sharded_field, smi)
+    statistics = phase_statistics()
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
@@ -3620,6 +4035,8 @@ def main() -> int:
         "dense_3681x3720": other_shape(direct["dense_3681"]),
         "radial_3681x90600": {
             **other_shape(direct["field"]["radial_3681"]),
+            "library_ms": direct["field"]["radial_3681"]["library_ms"],
+            "library_is": direct["field"]["radial_3681"]["library_is"],
             "launches": direct["field"]["solve_launches"],
             "launches_path": "direct full field (1 map_estimate, 2 draws)"},
         "sharded_launches": direct_sharded["path"]["launches"],
@@ -3682,6 +4099,8 @@ def main() -> int:
         "call_ms": chol["call_ms"], "ms_is": device_ms_is,
         "radial_256x3681": {
             **other_shape(chol_field),
+            "library_ms": chol_field["library_ms"],
+            "library_is": chol_field["library_is"],
             "launches": direct["field"]["cholesky_launches"],
             "launches_path": "direct full field (1 map_estimate, 2 draws)"},
     })
@@ -3696,7 +4115,27 @@ def main() -> int:
     return 0
 
 
+#: the phases that ``--phase NAME ...`` runs alone after the build, to
+#: iterate on one without the whole smoke (no ``kernels`` or ``ok`` line)
+ALONE = {"statistics": phase_statistics,
+         "direct_field": lambda: phase_direct_field(field_cube())}
+
+
+def phases_alone(names) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    emit("device", name=torch.cuda.get_device_name(0))
+    _build.load_library()
+    emit("build", seconds=_build.build_seconds)
+    for name in names:
+        ALONE[name]()
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(phases_alone(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost"]:
         role, rank, world, backend, tmp = sys.argv[2:7]
         sys.exit(multihost_worker(role, int(rank), int(world), backend, tmp))
