@@ -225,6 +225,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    sweep).  One ``{"statistics": ...}`` line; any failure
    fails the smoke.  ``python3 chip_smoke.py --phase statistics`` runs it
    alone after the build (so does ``--phase direct_field``).
+15. examples — the three example scripts (``examples/torch_*.py``) through
+   their own ``main("cuda")`` at their JAX twins' depth, each in a
+   temporary directory with every launch count set to 0 just before it.
+   basic (400 gibbs sweeps, ``save``, ``map_estimate``): χ²/dof within
+   ``CHI2_DOF_BAND`` of the JAX example's CPU figure, both reconvolved
+   peaks at the JAX example's (16, 8, 8), acceptance exactly 1, χ²
+   consistency ≤ 1e-5, the five saved products on disk; multichain (8
+   chains, gibbs with a coarse pass every 4 sweeps): R̂ finite at every
+   voxel of a free spaxel, the pooled mean's shape; sharded (the four
+   topologies on slots of the one card): each chain's running χ² within
+   1e-5 of its from-scratch χ², topology 3's 2 chains, topology 4's draws
+   all converged.  One ``{"examples": ...}`` line: each example's wall
+   seconds and the kernels it launched by name and count, with the
+   expected ones it did not (``EXAMPLE_KERNELS``) under ``missing`` — a
+   finding, not a failure.  ``--phase examples`` runs it alone.
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
@@ -246,6 +261,7 @@ launches of each rank of ``multihost``), the
 """
 
 import dataclasses
+import importlib.util
 import json
 import logging
 import os
@@ -3691,6 +3707,151 @@ def phase_statistics():
             "cases": cases}
 
 
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+
+#: the kernels each example should launch on one card (module docstring, 15)
+EXAMPLE_KERNELS = {
+    "torch_basic_deconvolution": (
+        ("resident_gibbs_kernel", "gibbs_sweep"), ("banded_solve",)),
+    "torch_multichain_diagnostics": (
+        ("resident_gibbs_kernel", "gibbs_sweep"), ("banded_cholesky",),
+        ("banded_sample_conditional",)),
+    "torch_sharded_fullfield": (
+        ("resident_mh_kernel", "mh_sweep"), ("tiled_mh<band>",),
+        ("banded_cholesky",), ("banded_sample_conditional",),
+        ("banded_solve",)),
+}
+
+
+def launches_by_kernel():
+    """Every kernel wrapper's launch count since :func:`reset_launches`,
+    under the kernel's name in the ``kernels`` line; zeros left out."""
+    counts = {
+        "resident_mh_kernel": sw.mh_segment.resident_launches,
+        "resident_gibbs_kernel": sw.gibbs_segment.resident_launches,
+        "mh_sweep": sw.mh_segment.launches,
+        "gibbs_sweep": sw.gibbs_segment.launches,
+        "tiled_mh": tl.tiled_mh.launches,
+        "tiled_gibbs": tl.tiled_gibbs.launches,
+        "tiled_mh<band>": tl.band_mh.launches,
+        "tiled_gibbs<band>": tl.band_gibbs.launches,
+        "banded_cholesky": bd.cholesky_banded.launches,
+        "banded_sample_conditional": bd.sample_conditional.launches,
+        "banded_solve": bd.banded_solve.launches,
+    }
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_example(name, tmp):
+    """``main("cuda")`` of ``examples/{name}.py`` at its own depth, in
+    ``tmp``, the counts set to 0 just before: (the module, its figures,
+    wall seconds, launches by kernel, the expected kernels not launched)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = launches_by_kernel()
+    missing = [" or ".join(alts) for alts in EXAMPLE_KERNELS[name]
+               if not any(k in launches for k in alts)]
+    return mod, out, wall, launches, missing
+
+
+def phase_examples():
+    """The three example scripts at their own depth on the card (module
+    docstring, 15): each one's figures held, its wall seconds and the
+    kernels it launched on one ``{"examples": ...}`` line."""
+    t_phase = time.perf_counter()
+    line, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        mod, b, wall, launches, missing = run_example(
+            "torch_basic_deconvolution", tmp)
+        band = mod.JAX_CPU_FIGURES
+        products = [os.path.join(tmp, f"deconv_out_{s}") for s in (
+            "clean.fits", "std.fits", "convolved.fits", "traces.npz",
+            "stats.json")]
+        consistency = chi2_consistency(b["run"])
+        line["basic"] = {
+            "seconds": wall, "launches": launches, "missing": missing,
+            "chi2_dof": b["chi2_dof"], "acceptance": b["acceptance"],
+            "peak": b["peak"], "map_peak": b["map_peak"],
+            "map_iterations": b["map_iterations"],
+            "map_rel_residual": b["map_rel_residual"],
+            "chi2_consistency": consistency,
+            "jax_cpu_figures": band, "chi2_dof_band": mod.CHI2_DOF_BAND,
+            "products": [os.path.basename(p) for p in products
+                         if os.path.isfile(p)]}
+        if abs(b["chi2_dof"] - band["chi2_dof"]) > mod.CHI2_DOF_BAND:
+            failed.append(f"basic chi2/dof {b['chi2_dof']:.4f} outside "
+                          f"{band['chi2_dof']} ± {mod.CHI2_DOF_BAND:.4f}")
+        if (b["peak"], b["map_peak"]) != (band["peak"], band["map_peak"]):
+            failed.append(f"basic peaks {b['peak']}, {b['map_peak']}")
+        if b["acceptance"] != 1.0:
+            failed.append(f"basic gibbs acceptance {b['acceptance']}")
+        if consistency > 1e-5:
+            failed.append(f"basic chi2 consistency {consistency:.3e}")
+        if len(line["basic"]["products"]) != len(products):
+            failed.append(f"basic saved {line['basic']['products']}")
+        del b
+
+        _, m, wall, launches, missing = run_example(
+            "torch_multichain_diagnostics", tmp)
+        free = m["problem"].valid[: m["problem"].Y, : m["problem"].X]
+        free = free.cpu().numpy()
+        rhat_free = m["rhat"][:, free]
+        line["multichain"] = {
+            "seconds": wall, "launches": launches, "missing": missing,
+            "diagnostics": m["diagnostics"],
+            "rhat_median": m["rhat_median"], "rhat_p99": m["rhat_p99"],
+            "rhat_free_finite": bool(np.isfinite(rhat_free).all()),
+            "posterior_mean_shape": m["posterior_mean_shape"]}
+        if not line["multichain"]["rhat_free_finite"]:
+            failed.append(f"multichain: {int((~np.isfinite(rhat_free)).sum())}"
+                          " free voxels with a non-finite R-hat")
+        if m["posterior_mean_shape"] != (32, 16, 16):
+            failed.append(f"multichain mean shape {m['posterior_mean_shape']}")
+        del m
+
+        _, s, wall, launches, missing = run_example(
+            "torch_sharded_fullfield", tmp)
+        topologies = {}
+        for key, run in s["runs"].items():
+            worst = max(chi2_consistency(run, c) for c in range(run.n_chains))
+            topologies[key] = {"chi2_consistency": worst,
+                               "n_chains": run.n_chains,
+                               "engine": run.config.engine}
+            if worst > 1e-5:
+                failed.append(f"sharded {key}: chi2 consistency {worst:.3e}")
+        accept = s["runs"]["sharded_direct"].trace("accept")
+        topologies["sharded_direct"]["converged"] = int((accept == 1).sum())
+        topologies["sharded_direct"]["draws"] = int(accept.size)
+        if not np.all(accept == 1.0):
+            failed.append("sharded direct: unconverged draws")
+        if s["chains_x_spatial_chains"] != 2:
+            failed.append("chains x spatial did not return 2 chains")
+        line["sharded"] = {
+            "seconds": wall, "launches": launches, "missing": missing,
+            "topologies": topologies,
+            **{k: s[k] for k in ("spatial", "chains_x_spatial",
+                                 "sharded_direct")},
+            "chains_diagnostics": s["chains"]}
+        del s
+    line["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"examples": line}, default=float), flush=True)
+    check(not failed, f"phase examples: {failed}")
+    return line
+
+
 class WarningCounts(logging.Handler):
     """Counts the port's log warnings by their first clause, so that the
     warnings of the many runs of a smoke fit one line."""
@@ -3769,6 +3930,7 @@ def main() -> int:
     del cube, direct["field"]["map_x"]
     multihost = phase_multihost(sharded_field, smi)
     statistics = phase_statistics()
+    phase_examples()
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
@@ -4117,7 +4279,7 @@ def main() -> int:
 
 #: the phases that ``--phase NAME ...`` runs alone after the build, to
 #: iterate on one without the whole smoke (no ``kernels`` or ``ok`` line)
-ALONE = {"statistics": phase_statistics,
+ALONE = {"statistics": phase_statistics, "examples": phase_examples,
          "direct_field": lambda: phase_direct_field(field_cube())}
 
 
