@@ -84,8 +84,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the from-scratch one after the pass, the sweeps' acceptance in the
    adaptation's early band [0.05, 0.35], the constants' build and
    the pass's ms (CUDA events) and peak bytes; set-up seconds, sweeps/s,
-   the planned tile, peak memory of set-up, run and ``full_chi2``, and one
-   sweep each of the tiled kernel,
+   the planned tile, peak memory of set-up, run and ``full_chi2`` — at
+   each gibbs rebaseline the path's λ-chunked ``full_chi2`` and one
+   monolithic evaluation on the same state, their peaks and ms: the
+   chunked peak must lie below the monolithic one and the two χ² within
+   1e-6 of each other —, and one sweep each of the tiled kernel,
    of the whole-cube kernel and of the tiled kernel's earlier design
    (raster of (1, 2) tiles, synchronous loads, one block per spaxel in
    gibbs phase (b)) on the run's state (CUDA events); the auto rule's
@@ -240,6 +243,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    seconds and the kernels it launched by name and count, with the
    expected ones it did not (``EXAMPLE_KERNELS``) under ``missing`` — a
    finding, not a failure.  ``--phase examples`` runs it alone.
+16. checkpoint — checkpoints on the card, bench cube, MH: a ``Run`` (the
+   resident kernel) with ``checkpoint_path`` stopped at sweep 8 and a new
+   ``Run`` resumed from its NPZ for 4 more sweeps, every field bit-equal to
+   12 sweeps without a break; the same state through ``save_state_dcp``
+   sync and async (``torch.distributed.checkpoint``, no process group),
+   bit-equal after ``load_state_dcp``, each one's seconds and bytes on
+   disk; the state written in the JAX package's leaf layout (the port's
+   copy of it, ``checkpoint.JAX_LEAVES``, with χ² off by 1e-3) through
+   ``Run.resume``, which must rebaseline χ², then 4 sweeps with χ²
+   consistency ≤ 1e-5.  One ``{"checkpoint": ...}`` line.  ``--phase
+   checkpoint`` runs it alone.
 
 All phases run under PyTorch's default TF32 flags, which must hold after
 them.  Then the smoke's wall time, a ``{"kernels": [...]}`` line (the
@@ -275,6 +289,7 @@ import torch
 
 import deconv3d_tpu_torch as d3
 from deconv3d_tpu_torch import _build, chains as ch, sampler as sm
+from deconv3d_tpu_torch import checkpoint as ckpt
 from deconv3d_tpu_torch import convolve as cv
 from deconv3d_tpu_torch import posterior_check as pc
 from deconv3d_tpu_torch.ops import banded as bd, coarse as co
@@ -2499,17 +2514,35 @@ def phase_full_field(sampler, n, cube):
     rebaseline = sm.rebaseline_chi2
 
     def recording_rebaseline(problem, state):
+        """The rebaseline, after one monolithic ``full_chi2`` (the chunking
+        threshold lifted) and the path's own, λ-chunked one on the same
+        state, each with its peak bytes (the monolithic first, so that the
+        run's peak holds the path's) and ms."""
         one = ch.select_chains(state, 0) if state.clean.dim() == 4 else state
+        check(problem.L * problem.Y * problem.X * 4
+              > sm.FULL_CHI2_CHUNK_BYTES, "full_chi2 is not chunked here")
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
-        full = float(sm.full_chi2(problem, one))
+        limit = sm.FULL_CHI2_CHUNK_BYTES
+        sm.FULL_CHI2_CHUNK_BYTES = float("inf")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            mono, mono_ms = timed(lambda: float(sm.full_chi2(problem, one)))
+            mono_peak = torch.cuda.max_memory_allocated()
+        finally:
+            sm.FULL_CHI2_CHUNK_BYTES = limit
+        torch.cuda.reset_peak_memory_stats()
+        full, ms = timed(lambda: float(sm.full_chi2(problem, one)))
         resets.append({"sweep": int(one.sweep),
                        "chi2_consistency_before":
                            abs(float(one.chi2) - full) / full,
                        "bytes_live": live,
                        "full_chi2_peak_bytes":
-                           torch.cuda.max_memory_allocated()})
+                           torch.cuda.max_memory_allocated(),
+                       "full_chi2_ms": ms,
+                       "monolithic_peak_bytes": mono_peak,
+                       "monolithic_ms": mono_ms,
+                       "chunked_vs_monolithic": abs(full - mono) / mono})
         return rebaseline(problem, state)
 
     passes, builds = [], []
@@ -2620,6 +2653,11 @@ def phase_full_field(sampler, n, cube):
               f"rebaselines at {[r['sweep'] for r in resets]}, not 8 and 16")
         check(all(r["chi2_consistency_before"] <= 1e-5 for r in resets),
               "running chi2 drifted before a rebaseline")
+        check(all(r["chunked_vs_monolithic"] <= 1e-6 for r in resets),
+              "the chunked full_chi2 is not the monolithic one")
+        check(all(r["full_chi2_peak_bytes"] < r["monolithic_peak_bytes"]
+                  for r in resets),
+              "the chunked full_chi2 did not lower the peak")
         check(diag["acceptance_rate"] == 1.0, "gibbs acceptance is not 1")
         check(not passes and not builds, "gibbs ran a coarse pass")
     else:
@@ -3852,6 +3890,116 @@ def phase_examples():
     return line
 
 
+def jax_layout_npz(path, states, chi2_scale=1.0):
+    """``states`` (chain-stacked) written as the JAX package's
+    ``checkpoint.save_state`` writes a ``Run``'s, from the port's copy of
+    that layout: the fields as ``leaf_i`` in ``checkpoint.JAX_LEAVES``
+    order, ``checkpoint.JAX_TREEDEF``, each key as two uint32 words (high
+    first), ``sweep`` int32; χ² times ``chi2_scale`` (a JAX run's χ² is on
+    its own weights)."""
+    payload = {}
+    for i, name in enumerate(ckpt.JAX_LEAVES):
+        a = getattr(states, name).detach().cpu().numpy()
+        if name == "key":
+            k = a.astype(np.int64).view(np.uint64)
+            a = np.stack([k >> np.uint64(32), k & np.uint64(0xFFFFFFFF)],
+                         axis=-1).astype(np.uint32)
+        elif name == "sweep":
+            a = a.astype(np.int32)
+        elif name == "chi2":
+            a = a * np.float32(chi2_scale)
+        payload[f"leaf_{i}"] = a
+    payload["treedef"] = np.array(ckpt.JAX_TREEDEF)
+    payload["meta"] = np.array(json.dumps(
+        {"sweeps_done": int(states.sweep.reshape(-1)[0])}))
+    np.savez(path, **payload)
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def same_state(a, b) -> bool:
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(sm.SamplerState))
+
+
+def phase_checkpoint(n_first=8, n_more=4):
+    """Phase 16 (module docstring): a resume on the card bit-equal to an
+    unbroken run, the DCP backend sync and async, and a state in the JAX
+    package's leaf layout resumed and run on."""
+    t_phase = time.perf_counter()
+    cube = bench_cube()
+    kw = dict(max_iterations=n_first + n_more, burn_in=n_first, seed=0)
+    line = {"shape": list(cube.shape), "sweeps": [n_first, n_more]}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "run")
+        first = d3.Run(cube, d3.MUSE(), checkpoint_path=npz, **kw)
+        check(first.problem.config.engine == "cuda", "Run did not pick the "
+              "kernel")
+        reset_launches()
+        first.run(n_first)
+        resumed = d3.Run(cube, d3.MUSE(), **kw).resume(npz)
+        loaded = same_state(resumed.states, first.states)
+        resumed.run(n_more)
+        whole = d3.Run(cube, d3.MUSE(), **kw)
+        whole.run(n_first + n_more)
+        torch.cuda.synchronize()
+        line["resident_launches"] = sw.mh_segment.resident_launches
+        line["npz_bytes"] = os.path.getsize(npz + ".npz")
+        line["resume_loaded_bit_equal"] = loaded
+        line["resume_bit_equal_to_unbroken"] = same_state(resumed.states,
+                                                         whole.states)
+        state = first.states
+        like = ch.init_chain_states(first.problem, 1)
+        for name, async_ in (("dcp_sync", False), ("dcp_async", True)):
+            path = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fut = ckpt.save_state_dcp(path, state, meta={"sweeps_done":
+                                                         n_first},
+                                      async_=async_)
+            returned = time.perf_counter() - t0
+            if async_:
+                fut.result()
+            done = time.perf_counter() - t0
+            got, meta = ckpt.load_state_dcp(path, like)
+            line[name] = {"seconds": done, "returned_after_s": returned,
+                          "bytes": dir_bytes(path),
+                          "bit_equal": same_state(got, state)
+                          and meta == {"sweeps_done": n_first},
+                          "on": str(got.clean.device)}
+        jax_npz = os.path.join(tmp, "jax_layout.npz")
+        jax_layout_npz(jax_npz, state, chi2_scale=1.0 + 1e-3)
+        carried = d3.Run(cube, d3.MUSE(), **kw).resume(jax_npz)
+        rebased = sm.rebaseline_chi2(carried.problem, state)
+        line["jax_layout"] = {
+            "format": ckpt.checkpoint_format(jax_npz),
+            "fields_bit_equal": all(torch.equal(
+                getattr(carried.states, f.name), getattr(state, f.name))
+                for f in dataclasses.fields(sm.SamplerState)
+                if f.name not in ("chi2", "chi2_comp")),
+            "chi2_rebaselined": bool(torch.equal(carried.states.chi2,
+                                                 rebased.chi2))}
+        carried.run(n_more)
+        line["jax_layout"]["chi2_consistency"] = chi2_consistency(carried)
+    line["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"checkpoint": line}), flush=True)
+    check(line["resident_launches"] == 2 * (n_first + n_more),
+          f"the resident kernel launched {line['resident_launches']} times")
+    check(loaded and line["resume_bit_equal_to_unbroken"],
+          "the resumed run is not the unbroken one")
+    check(line["dcp_sync"]["bit_equal"] and line["dcp_async"]["bit_equal"],
+          "a DCP round trip changed the state")
+    jl = line["jax_layout"]
+    check(jl["format"] == "jax" and jl["fields_bit_equal"]
+          and jl["chi2_rebaselined"], f"the JAX layout did not carry: {jl}")
+    check(jl["chi2_consistency"] <= 1e-5,
+          "the resumed JAX-layout run drifted from full_chi2")
+    return line
+
+
 class WarningCounts(logging.Handler):
     """Counts the port's log warnings by their first clause, so that the
     warnings of the many runs of a smoke fit one line."""
@@ -3931,6 +4079,7 @@ def main() -> int:
     multihost = phase_multihost(sharded_field, smi)
     statistics = phase_statistics()
     phase_examples()
+    phase_checkpoint()
     check((torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32) == tf32,
           "the port changed the process's TF32 flags")
@@ -4280,6 +4429,7 @@ def main() -> int:
 #: the phases that ``--phase NAME ...`` runs alone after the build, to
 #: iterate on one without the whole smoke (no ``kernels`` or ``ok`` line)
 ALONE = {"statistics": phase_statistics, "examples": phase_examples,
+         "checkpoint": phase_checkpoint,
          "direct_field": lambda: phase_direct_field(field_cube())}
 
 

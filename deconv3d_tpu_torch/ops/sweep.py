@@ -120,6 +120,9 @@ class _SweepState:
     # copy per chain, and [L, L] the dense LSF matrix (gibbs_block)
     chol: Optional[torch.Tensor] = None
     band: Optional[torch.Tensor] = None
+    # config.lambda_chunk: the plain steps read and commit a color's slab
+    # this many λ-planes at a time (0: all of them at once)
+    lam_chunk: int = 0
 
     @property
     def C(self) -> int:
@@ -157,6 +160,16 @@ class _SweepState:
     def max_spaxels(self) -> int:
         """(chain, spaxel)s of the largest step."""
         return self.C * max(map(len, self.schedule())) * self.nyt * self.nxt
+
+    def lam_bounds(self) -> List[Tuple[int, int]]:
+        """The (lo, hi) λ-ranges of the plain steps' slab reads and commits
+        (the JAX package's ``_slab_bounds``): every plane's contraction and
+        commit is its own, so chunking changes no bit, only the size of
+        the ``[C, nyt, f, nxt, f, hi − lo]`` temporaries."""
+        L, lc = self.spec.shape[1], self.lam_chunk
+        if lc <= 0 or lc >= L:
+            return [(0, L)]
+        return [(lo, min(lo + lc, L)) for lo in range(0, L, lc)]
 
 
 def _lambda_last(t: torch.Tensor) -> torch.Tensor:
@@ -229,29 +242,41 @@ def _at_rows(k: _SweepState, t: torch.Tensor, by0: int,
 
 def _color_lin(k: _SweepState, cy: int, cx: int, by0: int, bx0: int):
     """The step's residual patches ``[C, nyt, f, nxt, f, L]`` (a view) and
-    ``lin[C, nyt, nxt, L] = Σ_s spec_s · Σ_ab img_s · (resid·w)`` over them."""
+    ``lin[C, nyt, nxt, L] = Σ_s spec_s · Σ_ab img_s · (resid·w)`` over them,
+    λ-chunk by λ-chunk (``_SweepState.lam_bounds``)."""
     f, nyt, nxt = k.f, k.nyt, k.nxt
     L = k.spec.shape[1]
     y0, x0 = cy + by0 * f, cx + bx0 * f
     rblk = k.resid[:, y0 : y0 + nyt * f, x0 : x0 + nxt * f].view(
         k.C, nyt, f, nxt, f, L)
     wblk = k.w[y0 : y0 + nyt * f, x0 : x0 + nxt * f].view(nyt, f, nxt, f, L)
-    pooled = torch.einsum("sab,ciajbl->csijl", k.imgs, rblk * wblk)
-    lin = (k.spec[None, :, None, None, :] * pooled).sum(dim=1)
-    return rblk, lin
+    parts = []
+    for lo, hi in k.lam_bounds():
+        pooled = torch.einsum("sab,ciajbl->csijl", k.imgs,
+                              rblk[..., lo:hi] * wblk[..., lo:hi])
+        parts.append((k.spec[None, :, None, None, lo:hi] * pooled).sum(dim=1))
+    return rblk, parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
-def _commit(k: _SweepState, rblk: torch.Tensor,
-            gacc: torch.Tensor) -> torch.Tensor:
-    """resid −= Σ_s (spec_s · gacc) ⊗ img_s over the color's patches;
-    returns that delta (``rblk``'s shape)."""
-    delta = torch.zeros_like(rblk)
+def patch_delta(k: _SweepState, g: torch.Tensor, lo: int = 0,
+                hi: Optional[int] = None) -> torch.Tensor:
+    """The residual delta Σ_s (spec_s · g) ⊗ img_s ``[C, n, f, m, f, hi −
+    lo]`` of a committed g ``[C, n, m, L]`` (n × m spaxels of one color) on
+    the λ-planes [lo, hi)."""
+    gl = g[..., lo:hi]
+    delta = gl.new_zeros((*g.shape[:2], k.f, g.shape[2], k.f, gl.shape[-1]))
     for s in range(k.spec.shape[0]):
-        gs = k.spec[s] * gacc                                  # [C,ny,nx,L]
+        gs = k.spec[s, lo:hi] * gl                             # [C,n,m,λ]
         delta = delta + (gs[:, :, None, :, None, :]
                          * k.imgs[s][None, None, :, None, :, None])
-    rblk -= delta
     return delta
+
+
+def _commit(k: _SweepState, rblk: torch.Tensor, gacc: torch.Tensor) -> None:
+    """resid −= Σ_s (spec_s · gacc) ⊗ img_s over the color's patches,
+    λ-chunk by λ-chunk (:func:`patch_delta`)."""
+    for lo, hi in k.lam_bounds():
+        rblk[..., lo:hi] -= patch_delta(k, gacc, lo, hi)
 
 
 def _steps(k: _SweepState):
@@ -268,7 +293,7 @@ def _mh_step_torch(k: _SweepState, c: int, by0: int, bx0: int, adapt: float,
                    dchi_out: torch.Tensor) -> torch.Tensor:
     """One MH step: color ``c``'s spaxels in the tile at block (by0, bx0),
     with the uniforms ``u`` ``[C, n_colors, nij, L+1]``; updates ``k`` in
-    place and returns the residual delta it committed (:func:`_commit`)."""
+    place and returns the g it committed (:func:`_commit`)."""
     f = k.f
     L = k.spec.shape[1]
     pi = torch.tensor(math.pi, dtype=k.resid.dtype)
@@ -288,12 +313,13 @@ def _mh_step_torch(k: _SweepState, c: int, by0: int, bx0: int, adapt: float,
     g = _lsf_band(jumps, k.lsf)
     dchi = (g * g * q - 2.0 * g * lin).sum(dim=-1)        # [C,nyt,nxt]
     accf = ((torch.log(uc[..., L]) < -0.5 * dchi) & (v > 0)).to(g.dtype)
-    delta = _commit(k, rblk, g * accf[..., None])
+    g = g * accf[..., None]
+    _commit(k, rblk, g)
     _at(k, k.clean, cy, cx, by0, bx0)[...] += jumps * accf[..., None]
     ls += adapt * (accf - k.target) * v
     _at_rows(k, accept_out[:, c], by0, bx0)[...] = accf
     _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
-    return delta
+    return g
 
 
 def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
@@ -396,7 +422,7 @@ def _gibbs_step_torch(k: _SweepState, c: int, by0: int, bx0: int,
                       u: torch.Tensor, live_out: torch.Tensor,
                       dchi_out: torch.Tensor) -> torch.Tensor:
     """One exact-Gibbs step (color ``c`` in the tile at (by0, bx0)) of
-    :func:`_gibbs_sweep_torch`; returns the committed residual delta."""
+    :func:`_gibbs_sweep_torch`; returns the committed g."""
     dt = k.resid.dtype
     two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
     cy, cx = divmod(c, k.f)
@@ -418,11 +444,11 @@ def _gibbs_step_torch(k: _SweepState, c: int, by0: int, bx0: int,
     if k.quad_lo is not None:
         qlo = _at(k, k.quad_lo[None], cy, cx, by0, bx0)[0]
         dchi = dchi + (gacc * gacc * qlo).sum(dim=-1)
-    delta = _commit(k, rblk, gacc)
+    _commit(k, rblk, gacc)
     _at(k, k.clean, cy, cx, by0, bx0)[...] += emitted
     _at_rows(k, live_out[:, c], by0, bx0)[...] = live_all.sum(dim=-1)
     _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
-    return delta
+    return gacc
 
 
 def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
@@ -453,8 +479,7 @@ def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
 def _block_step(k: _SweepState, c: int, u: torch.Tensor,
                 live_out: torch.Tensor, dchi_out: torch.Tensor,
                 sample) -> torch.Tensor:
-    """Color ``c`` of :func:`_block_sweep`; returns the committed residual
-    delta."""
+    """Color ``c`` of :func:`_block_sweep`; returns the committed g."""
     C, L = k.C, k.spec.shape[1]
     cy, cx = divmod(c, k.f)
     uc = u[:, c]                                          # [C, nij, 2, L]
@@ -477,11 +502,11 @@ def _block_step(k: _SweepState, c: int, u: torch.Tensor,
         if k.quad_lo is not None:
             qlo = _at(k, k.quad_lo[None], cy, cx, 0, 0)[0]
             dchi = dchi + (g * g * qlo).sum(dim=-1)
-        delta = _commit(k, rblk, g)
+        _commit(k, rblk, g)
     _at(k, k.clean, cy, cx, 0, 0)[...] += jumps
     live_out[:, c] = (v * L).reshape(1, -1)
     dchi_out[:, c] = dchi.reshape(C, -1)
-    return delta
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -818,7 +843,7 @@ def sweep_state(p: sm.Problem, states: sm.SamplerState, mode: str,
             -1, C, -1, -1, -1, -1).contiguous(),
         band=None if mode != "gibbs_block" else torch.as_tensor(
             cv.lsf_matrix(p.lsf.cpu().numpy()), dtype=dt, device=dev),
-        rows=rows, gy0=gy0,
+        rows=rows, gy0=gy0, lam_chunk=int(cfg.lambda_chunk or 0),
     )
 
 

@@ -301,6 +301,15 @@ def slot_sum(parts: Sequence[torch.Tensor],
     return total
 
 
+def barrier(devices: Sequence, ranks: Sequence[int]) -> None:
+    """Return once every rank of ``ranks`` (the owners of the slots
+    ``devices``) has called it: a :func:`slot_sum` of one zero per slot,
+    so it waits on exactly the mesh's ranks."""
+    me = process_rank()
+    slot_sum([torch.zeros(1, device=d) if r == me else None
+              for d, r in zip(devices, ranks)], ranks)
+
+
 def psum(parts: Sequence[torch.Tensor],
          ranks: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
     """:func:`slot_sum`, copied to every slot (JAX's ``psum``)."""

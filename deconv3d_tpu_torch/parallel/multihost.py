@@ -20,6 +20,12 @@ the cross-process collectives into every sharded program.  Here:
     collectives of ``parallel/mesh.py`` cross the ranks, and every rank
     ends a call with the whole result, bit-equal to the one-process mesh of
     the same slots.
+  * Checkpoints: ``checkpoint.save_state_dcp`` / ``load_state_dcp`` (on
+    ``torch.distributed.checkpoint``, the twin of the JAX package's orbax
+    backend) run on every rank: the state, whole on every rank after a
+    segment, is written once, the metadata last, and each rank loads it
+    onto its own device.  ``Run(checkpoint_path=…)`` writes its NPZ from
+    the rank that owns the mesh's first slot while the others wait.
 
 Launch: ``torchrun --nproc-per-node k prog.py`` with ``initialize()`` and
 ``global_mesh()`` in ``prog.py``; or, without a launcher, every process

@@ -103,7 +103,9 @@ def edge_deltas(delta: torch.Tensor, c: int, f: int, Wp: int):
     """The committed delta ``[C, nyl, f, nx, f, L]`` of a whole-shard step
     of color ``c`` on the shard's first f − 1 rows (head) and on its last
     f − 1 rows (tail, the next shard's head replicas): two
-    ``[C, f − 1, Wp, L]`` strips, zero where the color touched nothing."""
+    ``[C, f − 1, Wp, L]`` strips, zero where the color touched nothing.
+    Only the first and last block rows are read: ``delta`` may hold just
+    those two."""
     C, nyl, _, nx, _, L = delta.shape
     cy, cx = divmod(c, f)
     head = delta.new_zeros((C, f - 1, Wp, L))
@@ -136,14 +138,17 @@ def _color_sweep(mode: str, ranks=None):
                 for d in mine:
                     k, u, a, b = ks[d], us[d], outs_a[d], outs_b[d]
                     if mode == "mh":
-                        delta = sw._mh_step_torch(k, c, 0, 0, adapt, u, a, b)
+                        g = sw._mh_step_torch(k, c, 0, 0, adapt, u, a, b)
                     elif mode == "gibbs":
-                        delta = sw._gibbs_step_torch(k, c, 0, 0, u, a, b)
+                        g = sw._gibbs_step_torch(k, c, 0, 0, u, a, b)
                     else:
-                        delta = sw._block_step(k, c, u, a, b,
-                                               banded.sample_conditional)
+                        g = sw._block_step(k, c, u, a, b,
+                                           banded.sample_conditional)
                     if halo and len(ks) > 1:
-                        heads[d], tails[d] = edge_deltas(delta, c, f, Wp)
+                        # the delta of the first and last block rows only
+                        # (the step committed it λ-chunk by λ-chunk)
+                        heads[d], tails[d] = edge_deltas(
+                            sw.patch_delta(k, g[:, [0, -1]]), c, f, Wp)
                 if not halo or len(ks) == 1:
                     continue
                 # the next shard's head delta lands on my tail replicas, the

@@ -322,10 +322,7 @@ class Run:
                     ),
                 )
                 if self.checkpoint_path:
-                    ckpt.save_state(
-                        self.checkpoint_path, self.states,
-                        meta={"sweeps_done": self.sweeps_done},
-                    )
+                    self._save_checkpoint()
         finally:
             writer.close()
         logger.info("run finished: %d sweeps in %.2fs", total,
@@ -339,6 +336,22 @@ class Run:
             )
         self._warn_if_undermixed()
         return self
+
+    def _save_checkpoint(self) -> None:
+        """The NPZ checkpoint after a segment.  A run whose mesh spans
+        several ranks holds the whole state on every rank: the rank that
+        owns the mesh's first slot writes it, and the others wait for it
+        before the segment ends (every rank writing one path at once could
+        leave a torn file)."""
+        from .parallel import mesh as pm
+
+        mesh = self.spatial_mesh if self.spatial_mesh is not None else self.mesh
+        ranks = [] if mesh is None else mesh.ranks.reshape(-1).tolist()
+        if not ranks or ranks[0] == pm.process_rank():
+            ckpt.save_state(self.checkpoint_path, self.states,
+                            meta={"sweeps_done": self.sweeps_done})
+        if len(set(ranks)) > 1:
+            pm.barrier(mesh.devices.reshape(-1).tolist(), ranks)
 
     def _run_segment(self, n: int) -> ch.MultiChainResult:
         """``n`` sweeps of every chain on the run's route: chains ×
@@ -542,12 +555,24 @@ class Run:
 
     def resume(self, path: Optional[str] = None) -> "Run":
         """Load a checkpoint written by this configuration (bit-exact: the
-        state holds every chain's Philox key and absolute sweep)."""
+        state holds every chain's Philox key and absolute sweep): an NPZ
+        of ``checkpoint_path``, a ``checkpoint.save_state_dcp`` directory,
+        or the NPZ of a JAX package ``Run`` of the same cube, settings and
+        ``n_chains`` (``checkpoint.load_state``).  A JAX run's χ² is on its
+        own weights — exact ones on its ``jnp`` engine, where the port
+        samples on bf16-valued weights — so it is rebaselined on this
+        run's problem (``sampler.rebaseline_chi2``, Kahan term 0); the
+        chains continue from the JAX state on the port's Philox draws."""
         path = path or self.checkpoint_path
         if path is None:
             raise ValueError("no checkpoint path given")
-        self.states, meta = ckpt.load_state(path, self.states)
-        logger.info("resumed at sweep %s", meta.get("sweeps_done"))
+        fmt = ckpt.checkpoint_format(path)
+        states, meta = ckpt.load_state(path, self.states)
+        if fmt == "jax":
+            states = sm.rebaseline_chi2(self.problem, states)
+        self.states = states
+        logger.info("resumed at sweep %d (%s checkpoint)", self.sweeps_done,
+                    fmt)
         return self
 
     def map_estimate(self, tol: Optional[float] = None,

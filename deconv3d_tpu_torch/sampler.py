@@ -66,19 +66,6 @@ from .cube import Cube, torch_dtype
 from .instruments import Instrument
 from .metrics import logger
 
-#: ROADMAP.md "Queue 1" items the port has not reached yet, by knob
-_NOT_PORTED = {
-    "lambda_chunk": "Queue 1 item 11 (λ-chunked plain sweeps, left out)",
-}
-
-
-def not_ported(knob: str, value) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported to deconv3d_tpu_torch yet: "
-        f"see ROADMAP.md, {_NOT_PORTED[knob]}"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Configuration
 # ---------------------------------------------------------------------------
@@ -88,10 +75,7 @@ class RunConfig:
     """Sampler knobs — the JAX package's fields and defaults.
 
     ``max_iterations`` counts full sweeps (every unmasked spaxel visited
-    once).  Knobs of samplers and engines not ported yet keep their fields
-    so configurations carry over; :func:`make_problem` raises
-    ``NotImplementedError`` for any value that would switch one of them
-    on (the ``direct_*`` knobs only act through ``sampler='direct'``).
+    once); the ``direct_*`` knobs only act through ``sampler='direct'``.
     ``coarse_every``: a coarse pass of ``coarse_mode`` (one of
     ``ops.coarse.MODES``) with proposal scale ``coarse_scale`` after every
     ``coarse_every``-th absolute sweep; None or 0 is off.
@@ -103,6 +87,13 @@ class RunConfig:
     and weights exceed the measured window budget (``ops/tiled.py``); else
     the whole-cube engine.  ``tile`` = (ny_t, nx_t) spaxel blocks per tile
     (None: planned).
+    ``lambda_chunk``: the plain engines (``'torch'``, ``'torch_tiled'``,
+    ``'gibbs_block'``'s step and the plain band sweep) read and commit a
+    color's residual slab this many λ-planes at a time, which bounds their
+    slab temporaries on huge fields and leaves the chain bit-equal; 0 is
+    off, None → :func:`auto_lambda_chunk` (the JAX package's rule).  The
+    hand-written kernels have no slab temporaries: on the ``'cuda'``
+    engines the knob does nothing.
     ``chi2_rebaseline_every``: None → 8 for gibbs with more than 2**28 B
     of clean cube, else 0 (off); an int works on every engine
     (:func:`rebaseline_interleave`).
@@ -330,7 +321,7 @@ REBASELINE_AUTO_BYTES = 2**28
 
 def _check_config(config: RunConfig) -> None:
     """The JAX package's refusals (``deconv3d_tpu/sampler.py:395-452``, in
-    its order), then what the port has not reached yet."""
+    its order)."""
     from .ops.coarse import MODES
 
     if config.sampler == "gibbs_block" and config.positivity:
@@ -386,8 +377,6 @@ def _check_config(config: RunConfig) -> None:
     if config.coarse_every is not None and config.coarse_every < 0:
         raise ValueError(
             f"coarse_every must be >= 0 (0 = off), got {config.coarse_every}")
-    if config.lambda_chunk:
-        raise not_ported("lambda_chunk", config.lambda_chunk)
     if config.engine not in ("auto", *ENGINES):
         raise ValueError(
             f"engine must be 'auto' or one of {ENGINES}, got {config.engine!r}"
@@ -489,6 +478,20 @@ def auto_rebaseline_every(sampler: str, clean_bytes: int) -> int:
     return 8 if sampler == "gibbs" and clean_bytes > REBASELINE_AUTO_BYTES else 0
 
 
+#: slab bytes (L·Yc·Xc·itemsize) above which the plain sweeps chunk λ
+LAMBDA_CHUNK_AUTO_BYTES = 2**28
+
+
+def auto_lambda_chunk(L: int, Yc: int, Xc: int, itemsize: int) -> int:
+    """``lambda_chunk`` for None, the JAX package's rule
+    (``deconv3d_tpu/sampler.py:689-694``): above
+    :data:`LAMBDA_CHUNK_AUTO_BYTES` of slab, as many λ-planes as fit it
+    (at least 1); else 0, off."""
+    if L * Yc * Xc * itemsize <= LAMBDA_CHUNK_AUTO_BYTES:
+        return 0
+    return max(1, int(LAMBDA_CHUNK_AUTO_BYTES / (Yc * Xc * itemsize)))
+
+
 def block_factors(lsf: torch.Tensor, quad: torch.Tensor) -> torch.Tensor:
     """``Problem.chol`` of ``sampler='gibbs_block'``: the upper banded
     Cholesky factor ``[Yc, Xc, L, lw]`` of every spaxel's spectrum
@@ -511,7 +514,8 @@ def make_problem(
 
     ``device`` defaults to the cube's.  The engine and tile resolve by
     :func:`resolve_engine`, ``chi2_rebaseline_every=None`` by
-    :func:`auto_rebaseline_every`; naming another device's engine raises
+    :func:`auto_rebaseline_every`, ``lambda_chunk=None`` by
+    :func:`auto_lambda_chunk`; naming another device's engine raises
     before any tensor moves.
     """
     _check_config(config)
@@ -549,8 +553,12 @@ def make_problem(
     if every is None:
         every = auto_rebaseline_every(config.sampler,
                                       L * Yc * Xc * dtype.itemsize)
+    lam_chunk = config.lambda_chunk
+    if lam_chunk is None:
+        lam_chunk = auto_lambda_chunk(L, Yc, Xc, dtype.itemsize)
     config = dataclasses.replace(config, engine=engine, tile=tile,
-                                 chi2_rebaseline_every=int(every))
+                                 chi2_rebaseline_every=int(every),
+                                 lambda_chunk=int(lam_chunk))
 
     var = cube.variance.to(dtype)
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -907,14 +915,63 @@ def coarse_interleave(problem: Problem, state: SamplerState, n_sweeps: int,
 # Host-side helpers
 # ---------------------------------------------------------------------------
 
+#: cube bytes (L·Y·X·4, the other big-field gates' measure) above which
+#: :func:`full_chi2` evaluates in λ-chunks
+FULL_CHI2_CHUNK_BYTES = 2**28
+
+
 def full_chi2(problem: Problem, state: SamplerState) -> torch.Tensor:
-    """Recompute chi² from scratch via the full conv path (drift check)."""
+    """Recompute chi² from scratch via the full conv path (drift check).
+
+    Above :data:`FULL_CHI2_CHUNK_BYTES` of cube this is
+    :func:`full_chi2_chunked`, on every device: the monolithic
+    ``convolve_cube`` holds several cube-size transients (10.4 GB above
+    the live state at the full MUSE field on the card, the chunked path
+    2.3 GB: PERF.md §6), at every χ² rebaseline of a full-field gibbs
+    run."""
     p = problem
+    if p.L * p.Y * p.X * 4 > FULL_CHI2_CHUNK_BYTES:
+        return full_chi2_chunked(p, state)
     h = p.f // 2
     conv = cv.convolve_cube(state.clean[:, : p.Y, : p.X], p.fsf, p.lsf)
     resid = p.data_pad[:, h : h + p.Y, h : h + p.X] - conv
     w = p.w_pad[:, h : h + p.Y, h : h + p.X]
     return torch.sum(resid * resid * w, dtype=torch.float32)
+
+
+def full_chi2_chunked(problem: Problem, state: SamplerState,
+                      chunk: int = 256) -> torch.Tensor:
+    """From-scratch χ² with bounded transients (the JAX package's
+    ``full_chi2_chunked``): the arithmetic of the monolithic
+    :func:`full_chi2` — the "same"-padded LSF conv as ``l`` shifted
+    multiply-adds, then the per-plane FSF conv of the output wavelength —
+    over chunks of ``chunk`` output planes.  The clean cube is zero-padded
+    by lw//2 planes on the λ axis once (one cube copy), so plane lo + s of
+    the pad is clean plane lo + s − lw//2 and the edges are the monolithic
+    path's.  Each chunk's float32 sum is added in float64."""
+    p = problem
+    h, lw = p.f // 2, int(p.lsf.shape[1])
+    chunk = max(1, min(int(chunk), p.L))
+    clean = state.clean[:, : p.Y, : p.X]
+    padl = torch.nn.functional.pad(clean, (0, 0, 0, 0, lw // 2, lw // 2))
+    lsf, fsf = p.lsf.to(clean.dtype), p.fsf.to(clean.dtype)
+    spatial = (cv.apply_fsf if cv.resolve_spatial("auto") == "fft"
+               else cv.apply_fsf_direct)
+    total = torch.zeros((), dtype=torch.float64, device=clean.device)
+    for lo in range(0, p.L, chunk):
+        n = min(chunk, p.L - lo)
+        slab = padl[lo : lo + n + lw - 1]
+        lrows = lsf.expand(n, lw) if lsf.shape[0] == 1 else lsf[lo : lo + n]
+        out = torch.zeros((n, p.Y, p.X), dtype=clean.dtype,
+                          device=clean.device)
+        for d in range(lw):
+            out = out + lrows[:, d, None, None] * slab[d : d + n]
+        conv = spatial(out, fsf if fsf.shape[0] == 1 else fsf[lo : lo + n])
+        del out
+        resid = p.data_pad[lo : lo + n, h : h + p.Y, h : h + p.X] - conv
+        w = p.w_pad[lo : lo + n, h : h + p.Y, h : h + p.X]
+        total += torch.sum(resid * resid * w, dtype=torch.float32)
+    return total.to(torch.float32)
 
 
 def posterior_mean(problem: Problem, state: SamplerState) -> torch.Tensor:

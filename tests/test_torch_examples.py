@@ -335,14 +335,14 @@ def test_sharded_running_chi2_matches_from_scratch(sharded, topology):
 # -- a JAX checkpoint -------------------------------------------------------------
 
 def test_jax_checkpoint_carries_across_through_interop(tmp_path):
-    """A JAX ``Run``'s NPZ checkpoint does not load with the port's
-    ``resume`` (pytree leaves, not named fields: ``KeyError``); the recipe
-    of ``docs/torch.md`` carries it across: the leaves in
-    ``SamplerState``'s field order through ``interop.state_from_numpy``,
-    equal to the JAX state, and the port's run continues from its
-    absolute sweep with a running χ² within 1e-5 of the from-scratch one
-    (the carried χ² is the JAX run's on exact weights, off the port's
-    bf16-valued ones by ~2e-6)."""
+    """A JAX ``Run``'s NPZ checkpoint (pytree leaves, not named fields)
+    loads with the port's ``resume``, and so does it by hand: the leaves
+    in ``SamplerState``'s field order through ``interop.state_from_numpy``,
+    equal to the JAX state and to ``resume``'s (but χ², which ``resume``
+    rebaselines on the port's bf16-valued weights: the carried one is the
+    JAX run's on exact weights, off by ~2e-6); the port's run continues
+    from its absolute sweep with a running χ² within 1e-5 of the
+    from-scratch one."""
     import dataclasses
 
     import deconv3d_tpu as jd
@@ -361,14 +361,19 @@ def test_jax_checkpoint_carries_across_through_interop(tmp_path):
         checkpoint_path=path, **kw)
     jrun.run()
     run = d3.Run(cube, inst, device="cpu", **kw)
-    with pytest.raises(KeyError, match="fields"):
-        run.resume(path + ".npz")
+    resumed = run.resume(path + ".npz").states
     names = [f.name for f in dataclasses.fields(d3.SamplerState)]
     with np.load(path + ".npz") as z:
         leaves = {n: z[f"leaf_{i}"][0] for i, n in enumerate(names)}
     run.states = ch.stack_chains([interop.state_from_numpy(leaves)])
     np.testing.assert_array_equal(run.states.clean[0].numpy(),
                                   np.asarray(jrun.states.clean[0]))
+    for name in names:
+        if name not in ("chi2", "chi2_comp"):
+            assert torch.equal(getattr(resumed, name),
+                               getattr(run.states, name)), name
+    assert torch.equal(resumed.chi2,
+                       sm.rebaseline_chi2(run.problem, run.states).chi2)
     assert run.sweeps_done == 3
     run.run(2)
     assert run.sweeps_done == 5

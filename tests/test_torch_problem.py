@@ -144,7 +144,11 @@ def test_adapt_and_keep_schedules_match():
     ],
 )
 def test_unported_knobs_raise(rng, knob, value):
+    """The knobs that raised ``NotImplementedError`` until they were
+    ported: none raises now, and the value reaches ``problem.config``
+    (``lambda_chunk``: ``tests/test_torch_chunk.py``)."""
     data, var, mask = _inputs(rng)
     cube = TCube.from_data(data, variance=var, crval=4750.0, cdelt=1.25)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsm.make_problem(cube, tins.MUSE(), tsm.RunConfig(**{knob: value}))
+    p = tsm.make_problem(cube, tins.MUSE(), tsm.RunConfig(**{knob: value}),
+                         device="cpu")
+    assert getattr(p.config, knob) == value
