@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import metrics
 from . import sampler as sm
 
 
@@ -189,17 +190,20 @@ def chain_key(seed: int, chain: int) -> int:
 def init_chain_states(
     problem: sm.Problem, n_chains: int, seed: Optional[int] = None
 ) -> sm.SamplerState:
-    """Batched initial state: one shared init, per-chain Philox keys."""
-    state0 = sm.init_state(problem)
-    base = problem.config.seed if seed is None else seed
-    batched = stack_chains([state0] * n_chains)
-    keys = [chain_key(base, c) for c in range(n_chains)]
-    # int64 holds the 64-bit key pattern (two's complement)
-    batched.key = torch.tensor(
-        [k - (1 << 64) if k >= 1 << 63 else k for k in keys],
-        dtype=torch.int64, device=problem.device,
-    )
-    return batched
+    """Batched initial state: one shared init, per-chain Philox keys.
+    Span ``setup.states``, which with tracing on ends in a sync of a CUDA
+    device."""
+    with metrics.span("setup.states", sync=problem.device):
+        state0 = sm.init_state(problem)
+        base = problem.config.seed if seed is None else seed
+        batched = stack_chains([state0] * n_chains)
+        keys = [chain_key(base, c) for c in range(n_chains)]
+        # int64 holds the 64-bit key pattern (two's complement)
+        batched.key = torch.tensor(
+            [k - (1 << 64) if k >= 1 << 63 else k for k in keys],
+            dtype=torch.int64, device=problem.device,
+        )
+        return batched
 
 
 def segment_bytes_per_chain(problem: sm.Problem) -> int:

@@ -48,6 +48,7 @@ import torch
 
 from .. import chains as ch
 from .. import convolve as cv
+from .. import metrics
 from .. import sampler as sm
 from ..parallel import mesh as pm
 from . import banded, philox, resident, truncnorm
@@ -878,7 +879,12 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     the field's row order, the flux summed over the shards' sums in slot
     order, and the new state in the standard layout joined on the
     problem's device — on every rank, bit-equal to the one-process
-    segment."""
+    segment.
+
+    Spans (``metrics``): ``segment.head`` to the first launch,
+    ``segment.tail`` from the last sweep to the return, and
+    ``segment.gap`` from the last launch to the next segment's first."""
+    head = metrics.span("segment.head").start()
     p, cfg = problem, problem.config
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
@@ -970,6 +976,8 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     draws = {"mh": philox.sweep_uniforms, "gibbs": philox.gibbs_sweep_uniforms,
              "gibbs_block": philox.block_sweep_uniforms}[mode]
     keys = ks[local[0]].keys
+    metrics.segment_began(sweep0, n_sweeps, dev)
+    head.stop()
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
         u_out = None if u_rec is None else u_rec[s]
@@ -992,6 +1000,8 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         sweep(sweep0 + s, adapt[s], us,
               [None if o is None else o[0][s] for o in outs],
               [None if o is None else o[1][s] for o in outs], u_out)
+        if s == n_sweeps - 1:
+            metrics.segment_launched(dev)
         if keep[s]:
             for d in local:
                 k = ks[d]
@@ -1006,6 +1016,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
             slots, flat = mon_at[d]
             mon_sh[d].append(k.clean.reshape(C, -1)[
                 :, flat.to(k.clean.device)].to(dev))
+    tail = metrics.span("segment.tail").start()
 
     def joined(tensors, dim):
         """The shards' tensors concatenated along ``dim`` on ``dev``, on
@@ -1089,6 +1100,7 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         result = ch.select_chains(result, 0)
         accept, dchi = accept[:, 0], dchi[:, 0]
         u_rec = None if u_rec is None else u_rec[:, 0]
+    tail.stop()
     return Segment(result=result, accept=accept, dchi=dchi, uniforms=u_rec)
 
 

@@ -56,6 +56,7 @@ import torch
 from . import chains as ch
 from . import checkpoint as ckpt
 from . import convolve as cv
+from . import metrics
 from . import sampler as sm
 from .cube import Cube, torch_dtype
 from .instruments import Instrument, MUSE
@@ -281,22 +282,31 @@ class Run:
         return int(self.states.sweep.reshape(-1)[0])
 
     def run(self, n_sweeps: Optional[int] = None) -> "Run":
-        """Execute the MCMC in segments of ``segment_size`` sweeps."""
+        """Execute the MCMC in segments of ``segment_size`` sweeps.
+
+        Span ``run.segment_end`` (``metrics``): from a segment's return to
+        the next segment, or after the last to this method's return.  With
+        ``metrics_path`` the spans are on during this call, and each
+        segment's JSONL line carries them."""
         total = self.config.max_iterations if n_sweeps is None else n_sweeps
         seg = self.segment_size or max(1, min(total, 1000))
         writer = MetricsWriter(self.metrics_path)
+        was_tracing = metrics.tracing(True) if self.metrics_path else None
         done = 0
-        t_start = time.time()
+        t_start = time.perf_counter()
+        end = metrics.NULL
         try:
             while done < total:
+                end.stop()
                 n = min(seg, total - done)
-                t0 = time.time()
+                t0 = time.perf_counter()
                 mc = self._run_segment(n)
+                end = metrics.span("run.segment_end").start()
                 self.states = mc.result.state
                 # NaN guard: a non-finite chi² means diverged numerics and
                 # would poison every later segment and the accumulators
                 chi2_now = self.states.chi2.cpu().numpy()
-                dt = time.time() - t0
+                dt = time.perf_counter() - t0
                 if not np.all(np.isfinite(chi2_now)):
                     raise FloatingPointError(
                         f"non-finite chi² after sweep {self.sweeps_done}: "
@@ -323,18 +333,21 @@ class Run:
                 )
                 if self.checkpoint_path:
                     self._save_checkpoint()
+            logger.info("run finished: %d sweeps in %.2fs", total,
+                        time.perf_counter() - t_start)
+            acc = self.acceptance_rate
+            if acc < self.min_acceptance_rate:
+                logger.warning(
+                    "acceptance rate %.4f below min_acceptance_rate %.4f — "
+                    "jump amplitude is likely mistuned", acc,
+                    self.min_acceptance_rate,
+                )
+            self._warn_if_undermixed()
+            end.stop()
         finally:
             writer.close()
-        logger.info("run finished: %d sweeps in %.2fs", total,
-                    time.time() - t_start)
-        acc = self.acceptance_rate
-        if acc < self.min_acceptance_rate:
-            logger.warning(
-                "acceptance rate %.4f below min_acceptance_rate %.4f — "
-                "jump amplitude is likely mistuned", acc,
-                self.min_acceptance_rate,
-            )
-        self._warn_if_undermixed()
+            if was_tracing is not None:
+                metrics.tracing(was_tracing)
         return self
 
     def _save_checkpoint(self) -> None:

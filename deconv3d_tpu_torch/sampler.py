@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from . import convolve as cv
+from . import metrics
 from .cube import Cube, torch_dtype
 from .instruments import Instrument
 from .metrics import logger
@@ -516,8 +517,16 @@ def make_problem(
     :func:`resolve_engine`, ``chi2_rebaseline_every=None`` by
     :func:`auto_rebaseline_every`, ``lambda_chunk=None`` by
     :func:`auto_lambda_chunk`; naming another device's engine raises
-    before any tensor moves.
+    before any tensor moves.  Span ``setup.problem``, which with tracing
+    on ends in a sync of a CUDA device.
     """
+    with metrics.span("setup.problem",
+                      sync=device if device is not None else cube.device):
+        return _make_problem(cube, instrument, config, device)
+
+
+def _make_problem(cube: Cube, instrument: Instrument, config: RunConfig,
+                  device) -> Problem:
     _check_config(config)
     device = torch.device(device) if device is not None else cube.device
     _device_engines(device, config.engine)
@@ -824,16 +833,18 @@ def rebaseline_chi2(problem: Problem, state: SamplerState) -> SamplerState:
     """``state`` with χ² reset to :func:`full_chi2` (every chain of a
     chain-stacked state) and its Kahan compensation to 0.  Nothing else
     changes: clean, residual, key, log-scales and accumulators are the
-    same tensors, so the sampled chain is bit-identical."""
-    if state.clean.dim() == 4:
-        chi2 = torch.stack([
-            full_chi2(problem, dataclasses.replace(state, clean=clean))
-            for clean in state.clean
-        ])
-    else:
-        chi2 = full_chi2(problem, state)
-    return dataclasses.replace(state, chi2=chi2.to(torch.float32),
-                               chi2_comp=torch.zeros_like(state.chi2_comp))
+    same tensors, so the sampled chain is bit-identical.  Span
+    ``rebaseline``, timed on the device too."""
+    with metrics.span("rebaseline", device=problem.device):
+        if state.clean.dim() == 4:
+            chi2 = torch.stack([
+                full_chi2(problem, dataclasses.replace(state, clean=clean))
+                for clean in state.clean
+            ])
+        else:
+            chi2 = full_chi2(problem, state)
+        return dataclasses.replace(state, chi2=chi2.to(torch.float32),
+                                   chi2_comp=torch.zeros_like(state.chi2_comp))
 
 
 def rebaseline_interleave(problem: Problem, state: SamplerState,
@@ -884,18 +895,19 @@ def apply_coarse_pass(problem: Problem, state: SamplerState,
     """One coarse pass (``ops.coarse.coarse_pass``) on ``state``; a
     chain-stacked state chain by chain, each under its own key, so a chain
     is bit-equal alone and in a batch (and one chain's transients are live
-    at a time)."""
+    at a time).  Span ``coarse_pass``, timed on the device too."""
     from . import chains as ch
     from .ops import coarse
 
     mult = float(problem.config.coarse_scale)
-    if state.clean.dim() == 3:
-        return coarse.coarse_pass(problem, state, constants, mult)
-    return ch.stack_chains([
-        coarse.coarse_pass(problem, ch.select_chains(state, c), constants,
-                           mult)
-        for c in range(state.clean.shape[0])
-    ])
+    with metrics.span("coarse_pass", device=problem.device):
+        if state.clean.dim() == 3:
+            return coarse.coarse_pass(problem, state, constants, mult)
+        return ch.stack_chains([
+            coarse.coarse_pass(problem, ch.select_chains(state, c),
+                               constants, mult)
+            for c in range(state.clean.shape[0])
+        ])
 
 
 def coarse_interleave(problem: Problem, state: SamplerState, n_sweeps: int,

@@ -1,0 +1,185 @@
+"""The port's spans (``deconv3d_tpu_torch/metrics.py``): off by default
+and then a shared no-op that records nothing; on, one span per segment
+edge, coarse pass, χ² rebaseline and set-up step, each with its segment's
+first sweep; in ``Run(metrics_path=...)``'s JSONL lines; on the clock of
+``torch.profiler``'s events; and never on the profile's own list."""
+
+import gc
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import deconv3d_tpu_torch as d3
+from deconv3d_tpu_torch import instruments as tins
+from deconv3d_tpu_torch import metrics
+from deconv3d_tpu_torch import sampler as tsm
+
+SEGMENT = ("segment.head", "segment.tail", "run.segment_end")
+
+
+@pytest.fixture(autouse=True)
+def _tracer_off():
+    metrics.tracing(False)
+    metrics.reset()
+    yield
+    metrics.tracing(False)
+    metrics.reset()
+
+
+def _run(metrics_path=None, every=4):
+    """A two-segment CPU ``Run`` (2 × 4 sweeps), a coarse pass and a χ²
+    rebaseline after every ``every`` sweeps."""
+    rng = np.random.default_rng(3)
+    data = 0.2 * rng.standard_normal((12, 10, 10))
+    data[6, 5, 5] += 5.0
+    cube = d3.Cube.from_data(data, variance=np.full_like(data, 0.04),
+                             crval=4750.0, cdelt=1.25, dtype=np.float64)
+    inst = tins.Instrument(fsf=tins.GaussianFSF(fwhm=1.2),
+                           lsf=tins.GaussianLSF(fwhm=2.0), pixel_scale=0.2)
+    run = d3.Run(cube, inst, max_iterations=8, burn_in=2, fsf_size=5,
+                 lsf_width=5, seed=1, device="cpu", dtype=np.float64,
+                 coarse_every=every, chi2_rebaseline_every=every,
+                 segment_size=4, metrics_path=metrics_path)
+    return run.run()
+
+
+def _by_name(recs):
+    out = {}
+    for r in recs:
+        out.setdefault(r["name"], []).append(r)
+    return out
+
+
+@pytest.mark.parametrize("kw", [{}, {"device": "cpu"}, {"sync": "cpu"}])
+def test_off_span_is_the_shared_no_op(kw):
+    span = metrics.span("probe", **kw)
+    assert span is metrics.NULL
+    with span:
+        pass
+    assert span.start() is metrics.NULL
+    span.stop()
+    assert metrics.records() == [] and metrics.totals() == {}
+
+
+def test_off_a_run_records_nothing():
+    _run()
+    assert metrics.records() == [] and metrics.totals() == {}
+    assert metrics.tracing(False) is False
+    assert metrics._TRACER.on_gc not in gc.callbacks
+
+
+def test_on_every_segment_edge_pass_and_rebaseline(monkeypatch):
+    """One head, tail and end per segment, each with the segment's first
+    sweep; one coarse-pass and one rebaseline span per call of the module
+    attribute; the gap from segment 1's last launch to segment 2's first;
+    set-up once."""
+    calls = {"apply_coarse_pass": [], "rebaseline_chi2": []}
+    for name, seen in calls.items():
+        orig = getattr(tsm, name)
+        monkeypatch.setattr(tsm, name, lambda p, s, *a, _o=orig, _s=seen: (
+            _s.append(int(s.sweep.reshape(-1)[0])), _o(p, s, *a))[1])
+    metrics.tracing(True)
+    _run()
+    by = _by_name(metrics.records())
+    for name in SEGMENT:
+        assert [(r["sweep"], r["sweeps"]) for r in by[name]] == [(0, 4),
+                                                                 (4, 4)]
+    assert calls["apply_coarse_pass"] == calls["rebaseline_chi2"] == [4, 8]
+    assert [r["sweep"] for r in by["coarse_pass"]] == [0, 4]
+    assert [r["sweep"] for r in by["rebaseline"]] == [0, 4]
+    assert [r["sweep"] for r in by["segment.gap"]] == [4]
+    assert len(by["setup.problem"]) == len(by["setup.states"]) == 1
+    for r in metrics.records():
+        assert r["end_ns"] >= r["start_ns"]
+        assert r["host_ms"] == (r["end_ns"] - r["start_ns"]) / 1e6
+        assert r["device_ms"] is None            # no CUDA events on the CPU
+    totals = metrics.totals()
+    assert totals["segment.head"][0] == 2 and totals["coarse_pass"][0] == 2
+
+
+def test_metrics_path_writes_spans_into_each_line(tmp_path):
+    path = tmp_path / "m.jsonl"
+    _run(metrics_path=str(path))
+    lines = [json.loads(x) for x in path.read_text().splitlines()]
+    assert [x["sweep"] for x in lines] == [4, 8]
+    for line in lines:
+        assert {"segment.head", "segment.tail", "coarse_pass",
+                "rebaseline"} <= set(line["span_ms"])
+        assert all(v >= 0 for v in line["span_ms"].values())
+        assert line["span_device_ms"] == {}
+    # the second line holds the first segment's end and the gap into it
+    assert {"run.segment_end", "segment.gap"} <= set(lines[1]["span_ms"])
+    assert "run.segment_end" not in lines[0]["span_ms"]
+    # on for the run's own calls only
+    assert metrics.tracing(False) is False
+
+
+def test_span_lies_on_the_profile_clock():
+    """A span around a matrix product, placed with the profile's trace
+    start, covers the product's profiled interval to within 1 ms; the
+    profile lists no event of the span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(384, 384, dtype=torch.float64)
+    metrics.tracing(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with metrics.span("probe"):
+            torch.mm(a, a)
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    (r,) = [r for r in metrics.records() if r["name"] == "probe"]
+    (mm,) = [e for e in prof.events() if e.name == "aten::mm"]
+    s0, s1 = ((r["start_ns"] - start_ns) / 1e3, (r["end_ns"] - start_ns) / 1e3)
+    assert abs(s0 - mm.time_range.start) < 1e3
+    assert abs(s1 - mm.time_range.end) < 1e3
+    assert not [e for e in prof.events() if "probe" in e.name]
+
+
+def test_gc_is_a_span_while_on():
+    metrics.tracing(True)
+    assert metrics._TRACER.on_gc in gc.callbacks
+    gc.collect()
+    assert "gc" in _by_name(metrics.records())
+    metrics.tracing(False)
+    assert metrics._TRACER.on_gc not in gc.callbacks
+
+
+def test_memory_stays_bounded_per_name():
+    """The last KEEP spans of each name: a flood of one name (collections
+    while a profile is parsed) evicts no span of another."""
+    metrics.tracing(True)
+    metrics.span("setup").start().stop()
+    gc.disable()
+    try:
+        for _ in range(metrics.KEEP + 5):
+            metrics.span("x").start().stop()
+    finally:
+        gc.enable()
+    by = _by_name(metrics.records())
+    assert len(by["x"]) == metrics.KEEP and len(by["setup"]) == 1
+    assert metrics.totals()["x"][0] == metrics.KEEP + 5
+
+
+@pytest.mark.gpu
+def test_tracer_leaves_the_allocators_peak_alone():
+    """Spans with CUDA events and syncs move no peak of the allocator and
+    time the device work they enclose."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the spans' CUDA events")
+    dev = torch.device("cuda")
+    big = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    del big
+    peak = torch.cuda.max_memory_allocated(dev)
+    x = torch.randn(1 << 20, device=dev)
+    metrics.tracing(True)
+    with metrics.span("probe", device=dev, sync=dev):
+        for _ in range(10):
+            x = x * 1.0001
+    metrics.segment_began(0, 1, dev)
+    metrics.segment_launched(dev)
+    metrics.segment_began(1, 1, dev)
+    recs = _by_name(metrics.records())
+    assert torch.cuda.max_memory_allocated(dev) == peak
+    assert recs["probe"][0]["device_ms"] > 0
+    assert recs["segment.gap"][0]["device_ms"] >= 0
