@@ -35,7 +35,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (``resident_barrier_launch``).
 5. main    — ``Run(cube, MUSE(), max_iterations=400, burn_in=200).run()``
    → ``diagnostics()`` → ``save()`` on the bench cube; the resident kernel
-   must have run every sweep (classic K1 none); running χ² against
+   must have run every sweep (classic K1 none), the χ² scan once per
+   segment (2); running χ² against
    from-scratch χ² ≤ 1e-5;
    post-burn-in acceptance in [0.15, 0.35]; MH sweeps/s over the last 200.
 6. gibbs_main — the same with ``sampler='gibbs'``: acceptance exactly 1.0,
@@ -127,11 +128,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 12b. trunc_normal — the sweeps' truncated-normal device functions,
    elementwise (``trunc_normal_kernel``), against the plain transform on
    the card over α ∈ [−5, 1e4] and uniforms in [2⁻²⁴, 1 − 2⁻²⁴].
-12c. positivity — the ``kPos`` kernels at 30×30×600 against the plain
+12c. chi2_scan — the segment tail's Kahan χ² scan (``csrc/chi2_scan.cu``)
+   against its plain loop on the card, bit for bit, at the main phase's
+   200 × 1 and the benchmark cells' 1000 × 1, 64 × 32 and 8 × 1 (sweeps ×
+   chains); ms per launch of both and the bound; the MH tail's card peak
+   above its inputs at ``subcube_mh``'s segment and a 64-sweep field
+   segment, within the tail's run of sweeps (``TAIL_CHUNK_BYTES``).  ``main`` and
+   ``gibbs_main`` check one launch per segment.  ``--phase chi2_scan``
+   runs it alone.
+12d. positivity — the ``kPos`` kernels at 30×30×600 against the plain
    sweep, bit-equal to each other, in the orthant; ms with the flag off
    and on in turns (off, on, on, off) of the resident kernel, classic K1
    (C = 1 and its ``Run``'s C = 2) and K2; 400-sweep and 2-chain ``Run``s.
-12d. gibbs_block — the banded kernels at its shapes (the draw's library
+12e. gibbs_block — the banded kernels at its shapes (the draw's library
    time at 4 systems), its sweep on the card against the CPU, its ``Run``s.
 13. direct — the direct sampler and the MAP (``ops/direct.py``): the
    banded solve kernel (``csrc/banded.cu`` ``banded_solve_kernel``)
@@ -269,7 +278,9 @@ K2 with positivity on the ``positivity`` phase's shapes; the banded ones with th
 flow of ``full_field`` and their ms at that flow's shapes; the banded
 solve with its launches on the ``direct`` run, and on the
 ``direct_sharded`` run with its ms at the slots' shapes; the band and solve
-launches of each rank of ``multihost``), the
+launches of each rank of ``multihost``; the χ² scan with its launches
+on ``main`` and its ms at that path's 200 × 1, the cells' shapes beside
+it), the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -694,6 +705,7 @@ def reset_launches():
     tl.band_mh.launches = tl.band_gibbs.launches = 0
     bd.cholesky_banded.launches = bd.sample_conditional.launches = 0
     bd.banded_solve.launches = 0
+    sw.chi2_scan.launches = 0
 
 
 def tiled_counter(sampler):
@@ -773,6 +785,7 @@ def phase_main(tmp, sampler="mh"):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = seg.launches
+    scan_launches = sw.chi2_scan.launches
     diag = run.diagnostics()
     out = os.path.join(tmp, f"smoke_{sampler}")
     run.save(out)
@@ -786,6 +799,7 @@ def phase_main(tmp, sampler="mh"):
     emit("main" if sampler == "mh" else "gibbs_main", shape=list(cube.shape),
          sampler=sampler, sweeps=diag["sweeps"],
          resident_launches=resident_launches, classic_launches=launches,
+         chi2_scan_launches=scan_launches,
          chi2=diag["chi2"], chi2_consistency=consistency,
          chi2_consistency_after_200=consistency_200,
          acceptance=diag["acceptance_rate"], acceptance_post_burn_in=acc_post,
@@ -794,6 +808,9 @@ def phase_main(tmp, sampler="mh"):
     check(resident_launches == 400 and launches == 0,
           f"resident kernel launched {resident_launches} times and classic "
           f"K1 {launches}, expected 400 and 0")
+    # two run(200) calls: two 200-sweep segments, one χ² scan each
+    check(scan_launches == 2,
+          f"chi2_scan_kernel launched {scan_launches} times in 2 segments")
     check(consistency <= 1e-5, "running chi2 drifted from full_chi2")
     if sampler == "mh":
         check(0.15 <= acc_post <= 0.35, "post-burn-in acceptance out of range")
@@ -804,7 +821,7 @@ def phase_main(tmp, sampler="mh"):
     check(clean.shape == cube.shape
           and bool(torch.isfinite(clean.data).all()), "bad clean cube")
     return {"launches": resident_launches, "rate": 200 / dt,
-            "shape": list(cube.shape),
+            "scan_launches": scan_launches, "shape": list(cube.shape),
             "bound": sweep_bound(run.problem, 1, torch.tensor([acc_post]))}
 
 
@@ -1528,6 +1545,98 @@ def phase_trunc_normal():
     check(in_range, "a body draw near p = 1 left [α, α + 9]")
     check(bool((z >= a - 1e-3 * a.abs().clamp(min=1.0)).all()),
           "a truncated draw fell below its bound")
+
+
+#: (sweeps, chains) of the χ² scan's comparisons: the main phase's
+#: 200-sweep segments, then the benchmark cells' segments — 1000 × 1
+#: (``subcube_mh``), 64 × 32 (``subcube_gibbs_chains32``), 8 × 1 (the field
+#: cells)
+CHI2_SCAN_SHAPES = ((200, 1), (1000, 1), (64, 32), (8, 1))
+
+#: (sweeps, chains, colors, spaxels per color) of the MH segment tails whose
+#: card peak ``chi2_scan`` measures: ``subcube_mh``'s 1000-sweep segment at
+#: 30×30×600 (f = 17) and a 64-sweep segment of the 300×300 field
+TAIL_SHAPES = ((1000, 1, 289, 4), (64, 1, 289, 324))
+
+
+def chi2_scan_bound(n, C):
+    """The least time one ``chi2_scan`` launch could take: the committed
+    sums read and the trace written once, χ² and its compensation read
+    and written, against the HBM rate; four float32 additions per (sweep,
+    chain).  Its latency form: 4n dependent additions of one chain."""
+    nbytes, flops = (2 * n * C + 4 * C) * 4, 4 * n * C
+    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTE_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "latency_steps": 4 * n}
+
+
+def phase_chi2_scan():
+    """The segment tail's Kahan χ² scan (``csrc/chi2_scan.cu``
+    ``chi2_scan_kernel``) against its plain loop (``chi2_scan_reference``)
+    on the same card tensors at each of ``CHI2_SCAN_SHAPES``: committed Δχ²
+    of both signs at scales 1e-3 to 1e3 carried into a χ² of 1e4 to 1e6
+    with a compensation that is not 0; trace, χ² and compensation
+    bit-equal; one launch per call; device ms per launch (``torch.profiler``),
+    ms per call (CUDA events), the plain loop's ms, the bound.  Then the
+    whole MH tail (``_segment_tail``) at ``TAIL_SHAPES``: the allocator's
+    peak above its inputs must stay within ``sw.TAIL_CHUNK_BYTES`` (and 1
+    MiB), the run of sweeps the reduction holds at once."""
+    out = {}
+    for n, C in CHI2_SCAN_SHAPES:
+        gen = torch.Generator().manual_seed(n * 100 + C)
+        committed = (torch.randn((n, C), generator=gen)
+                     * torch.logspace(-3, 3, n)[:, None]).float().cuda()
+        chi2 = (1.0e4 + 1.0e6 * torch.rand(C, generator=gen)).cuda()
+        comp = (1.0e-2 * torch.randn(C, generator=gen)).cuda()
+        n0 = sw.chi2_scan.launches
+        got = sw.chi2_scan(committed, chi2, comp)
+        launches = sw.chi2_scan.launches - n0
+        want, plain_ms = timed(
+            lambda: sw.chi2_scan_reference(committed, chi2, comp))
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        _, call_ms = ms_per_call(lambda: sw.chi2_scan(committed, chi2, comp),
+                                 20)
+        ms = device_ms(lambda: sw.chi2_scan(committed, chi2, comp),
+                       "chi2_scan_kernel")
+        b = chi2_scan_bound(n, C)
+        emit("chi2_scan_vs_plain", shape=[n, C], launches=launches,
+             bit_equal=equal, max_abs_err=err, ms=ms, call_ms=call_ms,
+             plain_ms=plain_ms, bound_ms=b["bound_ms"],
+             bound_by=b["bound_by"], latency_steps=b["latency_steps"])
+        check(launches == 1, f"chi2_scan at {n}×{C}: {launches} launches")
+        check(equal, f"chi2_scan_kernel differs from its plain loop at "
+              f"{n}×{C}")
+        out[(n, C)] = {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "bound": b}
+    tails = []
+    for n, C, colors, nij in TAIL_SHAPES:
+        gen = torch.Generator().manual_seed(n + colors)
+        shape = (n, C, colors, nij)
+        accept = (torch.rand(shape, generator=gen) < 0.25).float().cuda()
+        dchi = (torch.randn(shape, generator=gen) * 3.0).cuda()
+        flux = torch.randn((n, C), generator=gen).cuda()
+        mon = torch.randn((n, C, 4), generator=gen).cuda()
+        order = torch.arange(4, device="cuda")
+        chi2 = torch.full((C,), 5.4e5, device="cuda")
+        chi2c = torch.zeros(C, device="cuda")
+        args = ("mh", accept, dchi, flux, mon, order, chi2, chi2c, 900.0)
+        sw._segment_tail(*args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sw._segment_tail(*args)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - base
+        limit = sw.TAIL_CHUNK_BYTES + 2**20
+        tails.append({"shape": list(shape), "peak_above_inputs": above,
+                      "limit": limit,
+                      "whole_segment_float64_bytes": dchi.numel() * 8})
+        check(above <= limit, f"the MH tail at {shape} took {above} bytes "
+              f"above its inputs, more than a run of sweeps ({limit})")
+    emit("segment_tail_memory", tails=tails)
+    return out
 
 
 def phase_positivity():
@@ -3751,14 +3860,15 @@ EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: the kernels each example should launch on one card (module docstring, 15)
 EXAMPLE_KERNELS = {
     "torch_basic_deconvolution": (
-        ("resident_gibbs_kernel", "gibbs_sweep"), ("banded_solve",)),
+        ("resident_gibbs_kernel", "gibbs_sweep"), ("banded_solve",),
+        ("chi2_scan_kernel",)),
     "torch_multichain_diagnostics": (
         ("resident_gibbs_kernel", "gibbs_sweep"), ("banded_cholesky",),
-        ("banded_sample_conditional",)),
+        ("banded_sample_conditional",), ("chi2_scan_kernel",)),
     "torch_sharded_fullfield": (
         ("resident_mh_kernel", "mh_sweep"), ("tiled_mh<band>",),
         ("banded_cholesky",), ("banded_sample_conditional",),
-        ("banded_solve",)),
+        ("banded_solve",), ("chi2_scan_kernel",)),
 }
 
 
@@ -3777,6 +3887,7 @@ def launches_by_kernel():
         "banded_cholesky": bd.cholesky_banded.launches,
         "banded_sample_conditional": bd.sample_conditional.launches,
         "banded_solve": bd.banded_solve.launches,
+        "chi2_scan_kernel": sw.chi2_scan.launches,
     }
     return {k: v for k, v in counts.items() if v}
 
@@ -4063,6 +4174,7 @@ def main() -> int:
     phase_band_launch()
     sharded = phase_sharded_shards()
     phase_trunc_normal()
+    scan = phase_chi2_scan()
     positivity = phase_positivity()
     block = phase_gibbs_block()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4415,6 +4527,23 @@ def main() -> int:
             "launches": direct["field"]["cholesky_launches"],
             "launches_path": "direct full field (1 map_estimate, 2 draws)"},
     })
+    # the segment tail's χ² scan: launches and ms on the main path's
+    # 200-sweep segments, the benchmark cells' segment shapes beside them
+    lines.append({
+        "name": "chi2_scan_kernel", "route": "cuda",
+        "source": "deconv3d_tpu_torch/csrc/chi2_scan.cu",
+        "replaces": "deconv3d_tpu/sampler.py:995-997, :1105-1107, "
+                    ":1174-1176 (the Kahan χ² of each color step's commit, "
+                    "inside lax.scan; no Pallas)",
+        "launches": main_path["mh"]["scan_launches"],
+        "launches_path": "main (Run, 2 segments of 200 sweeps)",
+        "shape": [200, 1], "n_chains": 1,
+        **other_shape(scan[(200, 1)]), "library_ms": None,
+        "library_is": "none computes the compensated scan",
+        "ms_is": device_ms_is,
+        **{f"n{n}_c{C}": other_shape(scan[(n, C)])
+           for n, C in CHI2_SCAN_SHAPES[1:]},
+    })
     check(all(line["launches"] > 0 for line in lines),
           "a kernel was launched no time on its path")
     print(json.dumps({"kernels": lines}))
@@ -4429,7 +4558,7 @@ def main() -> int:
 #: the phases that ``--phase NAME ...`` runs alone after the build, to
 #: iterate on one without the whole smoke (no ``kernels`` or ``ok`` line)
 ALONE = {"statistics": phase_statistics, "examples": phase_examples,
-         "checkpoint": phase_checkpoint,
+         "checkpoint": phase_checkpoint, "chi2_scan": phase_chi2_scan,
          "direct_field": lambda: phase_direct_field(field_cube())}
 
 

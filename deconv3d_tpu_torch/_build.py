@@ -78,6 +78,7 @@ _SIGNATURES = {
     "banded_sample_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "banded_solve_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "banded_segments": ([_I] * 4, _I),
+    "chi2_scan_launch": ([_P] * 6 + [_I] * 2 + [_P], _I),
 }
 
 

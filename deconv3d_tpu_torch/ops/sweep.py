@@ -19,11 +19,13 @@ tile-major — share everything around the sweep:
     padded to 16 bytes, which their asynchronous patch copies need;
   * per-(sweep, chain, color, spaxel) outputs — MH: the accept flag and the
     proposed Δχ²; gibbs: the number of voxels drawn and the Δχ² of the
-    color's committed draws — summed in a fixed order (float64) into each
-    chain's per-sweep Kahan χ² update, as ``_assemble`` does in the JAX
-    package;
-  * the posterior accumulators, flux and monitor traces as plain torch ops
-    after every sweep, batched over the chains.
+    color's committed draws — summed per (sweep, chain) in float64 after
+    the segment's launches, as ``_assemble`` does in the JAX package, and
+    carried into each chain's running χ² by one Kahan scan over the sweeps
+    (:func:`chi2_scan`: ``csrc/chi2_scan.cu`` on a card);
+  * the posterior accumulators, flux and monitored voxels as plain torch
+    ops after every sweep, batched over the chains; the traces as
+    whole-segment ops after the last.
 
 A state is one chain's, or chain-stacked (a leading chain axis on every
 field).  Chains in a batch share the problem and advance in lockstep: their
@@ -42,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -848,6 +850,126 @@ def sweep_state(p: sm.Problem, states: sm.SamplerState, mode: str,
     )
 
 
+def chi2_scan_reference(committed: torch.Tensor, chi2: torch.Tensor,
+                        comp: torch.Tensor):
+    """The running χ² over a segment's sweeps: ``committed`` ``[n, C]``
+    float32, each sweep's committed Δχ² per chain, carried into ``chi2``
+    and its Kahan compensation ``comp`` (``[C]`` float32) in sweep order.
+    Returns ``(trace [C, n], chi2, comp)``: χ² after every sweep, and the
+    final pair."""
+    trace = []
+    for row in committed:
+        y = row - comp
+        t = chi2 + y
+        comp = (t - chi2) - y
+        chi2 = t
+        trace.append(t)
+    return torch.stack(trace, dim=1), chi2, comp
+
+
+def chi2_scan(committed: torch.Tensor, chi2: torch.Tensor,
+              comp: torch.Tensor):
+    """:func:`chi2_scan_reference`: on CUDA tensors one launch of
+    ``chi2_scan_kernel`` (``csrc/chi2_scan.cu``: a thread per chain, the
+    same float32 steps, the same bits), counted by ``chi2_scan.launches``;
+    on CPU tensors the plain loop."""
+    if all(t.device.type == "cpu" for t in (committed, chi2, comp)):
+        return chi2_scan_reference(committed, chi2, comp)
+    from .._build import load_library
+
+    n, C = committed.shape
+    dev = committed.device
+    chi2, comp = chi2.contiguous(), comp.contiguous()
+    for name, t, shape in (("committed", committed, (n, C)),
+                           ("chi2", chi2, (C,)), ("comp", comp, (C,))):
+        _check_cuda(name, t, dev, shape)
+    trace = torch.empty((C, n), dtype=torch.float32, device=dev)
+    chi2_out, comp_out = torch.empty_like(chi2), torch.empty_like(comp)
+    with torch.cuda.device(dev):
+        err = load_library().chi2_scan_launch(
+            *map(_ptr, (committed, chi2, comp, trace, chi2_out, comp_out)),
+            n, C, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"chi2_scan_launch failed: CUDA error {err}")
+    chi2_scan.launches += 1
+    return trace, chi2_out, comp_out
+
+
+chi2_scan.launches = 0
+
+
+class _Tail(NamedTuple):
+    """What a segment's tail makes of its stacked per-sweep outputs, per
+    chain: χ² after every sweep and the final Kahan pair, the traces, and
+    the segment's accepted and proposed updates."""
+
+    chi2_trace: torch.Tensor      # [C, n] float32
+    chi2: torch.Tensor            # [C] float32
+    chi2_comp: torch.Tensor       # [C] float32
+    accept_trace: torch.Tensor    # [C, n]
+    flux_trace: torch.Tensor      # [C, n] float32
+    monitor_trace: torch.Tensor   # [C, n, K]
+    n_accept: torch.Tensor        # [C] float32
+    n_propose: torch.Tensor       # [C] float32
+
+
+#: the bytes the committed Δχ² reduction of a segment's tail may hold at
+#: once: a float64 copy of a run of sweeps' outputs (torch's float64 sum of
+#: float32 makes one) and, for MH, their product with the flags.  The
+#: benchmark's segments take one run; a long segment of a big field, a few.
+TAIL_CHUNK_BYTES = 64 << 20
+
+
+def _committed_dchi(mode: str, accept: torch.Tensor,
+                    dchi: torch.Tensor) -> torch.Tensor:
+    """Each (sweep, chain)'s committed Δχ² of ``[n, C, n_colors, nij]``
+    outputs, summed in float64: ``[n, C]``.  MH's flags are 0 or 1, so
+    their product with Δχ² is exact in Δχ²'s dtype.  Runs of sweeps of at
+    most ``TAIL_CHUNK_BYTES`` at a time (on the CPU a sum's bits do not
+    depend on the run)."""
+    per_sweep = dchi[0].numel() * (8 + dchi.element_size() * (mode == "mh"))
+    step = max(1, TAIL_CHUNK_BYTES // max(per_sweep, 1))
+    parts = []
+    for a in range(0, dchi.shape[0], step):
+        d = dchi[a:a + step]
+        if mode == "mh":
+            d = d * accept[a:a + step]
+        parts.append(d.sum(dim=(2, 3), dtype=torch.float64))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _segment_tail(mode: str, accept: torch.Tensor, dchi: torch.Tensor,
+                  flux: torch.Tensor, mon: torch.Tensor,
+                  order: torch.Tensor, chi2: torch.Tensor,
+                  chi2c: torch.Tensor, n_valid: float) -> _Tail:
+    """The tail of a segment of ``mode`` as whole-segment ops, with no
+    sync: ``accept`` and ``dchi`` ``[n, C, n_colors, nij]`` the sweeps'
+    outputs, ``flux`` ``[n, C]`` their flux, ``mon`` ``[n, C, K]`` the
+    monitored voxels in the shards' order and ``order`` ``[K]`` their
+    slots in the problem's, ``chi2`` / ``chi2c`` ``[C]`` the incoming Kahan
+    pair, ``n_valid`` the problem's valid spaxels (a host number).  Each
+    (sweep, chain)'s committed Δχ² is summed in float64 and rounded to
+    float32 (:func:`_committed_dchi`), then :func:`chi2_scan` carries them
+    in sweep order."""
+    n, C, K = mon.shape
+    f32 = torch.float32
+    chi2_trace, chi2, chi2c = chi2_scan(
+        _committed_dchi(mode, accept, dchi).to(f32), chi2, chi2c)
+    monitor = torch.empty((C, n, K), dtype=mon.dtype, device=mon.device)
+    monitor[:, :, order] = mon.transpose(0, 1)
+    acc_sweep = accept.sum(dim=(2, 3)).T                        # [C, n]
+    n_acc = acc_sweep.sum(dim=1).to(f32)
+    if mode != "mh":
+        # proposals == exact draws == accepted voxels
+        n_prop = n_acc
+        acc_trace = torch.ones_like(acc_sweep)
+    else:
+        n_prop = torch.full_like(n_acc, float(n) * n_valid)
+        acc_trace = acc_sweep / max(n_valid, 1.0)
+    return _Tail(chi2_trace, chi2, chi2c, acc_trace, flux.T.contiguous(),
+                 monitor, n_acc, n_prop)
+
+
 def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
                  uniforms: Optional[torch.Tensor], record_uniforms: bool,
                  mode: str, counter=None,
@@ -881,7 +1003,9 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     problem's device — on every rank, bit-equal to the one-process
     segment.
 
-    Spans (``metrics``): ``segment.head`` to the first launch,
+    The tail (:func:`_segment_tail`) works on the whole segment at once
+    and never waits for the card: the caller's first read of the result
+    does.  Spans (``metrics``): ``segment.head`` to the first launch,
     ``segment.tail`` from the last sweep to the return, and
     ``segment.gap`` from the last launch to the next segment's first."""
     head = metrics.span("segment.head").start()
@@ -957,8 +1081,9 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     sum_sq = [_lambda_last(st.sum_sq.to(dt)) if cfg.track_variance
               and st is not None else None for st in parts]
     del parts
-    chi2, chi2c = states.chi2.clone(), states.chi2_comp.clone()
     n_kept = states.n_kept.clone()
+    # the tail's host count, read once per problem: the tail never syncs
+    n_valid = float(sm.cached(p, "n_valid", lambda: p.n_valid))
 
     # every sweep's per-(color, spaxel) outputs, flux partial sums and
     # monitored voxels, per shard; gathered in the field's order after the
@@ -1033,36 +1158,8 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     mon_all = joined([None if t is None else torch.stack(t) for t in mon_sh],
                      2)
     order = torch.cat([slots for slots, _ in mon_at])
-    chi2_t, flux_t, mon_tr = [], [], []
-    for s in range(n_sweeps):
-        # committed Δχ² summed in a fixed order, then the Kahan update
-        committed = dchi[s].double()
-        if mode == "mh":
-            committed = committed * accept[s].double()
-        y = committed.sum(dim=(1, 2)).to(f32) - chi2c
-        t = chi2 + y
-        chi2c = (t - chi2) - y
-        chi2 = t
-        chi2_t.append(chi2)
-        flux_t.append(flux_all[s])
-        vals = torch.empty((C, mon.numel()), dtype=dt, device=dev)
-        vals[:, order] = mon_all[s]
-        mon_tr.append(vals)
-
-    n_valid = float(p.valid.sum())
-    acc_sweep = accept.sum(dim=(2, 3)).T                        # [C, n_sweeps]
-    n_acc = acc_sweep.sum(dim=1).to(f32)
-    if mode != "mh":
-        # proposals == exact draws == accepted voxels
-        n_prop = n_acc
-        acc_trace = torch.ones_like(acc_sweep)
-    else:
-        n_prop = torch.full_like(n_acc, float(n_sweeps) * n_valid)
-        acc_trace = acc_sweep / max(n_valid, 1.0)
-
-    def traces(parts_, empty_shape):
-        return (torch.stack(parts_, dim=1) if parts_
-                else torch.empty(empty_shape, dtype=f32, device=dev))
+    tl = _segment_tail(mode, accept, dchi, flux_all, mon_all, order,
+                       states.chi2, states.chi2_comp, n_valid)
 
     def rows_of(tensors):
         """The shards' λ-last blocks as one λ-first tensor on ``dev``."""
@@ -1078,12 +1175,12 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
         clean=rows_of([None if k is None else k.clean for k in ks]),
         resid=resid,
         key=states.key.clone(),
-        chi2=chi2,
-        chi2_comp=chi2c,
+        chi2=tl.chi2,
+        chi2_comp=tl.chi2_comp,
         log_scale=joined([None if k is None else k.log_scale for k in ks],
                          -2),
-        n_accept=states.n_accept + n_acc,
-        n_propose=states.n_propose + n_prop,
+        n_accept=states.n_accept + tl.n_accept,
+        n_propose=states.n_propose + tl.n_propose,
         sum_clean=rows_of(sum_clean),
         sum_sq=rows_of(sum_sq) if cfg.track_variance else states.sum_sq.clone(),
         n_kept=n_kept,
@@ -1091,10 +1188,10 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     )
     result = sm.ChainResult(
         state=new_state,
-        chi2_trace=traces(chi2_t, (C, 0)),
-        accept_trace=acc_trace,
-        flux_trace=traces(flux_t, (C, 0)),
-        monitor_trace=traces(mon_tr, (C, 0, mon.numel())).to(dt),
+        chi2_trace=tl.chi2_trace,
+        accept_trace=tl.accept_trace,
+        flux_trace=tl.flux_trace,
+        monitor_trace=tl.monitor_trace,
     )
     if single:
         result = ch.select_chains(result, 0)
