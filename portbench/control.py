@@ -31,13 +31,15 @@ def control(root: Path, workload: str, seed: int, device="cuda",
     inputs."""
     cell = spec.cell(spec.load(root), workload, root, bench)
     config, run = cell["config"], cell["traffic"]["run"]
-    data, variance = scene.make_inputs(config, seed, torch.device(device))
+    data, variance, mask = scene.make_inputs(config, seed,
+                                             torch.device(device))
     out = check.control_outputs(config, data, variance,
                                 int(run.get("n_chains", 1)),
                                 run.get("sampler", "mh"), seed,
                                 float(run.get("target_acceptance",
-                                              check.TARGET_ACCEPTANCE)))
-    return check.judge(check.compare(config, data, variance, out),
+                                              check.TARGET_ACCEPTANCE)),
+                                mask=mask)
+    return check.judge(check.compare(config, data, variance, out, mask=mask),
                        cell["limits"])
 
 

@@ -7,8 +7,10 @@ traffic's warm-up sweeps run.  Then ``Run.run(segment_size)`` runs back
 to back until ``seconds`` have passed; the window ends after a device sync
 at the end of a segment, so every rate is all the work of the window over
 all its time.  With ``trace`` the profiler covers the window's first
-segments, at least :data:`TRACE_SECONDS`, and the calls that the per-layer
-readers name are timed with CUDA events over the whole window.
+segments, at least :data:`TRACE_SECONDS`, the calls that the per-layer
+readers name are timed with CUDA events over the whole window, and the
+port's own spans (``deconv3d_tpu_torch.metrics``) are on from before the
+kernels load until the window has closed.
 
 Once the window has closed and the peak memory is read, the program's
 set-up products and end state are held against the plain reference
@@ -63,13 +65,16 @@ class Context:
     ``traced_sweeps`` of them, ``plain_s`` and ``plain_sweeps`` of the
     window's segments after them, which run without the profiler and so
     give the wall time of a sweep, ``bound`` (the roofline bound of one
-    sweep, ``roofline.sweep_bound``, at their acceptance) and ``spans``
+    sweep, ``roofline.sweep_bound``, at their acceptance), ``spans``
     (ms of each timed call, by span name) with ``span_peaks`` (the
-    allocator's peak bytes during each, on the card).  Untraced, ``dev``
-    is None."""
+    allocator's peak bytes during each, on the card), ``tracer_records``
+    (the port's spans, ``metrics.records()``) and ``trace_start_ns`` (the
+    profile's start on ``time.time_ns()``, the spans' clock).  Untraced,
+    ``dev``, ``tracer_records`` and ``trace_start_ns`` are None."""
 
     def __init__(self, **fields):
         self.dev = self.host = None
+        self.tracer_records = self.trace_start_ns = None
         self.spans, self.span_peaks = {}, {}
         self.__dict__.update(fields)
 
@@ -79,17 +84,35 @@ class Context:
         return trace.device_seconds(self.dev or [], name)
 
 
+#: the keys of a configuration's Moffat ``fsf`` and MUSE ``lsf``, each
+#: onto the port's keyword of the same name
+FSF_KEYS = ("fwhm", "beta", "fwhm_slope", "lambda_ref")
+LSF_KEYS = ("c2", "c1", "c0")
+
+
+def _kernel(cls, spec: dict, kind: str, keys: tuple):
+    if spec.get("kind") != kind:
+        raise ValueError(f"no {cls.__name__} of kind {spec.get('kind')!r}")
+    unknown = sorted(set(spec) - {"kind", *keys})
+    if unknown:
+        raise ValueError(f"the keys {unknown} map onto nothing of the "
+                         f"port's {cls.__name__}")
+    return cls(**{k: None if spec[k] is None else float(spec[k])
+                  for k in keys if k in spec})
+
+
 def instrument_of(config: dict):
     """The port's instrument for the configuration's Moffat FSF and MUSE
-    LSF, the only kinds a configuration of the benchmark states."""
+    LSF, the kinds a configuration of the benchmark states: every key of
+    each maps onto the port's keyword (:data:`FSF_KEYS`,
+    :data:`LSF_KEYS`), and a key that maps onto nothing raises
+    ``ValueError``, so that no key is lost silently."""
     from deconv3d_tpu_torch import instruments as ins
 
-    f, l = config["fsf"], config["lsf"]
-    if (f["kind"], l["kind"]) != ("moffat", "muse"):
-        raise ValueError(f"no instrument for {f['kind']} / {l['kind']}")
-    fsf = ins.MoffatFSF(fwhm=float(f["fwhm"]), beta=float(f["beta"]))
-    lsf = ins.MUSELSF(c2=float(l["c2"]), c1=float(l["c1"]), c0=float(l["c0"]))
-    return ins.MUSE(fsf=fsf, lsf=lsf, pixel_scale=float(config["pixel_scale"]))
+    return ins.MUSE(fsf=_kernel(ins.MoffatFSF, config["fsf"], "moffat",
+                                FSF_KEYS),
+                    lsf=_kernel(ins.MUSELSF, config["lsf"], "muse", LSF_KEYS),
+                    pixel_scale=float(config["pixel_scale"]))
 
 
 def _sync(cuda: bool) -> None:
@@ -167,6 +190,12 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     import deconv3d_tpu_torch as d3
     from deconv3d_tpu_torch import _build
 
+    tracer = None
+    if traced:
+        from deconv3d_tpu_torch import metrics as tracer
+
+        tracer.reset()
+        tracer.tracing(True)
     setup = {}
     t = time.perf_counter()
     setup["start_s"] = t - t0
@@ -174,16 +203,18 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         _build.load_library()
     setup["kernel_load_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    data, variance = scene.make_inputs(config, seed, device)
-    cube = d3.Cube.from_data(data, variance=variance,
+    data, variance, mask = scene.make_inputs(config, seed, device)
+    cube = d3.Cube.from_data(data, variance=variance, mask=mask,
                              crval=float(config["crval"]),
                              cdelt=float(config["cdelt"]), device=device)
-    del data, variance
+    del data, variance, mask
     _sync(cuda)
     setup["inputs_s"] = time.perf_counter() - t
     t = time.perf_counter()
     run = d3.Run(cube, instrument_of(config), seed=int(seed), device=device,
                  dtype=np.dtype(config["dtype"]),
+                 fsf_size=int(config["fsf_size"]),
+                 lsf_width=int(config["lsf_width"]),
                  segment_size=int(traffic["segment_size"]), **traffic["run"])
     run.states
     _sync(cuda)
@@ -235,10 +266,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     finally:
         for mod, attr, orig in originals:
             setattr(mod, attr, orig)
+        if tracer is not None:
+            tracer.tracing(False)
     window_peak = (max(earlier[0], torch.cuda.max_memory_allocated(device))
                    if cuda else 0)
     peak = max(setup_peak, window_peak)
 
+    shapes = shapes_of(run.problem)
     ctx = Context(sampler=run.config.sampler, n_chains=run.n_chains,
                   setup_s=setup_s, setup=setup,
                   window_s=window_s, sweeps=sweeps, memory_peak_bytes=peak,
@@ -252,10 +286,12 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         ctx.plain_s = ends[-1] - plain_start
         ctx.busy_s = trace.busy_seconds(ctx.dev)
         accept = run.trace("accept")[:, warmup:warmup + ctx.traced_sweeps]
-        ctx.bound = roofline.sweep_bound(shapes_of(run.problem), run.n_chains,
+        ctx.bound = roofline.sweep_bound(shapes, run.n_chains,
                                          float(np.mean(accept)))
         ctx.spans = _span_ms(records)
         ctx.span_peaks = dict(span_peaks)
+        ctx.tracer_records = tracer.records()
+        ctx.trace_start_ns = prof.profiler.kineto_results.trace_start_ns()
         del prof, events
 
     accept = np.mean(run.trace("accept")[:, warmup:], axis=1)
@@ -270,9 +306,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    data, variance = scene.make_inputs(config, seed, device)
-    nums = check.compare(config, data, variance, out)
-    del out, data, variance
+    data, variance, mask = scene.make_inputs(config, seed, device)
+    nums = check.compare(config, data, variance, out, mask=mask)
+    del out, data, variance, mask
     correct, compared = check.judge(nums, limits)
 
     values = {}
@@ -299,7 +335,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
              "window_s": window_s, "setup": setup, "setup_s": setup_s,
              "segment_s": np.diff([0.0] + ends).tolist(),
              "acceptance": float(np.mean(accept)),
-             "problem_peak_bytes": problem_peak,
+             "problem_peak_bytes": problem_peak, "shapes": shapes,
              "window_peak_bytes": window_peak,
              "per_chain": nums["per_chain"]}
     if ctx.dev is not None:

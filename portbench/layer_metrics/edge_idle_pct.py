@@ -8,8 +8,6 @@ there, per sweep, over the unprofiled wall time of a sweep, as
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.edge_idle_pct(ctx)

@@ -4,8 +4,6 @@ initial clean cube, residual and χ² of every chain."""
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.total_s(ctx, "setup.states")

@@ -4,8 +4,6 @@ banks, the FSF's factors, the weights and ``quad``."""
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.total_s(ctx, "setup.problem")

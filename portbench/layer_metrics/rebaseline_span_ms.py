@@ -3,8 +3,6 @@
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.mean_of(ctx, "rebaseline", "device_ms", "window")

@@ -6,8 +6,6 @@ unprofiled segments."""
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.mean_of(ctx, "run.segment_end", "host_ms", "plain")

@@ -6,8 +6,6 @@ gap into the first of them holds the profiler's stop)."""
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.mean_of(ctx, "segment.gap", "device_ms", "between_plain")

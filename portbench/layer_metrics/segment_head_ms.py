@@ -5,8 +5,6 @@ voxels) over the window's unprofiled segments."""
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.mean_of(ctx, "segment.head", "host_ms", "plain")

@@ -5,8 +5,6 @@ the window's unprofiled segments."""
 
 from portbench import spans
 
-spans.start()
-
 
 def read(ctx):
     return spans.mean_of(ctx, "segment.tail", "host_ms", "plain")

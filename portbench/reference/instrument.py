@@ -1,5 +1,5 @@
 """The instrument's kernel banks and the sweep engines' weights, from a
-configuration file alone.
+configuration file and the run's inputs alone.
 
 Frozen copies of the formulas the sampler under test documents for its
 MUSE instrument: the Moffat (or Gaussian) FSF rasterised on an f×f pixel
@@ -7,7 +7,7 @@ grid and normalised to unit sum per plane, the Gaussian LSF whose FWHM(λ)
 follows the MUSE calibration polynomial (or a constant), normalised per
 row, and the inverse-variance weights rounded to bfloat16 values, as the
 sampler's kernel engines keep them.  Nothing here reads what the program
-computed: every number comes from the configuration.
+computed.
 """
 
 from __future__ import annotations
@@ -73,10 +73,17 @@ def lsf_bank(config: dict) -> np.ndarray:
     return kern / kern.sum(axis=1, keepdims=True)
 
 
-def weights(variance: torch.Tensor) -> torch.Tensor:
-    """1/variance where the variance is finite and positive, else 0,
-    rounded to the nearest bfloat16 value and held in the variance's
-    dtype: the weights every sweep engine's χ² and Δχ² use."""
+def weights(variance: torch.Tensor, data=None, mask=None) -> torch.Tensor:
+    """1/variance where the variance is finite and positive, the datum is
+    not NaN and the spaxel not masked (``mask`` ``[Y, X]``, True =
+    excluded), else 0, rounded to the nearest bfloat16 value and held in
+    the variance's dtype: the weights every sweep engine's χ² and Δχ²
+    use.  A spaxel whose every datum is NaN gets no weight on that rule
+    alone."""
     good = torch.isfinite(variance) & (variance > 0)
+    if data is not None:
+        good &= ~torch.isnan(data)
+    if mask is not None:
+        good &= ~mask
     w = torch.where(good, 1.0 / variance, torch.zeros_like(variance))
     return w.to(torch.bfloat16).to(variance.dtype)

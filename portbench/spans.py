@@ -1,12 +1,10 @@
 """The port's own spans (``deconv3d_tpu_torch.metrics``) in a traced run.
 
-A reader of spans calls :func:`start` when it loads.  A run loads its
-per-layer readers only with ``--trace 1``, and before the kernels load, so
-this turns the port's tracer on (cleared) for traced runs alone; untraced
-runs, which give every end-to-end metric, never turn it on.  A context
-that carries ``tracer_records`` itself is read as it is.  Where the port
-has no tracer, nothing is turned on and every reader of spans returns
-None.
+The harness turns the port's tracer on, cleared, in ``--trace 1`` runs
+before the kernels load and off once the window has closed, and hands its
+spans to the readers as ``ctx.tracer_records``; untraced runs, which give
+every end-to-end metric, never turn it on.  A reader of spans returns None
+where the run has none.
 
 The window's segments are told apart by the absolute sweep each span
 carries (its segment's first): the window holds the last ``ctx.sweeps``
@@ -19,35 +17,12 @@ from __future__ import annotations
 from . import trace
 
 
-def _tracer():
-    try:
-        from deconv3d_tpu_torch import metrics
-    except ImportError:
-        return None
-    return metrics if hasattr(metrics, "tracing") else None
-
-
-def start() -> None:
-    """Turn the port's tracer on, cleared."""
-    tracer = _tracer()
-    if tracer is not None:
-        tracer.reset()
-        tracer.tracing(True)
-
-
 def records(ctx):
-    """The run's spans (``metrics.records()``), or None where there is no
-    device profile to read them beside or no tracer.  Reading turns the
-    tracer off: the run is over."""
-    tracer = _tracer()
-    if tracer is not None:
-        tracer.tracing(False)
+    """The run's spans (``ctx.tracer_records``), or None where there is no
+    device profile to read them beside or no span."""
     if not ctx.dev:
         return None
-    recs = getattr(ctx, "tracer_records", None)
-    if recs is None and tracer is not None:
-        recs = tracer.records()
-    return recs or None
+    return ctx.tracer_records or None
 
 
 def window(ctx, recs):

@@ -13,7 +13,7 @@ import torch
 from portbench import roofline
 from portbench.reference import check, forward, instrument
 
-from .conftest import BENCH
+from .conftest import BENCH, TINY_B5
 
 CONFIGS = sorted((BENCH / "configs").glob("*.json"))
 
@@ -22,20 +22,19 @@ def _config(path):
     return json.loads(path.read_text())
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
-def test_banks_match_the_port(path):
-    """The Moffat FSF and MUSE LSF banks at the configuration's own
-    wavelengths, at the widths the port's default rules pick."""
+@pytest.mark.parametrize("config", [_config(p) for p in CONFIGS]
+                         + [TINY_B5], ids=lambda c: c["name"])
+def test_banks_match_the_port(config):
+    """The FSF and LSF banks at the configuration's own wavelengths and
+    widths, the Moffat's slope included."""
     from deconv3d_tpu_torch import Cube
     from portbench.harness import instrument_of
 
-    config = _config(path)
     L = config["shape"][0]
     cube = Cube.from_data(np.zeros((L, 1, 1), np.float32),
                           crval=config["crval"], cdelt=config["cdelt"])
-    fsf, lsf = instrument_of(config).kernel_banks(cube)
-    assert fsf.shape == (L, config["fsf_size"], config["fsf_size"])
-    assert lsf.shape == (L, config["lsf_width"])
+    fsf, lsf = instrument_of(config).kernel_banks(
+        cube, config["fsf_size"], config["lsf_width"])
     np.testing.assert_allclose(instrument.fsf_bank(config), fsf, rtol=1e-12,
                                atol=0)
     np.testing.assert_allclose(instrument.lsf_bank(config), lsf, rtol=1e-12,
@@ -96,18 +95,22 @@ def test_weights_round_to_bfloat16():
     assert w[0] == 1.0 and w[1] == torch.tensor(1 / 3).to(torch.bfloat16)
 
 
-def test_control_differs_from_the_reference_only_by_rounding(tiny):
+@pytest.mark.parametrize("name", ["tiny", "tiny_b5"])
+def test_control_differs_from_the_reference_only_by_rounding(tiny, name):
     """The float64 control reads as the reference itself: every number 0
-    but ``unmoved``, which is 1 (the reference samples nothing)."""
+    but ``unmoved``, which is 1 (the reference samples nothing), with
+    masked and NaN spaxels too."""
     root, _ = tiny
-    config = json.loads((root / "portbench/configs/tiny.json").read_text())
+    config = json.loads((root / f"portbench/configs/{name}.json").read_text())
     from portbench import scene
 
-    data, var = scene.make_inputs(config, 9, "cpu")
+    data, var, mask = scene.make_inputs(config, 9, "cpu")
     out = check.control_outputs(config, data, var, 2, "gibbs", 9,
-                                dtype=torch.float64)
-    nums = check.compare(config, data, var, out)
+                                dtype=torch.float64, mask=mask)
+    nums = check.compare(config, data, var, out, mask=mask)
     assert nums["unmoved"] == 1.0
+    assert nums.get("unswept_moved", 0.0) == 0.0
+    assert ("unswept_moved" in nums) == (mask is not None)
     for k in ("fsf_err", "lsf_err", "weight_err", "quad_err", "qvox_err",
               "resid_err"):
         assert nums[k] == 0.0, k

@@ -14,7 +14,8 @@ import sys
 import pytest
 import torch
 
-from portbench import control, harness
+from portbench import control, harness, scene
+from portbench.reference import check
 
 from .conftest import REPO
 
@@ -31,7 +32,7 @@ def test_result_line_keys(tiny, traced):
     assert result["attempted"] == 4 * notes["sweeps"] > 0
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(
         result["device"])
-    names = {"problem_s", "kernel_load_s"} if traced else {
+    names = {"kernel_load_s"} if traced else {
         "chain_sweeps_per_s", "setup_s"}
     assert set(result["metrics"]) == names
     assert all(set(v) == {"value", "unit"} for v in result["metrics"].values())
@@ -85,6 +86,30 @@ def test_control_is_not_correct(tiny, cell):
                 "unmoved"} <= failed
         if cell == "tiny_mh":
             assert "accept_dev" in failed
+
+
+@pytest.mark.parametrize("cell", ["tiny_b5_mh", "tiny_b5_gibbs"])
+def test_chromatic_masked_cell_is_correct_and_its_control_is_not(tiny, cell):
+    """A λ-dependent FSF (rank > 1), masked spaxels, NaN spaxels and
+    voxels and a per-voxel variance: the program's run holds to the
+    reference, none of the spaxels it never sweeps moves, and the
+    reference in bfloat16 in its place fails."""
+    root, bench = tiny
+    result, compared, notes = harness.run_cell(root, cell, 2**31 + 13, 0.2,
+                                               False, "cpu", bench=bench)
+    assert result["correct"] is True and result["failed"] == 0
+    assert notes["shapes"]["S"] > 1
+    assert notes["shapes"]["n_valid"] == 86     # 100 − 10 NaN − 4 masked
+    assert compared["unswept_moved"]["value"] == 0.0
+    assert compared["weight_err"]["value"] == 0.0
+    for seed in (1, 2, 3):
+        correct, compared = control.control(root, cell, seed, "cpu",
+                                            bench=bench)
+        assert not correct
+        failed = {k for k, c in compared.items()
+                  if not c["value"] <= c["limit"]}
+        assert {"fsf_err", "quad_err", "resid_err", "chi2_err",
+                "unmoved"} <= failed
 
 
 def _engine():
@@ -143,10 +168,10 @@ def altered(monkeypatch):
     monkeypatch.setattr(sm, "_engine_run_sweeps", step)
 
 
-def _unswept(monkeypatch, region):
-    """Each segment leaves the clean cube's ``region`` (an index of its
-    last three axes, λ, y, x) as it was, and makes the residual and χ²
-    consistent with what it kept: the sweep skipped part of the cube."""
+def _edited(monkeypatch, edit):
+    """Each segment's clean cube is changed in place by ``edit(clean,
+    start)`` (``start``: the segment's first clean cube), and the residual
+    and χ² are made consistent with it."""
     from deconv3d_tpu_torch.convolve import convolve_cube
 
     sm, run = _engine()
@@ -161,7 +186,7 @@ def _unswept(monkeypatch, region):
     def step(problem, state, n):
         r = run(problem, state, n)
         clean = r.state.clean.clone()
-        clean[(Ellipsis, *region)] = state.clean[(Ellipsis, *region)]
+        edit(clean, state.clean)
         resid = (torch.stack([resid_of(problem, c) for c in clean])
                  if clean.dim() == 4 else resid_of(problem, clean))
         kept = sm.rebaseline_chi2(problem, dataclasses.replace(
@@ -169,6 +194,25 @@ def _unswept(monkeypatch, region):
         return dataclasses.replace(r, state=kept)
 
     monkeypatch.setattr(sm, "_engine_run_sweeps", step)
+
+
+def _unswept(monkeypatch, region):
+    """Each segment leaves the clean cube's ``region`` (an index of its
+    last three axes, λ, y, x) as it was: the sweep skipped part of the
+    cube."""
+    def edit(clean, start):
+        clean[(Ellipsis, *region)] = start[(Ellipsis, *region)]
+
+    _edited(monkeypatch, edit)
+
+
+def masked_moved(monkeypatch):
+    """Each segment also moves the masked spaxels of ``tiny_b5`` (rows 2-3,
+    columns 6-7), which a sweep never visits."""
+    def edit(clean, start):
+        clean[..., 2:4, 6:8] += 0.5
+
+    _edited(monkeypatch, edit)
 
 
 def half_tiles(monkeypatch):
@@ -181,6 +225,38 @@ def half_planes(monkeypatch):
     _unswept(monkeypatch, (slice(6, None), slice(None), slice(None)))
 
 
+def _swept_share(root, cell, region):
+    """The share of the swept voxels that ``region`` (λ, y, x) holds."""
+    from portbench import spec
+
+    config = spec.cell(spec.load(root), cell, root,
+                       root / "portbench")["config"]
+    data, variance, mask = scene.make_inputs(config, 11, "cpu")
+    w_pad = check.padded_weights(config, variance, torch.float64, data, mask)
+    visited = check.swept(config, w_pad, data, mask)
+    return float(visited[region[1:]].sum()) / float(visited.sum())
+
+
+@pytest.mark.parametrize("cell", ["tiny_b5_mh", "tiny_b5_gibbs"])
+def test_unmoved_counts_the_swept_voxels(tiny, monkeypatch, cell):
+    """With masked and NaN spaxels, which are never swept, a sound run
+    reads ``unmoved`` 0, and a sweep that skips the columns x ≥ 5 reads
+    the share of the swept voxels there, about ½."""
+    root, bench = tiny
+    _, compared, _ = harness.run_cell(root, cell, 11, 0.2, False, "cpu",
+                                      bench=bench)
+    assert compared["unmoved"]["value"] == 0.0
+    half_tiles(monkeypatch)
+    result, compared, _ = harness.run_cell(root, cell, 11, 0.2, False,
+                                           "cpu", bench=bench)
+    share = _swept_share(root, cell, (slice(None), slice(None),
+                                      slice(5, None)))
+    assert 0.4 < share < 0.6
+    assert compared["unmoved"]["value"] == pytest.approx(share, abs=1e-3)
+    assert not result["correct"]
+    assert compared["unswept_moved"]["value"] == 0.0
+
+
 @pytest.mark.parametrize("cell,fault,number", [
     ("tiny_mh", half_tiles, "unmoved"),
     ("tiny_gibbs", half_tiles, "unmoved"),
@@ -191,6 +267,8 @@ def half_planes(monkeypatch):
     ("tiny_gibbs", half_batch, "unmoved"),
     ("tiny_mh", altered, "resid_err"),
     ("tiny_gibbs", altered, "resid_err"),
+    ("tiny_b5_mh", masked_moved, "unswept_moved"),
+    ("tiny_b5_gibbs", masked_moved, "unswept_moved"),
 ])
 def test_a_broken_sweep_is_not_correct(tiny, monkeypatch, cell, fault,
                                        number):
@@ -201,7 +279,7 @@ def test_a_broken_sweep_is_not_correct(tiny, monkeypatch, cell, fault,
     assert not result["correct"]
     assert result["failed"] > 0
     assert not compared[number]["value"] <= compared[number]["limit"]
-    if fault in (half_tiles, half_planes):
-        # the state stays consistent: only the unmoved share sees the fault
+    if fault in (half_tiles, half_planes, masked_moved):
+        # the state stays consistent: only the moved shares see the fault
         assert [k for k, c in compared.items()
-                if not c["value"] <= c["limit"]] == ["unmoved"]
+                if not c["value"] <= c["limit"]] == [number]

@@ -132,3 +132,39 @@ def test_traced_run_turns_the_tracer_on_and_off(tiny):
             "segment.tail", "run.segment_end"} <= names
     assert metrics.tracing(False) is False
     metrics.reset()
+
+
+def test_loading_the_readers_leaves_the_tracer_off():
+    metrics.tracing(False)
+    for path in sorted((BENCH / "layer_metrics").glob("*.py")):
+        spec.reader(path.stem, BENCH / "layer_metrics")
+    assert metrics.tracing(False) is False
+
+
+def test_a_traced_context_carries_the_spans_and_the_profile_start(tiny):
+    """Readers dropped in as files see ``ctx.tracer_records`` (the port's
+    spans of the run) and ``ctx.trace_start_ns`` (the profile's start on
+    the spans' clock, ``time.time_ns()``)."""
+    import json
+    import time
+
+    root, bench = tiny
+    probes = {"probe_spans": "len(ctx.tracer_records)",
+              "probe_start_s": "ctx.trace_start_ns / 1e9"}
+    doc = json.loads((root / "BENCHMARK.json").read_text())
+    for name, expr in probes.items():
+        (bench / "layer_metrics" / f"{name}.py").write_text(
+            f"def read(ctx):\n    return {expr}\n")
+        doc["per_layer"].append({
+            "name": name, "unit": "n", "better": "higher",
+            "source": "program_span", "layer": "facade (Run.run)",
+            "moves": "chain_sweeps_per_s", "workloads": ["tiny_mh"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(doc))
+    t0 = time.time()
+    result, _, _ = harness.run_cell(root, "tiny_mh", 2**31 + 17, 0.2, True,
+                                    "cpu", bench=bench)
+    values = {k: v["value"] for k, v in result["metrics"].items()}
+    assert values["probe_spans"] == len(metrics.records()) > 0
+    assert t0 < values["probe_start_s"] < time.time()
+    assert metrics.tracing(False) is False
+    metrics.reset()
