@@ -5,9 +5,10 @@ Reference parity: deconv3d logs progress percentages and saves chi²/
 acceptance traces at the end; here every segment emits a structured JSONL
 record (machine-readable) and a human log line, during the run.
 
-Spans are off by default.  Off, :func:`span` returns one shared no-op
-after a single test of a module flag: nothing is recorded, allocated or
-synchronised.  :func:`tracing` turns them on for the process, as
+Spans and counters are off by default.  Off, :func:`span` returns one
+shared no-op and :func:`count` returns, each after a single test of a
+module flag: nothing is recorded, allocated or synchronised.
+:func:`tracing` turns them on for the process, as
 ``logging`` is configured for it; ``Run(metrics_path=...)`` does so for
 its own ``run`` calls, and each segment's JSONL line then carries the
 milliseconds of the spans that ended since the line before.  On, a span
@@ -28,6 +29,10 @@ allocator's peak.  While tracing is on, Python's garbage collections are
 spans too (``gc``).  Memory stays bounded: totals per span name and the
 last :data:`KEEP` spans of each name (a flood of collections, as parsing a
 profile makes, evicts no other span).
+
+Counters (:func:`count`, :func:`counters`) add up what a run did, by
+name: the problem's FSF rank and swept spaxels at set-up, the sweep
+kernels' launches by the instantiation they took.
 """
 
 from __future__ import annotations
@@ -116,8 +121,8 @@ class _Tracer:
     """The process's spans: the newest :data:`KEEP` of each name, totals
     per name ``[count, host ns, device ms]``, the spans whose CUDA events
     are not read yet, the latest segment ``(first absolute sweep,
-    sweeps)``, the open ``segment.gap`` and the running garbage
-    collection's start."""
+    sweeps)``, the open ``segment.gap``, the running garbage
+    collection's start and the counters."""
 
     def __init__(self):
         self.reset()
@@ -129,6 +134,7 @@ class _Tracer:
         self.segment = (None, None)
         self.gap = None
         self.gc_t0 = None
+        self.counters = {}
 
     def add(self, s: _Span, poll: bool = True) -> None:
         s.sweep, s.sweeps = self.segment
@@ -196,6 +202,18 @@ def span(name: str, device=None, sync=None):
     return _Span(name, device, sync)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if not _ON:
+        return
+    _TRACER.counters[name] = _TRACER.counters.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """``{name: total}`` of every counter since the last :func:`reset`."""
+    return dict(_TRACER.counters)
+
+
 def segment_began(sweep: int, sweeps: int, device) -> None:
     """A segment of ``sweeps`` sweeps from absolute sweep ``sweep`` is
     about to launch its first sweep on ``device``: later spans carry it,
@@ -242,7 +260,8 @@ def totals() -> dict:
 
 
 def reset() -> None:
-    """Forget every span, the latest segment and the open gap."""
+    """Forget every span and counter, the latest segment and the open
+    gap."""
     _TRACER.reset()
 
 

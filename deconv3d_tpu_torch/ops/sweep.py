@@ -626,6 +626,16 @@ def phase_slab(L: int, spaxels: int, n_sm: int) -> int:
     return -(-L // n_slabs)
 
 
+def _count_launch(k: _SweepState, counter, count: str) -> None:
+    """One more launch on ``counter.<count>``, and on the tracer's counter
+    of the instantiation the launcher takes (``launch_variant`` in
+    ``csrc/sweep_common.cuh``): ``sweep.launches.rank1`` for an FSF of
+    rank 1, else ``sweep.launches.rank_any`` (``kMaxRank``)."""
+    setattr(counter, count, getattr(counter, count) + 1)
+    metrics.count("sweep.launches.rank1" if k.spec.shape[0] == 1
+                  else "sweep.launches.rank_any")
+
+
 def _launch_of(lib, k: _SweepState, mode: str):
     """The C launcher of this sweep's kernel and the name of its counter."""
     if k.kernel == "resident":
@@ -654,7 +664,8 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
     """Launch one sweep of the whole batch: ``csrc/resident_sweep.cu`` with
     a resident plan (counted by ``counter.resident_launches``), else
     ``csrc/mh_sweep.cu`` or, with a tile, ``csrc/tiled_sweep.cu`` (counted
-    by ``counter.launches``)."""
+    by ``counter.launches``); each launch also on the tracer's counter of
+    its instantiation (:func:`_count_launch`)."""
     lib, tables, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
     dev = k.resid.device
     launch, count = _launch_of(lib, k, "mh")
@@ -669,7 +680,7 @@ def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
         )
     if err != 0:
         raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
-    setattr(counter, count, getattr(counter, count) + 1)
+    _count_launch(k, counter, count)
 
 
 def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
@@ -694,7 +705,7 @@ def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
         )
     if err != 0:
         raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
-    setattr(counter, count, getattr(counter, count) + 1)
+    _count_launch(k, counter, count)
 
 
 # ---------------------------------------------------------------------------

@@ -518,7 +518,12 @@ def make_problem(
     :func:`auto_rebaseline_every`, ``lambda_chunk=None`` by
     :func:`auto_lambda_chunk`; naming another device's engine raises
     before any tensor moves.  Span ``setup.problem``, which with tracing
-    on ends in a sync of a CUDA device.
+    on ends in a sync of a CUDA device; inside it ``setup.fsf_bank`` (the
+    FSF at every λ and its rank-S factors, on the host) and
+    ``setup.weights`` (the sanitised cube, the weights, the padded data,
+    ``quad`` and the swept spaxels).  Counters ``problem.fsf_rank`` (S;
+    not for ``'direct'``, which keeps the full FSF),
+    ``problem.swept_spaxels`` and ``problem.unswept_spaxels`` (of Y·X).
     """
     with metrics.span("setup.problem",
                       sync=device if device is not None else cube.device):
@@ -530,27 +535,27 @@ def _make_problem(cube: Cube, instrument: Instrument, config: RunConfig,
     _check_config(config)
     device = torch.device(device) if device is not None else cube.device
     _device_engines(device, config.engine)
-    cube = cube.to(device).sanitized()
     dtype = torch_dtype(config.dtype)
     L, Y, X = cube.shape
     lam = cube.wavelengths()
 
-    fsf_np = instrument.fsf.bank(
-        lam, size=config.fsf_size, pixel_scale=instrument.pixel_scale
-    )
-    lsf_np = instrument.lsf.bank(lam, cdelt=cube.cdelt, width=config.lsf_width)
     direct = config.sampler == "direct"
     spec_np = imgs_np = None
-    if not direct:
-        # The low-rank reconstruction F̃ = Σ_s spec ⊗ img becomes the
-        # forward model of the sweeps, so the chain is exact for F̃
-        # (ops/fsf_factor.py).  The direct sampler, like the JAX package's
-        # jnp engine, keeps the full FSF.
-        from .ops.fsf_factor import factor_bank
-
-        spec_np, imgs_np, fsf_np, _err = factor_bank(
-            fsf_np, tol=config.fsf_tol, max_rank=config.fsf_max_rank
+    with metrics.span("setup.fsf_bank"):
+        fsf_np = instrument.fsf.bank(
+            lam, size=config.fsf_size, pixel_scale=instrument.pixel_scale
         )
+        if not direct:
+            # The low-rank reconstruction F̃ = Σ_s spec ⊗ img becomes the
+            # forward model of the sweeps, so the chain is exact for F̃
+            # (ops/fsf_factor.py).  The direct sampler, like the JAX
+            # package's jnp engine, keeps the full FSF.
+            from .ops.fsf_factor import factor_bank
+
+            spec_np, imgs_np, fsf_np, _err = factor_bank(
+                fsf_np, tol=config.fsf_tol, max_rank=config.fsf_max_rank
+            )
+    lsf_np = instrument.lsf.bank(lam, cdelt=cube.cdelt, width=config.lsf_width)
 
     f = fsf_np.shape[-1]
     ny, nx = -(-Y // f), -(-X // f)
@@ -569,6 +574,8 @@ def _make_problem(cube: Cube, instrument: Instrument, config: RunConfig,
                                  chi2_rebaseline_every=int(every),
                                  lambda_chunk=int(lam_chunk))
 
+    weights = metrics.span("setup.weights", sync=device).start()
+    cube = cube.to(device).sanitized()
     var = cube.variance.to(dtype)
     zero = torch.zeros((), dtype=dtype, device=device)
     w = torch.where(torch.isfinite(var) & (var > 0), 1.0 / var, zero)
@@ -624,6 +631,12 @@ def _make_problem(cube: Cube, instrument: Instrument, config: RunConfig,
     # spaxels with zero total weight in their footprint have an improper
     # flat conditional: freeze them at their initial value
     valid &= (quad.sum(dim=0) > 0).cpu().numpy()
+    weights.stop()
+    n_swept = int(valid.sum())
+    if not direct:
+        metrics.count("problem.fsf_rank", spec_np.shape[0])
+    metrics.count("problem.swept_spaxels", n_swept)
+    metrics.count("problem.unswept_spaxels", Y * X - n_swept)
 
     # deterministic set of monitored voxels (for per-parameter R̂)
     k = max(1, config.n_monitor)

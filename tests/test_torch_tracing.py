@@ -2,7 +2,10 @@
 and then a shared no-op that records nothing; on, one span per segment
 edge, coarse pass, χ² rebaseline and set-up step, each with its segment's
 first sweep; in ``Run(metrics_path=...)``'s JSONL lines; on the clock of
-``torch.profiler``'s events; and never on the profile's own list."""
+``torch.profiler``'s events; and never on the profile's own list.  The
+counters: off, nothing; on, the problem's FSF rank and swept spaxels at
+set-up, and the sweep kernels' launches by instantiation, never the plain
+sweeps'."""
 
 import gc
 import json
@@ -15,6 +18,7 @@ import deconv3d_tpu_torch as d3
 from deconv3d_tpu_torch import instruments as tins
 from deconv3d_tpu_torch import metrics
 from deconv3d_tpu_torch import sampler as tsm
+from deconv3d_tpu_torch.ops import sweep as tsw
 
 SEGMENT = ("segment.head", "segment.tail", "run.segment_end")
 
@@ -183,3 +187,130 @@ def test_tracer_leaves_the_allocators_peak_alone():
     assert torch.cuda.max_memory_allocated(dev) == peak
     assert recs["probe"][0]["device_ms"] > 0
     assert recs["segment.gap"][0]["device_ms"] >= 0
+
+
+def test_off_count_records_nothing():
+    metrics.count("probe")
+    metrics.count("probe", 5)
+    assert metrics.counters() == {}
+    _run()
+    assert metrics.counters() == {}
+
+
+def test_on_counts_add_up_and_reset_clears_them():
+    metrics.tracing(True)
+    metrics.count("probe")
+    metrics.count("probe", 4)
+    metrics.count("other", 0)
+    assert metrics.counters() == {"probe": 5, "other": 0}
+    metrics.tracing(False)
+    assert metrics.counters() == {"probe": 5, "other": 0}   # kept when off
+    metrics.reset()
+    assert metrics.counters() == {}
+
+
+def _chromatic_cube(device="cpu"):
+    """A 12 × 10 × 10 cube, an FSF whose FWHM grows with λ (rank > 1),
+    rows 2-3 × columns 6-7 masked, column 0 NaN on every plane and rows 5-6
+    × columns 2-3 NaN on planes 0-2, and a variance with a sky line and a
+    factor per spaxel."""
+    rng = np.random.default_rng(5)
+    L, Y, X = 12, 10, 10
+    lam = 4750.0 + 1.25 * np.arange(L)
+    var = ((1.0 + 4.0 * np.exp(-0.5 * ((lam - 4757.5) / 1.06) ** 2))[:, None,
+                                                                       None]
+           * rng.uniform(0.5, 2.0, (1, Y, X)))
+    data = rng.standard_normal((L, Y, X)) * np.sqrt(var)
+    data[6, 5, 5] += 50.0
+    data[:, :, 0] = var[:, :, 0] = np.nan
+    data[:3, 5:7, 2:4] = var[:3, 5:7, 2:4] = np.nan
+    mask = np.zeros((Y, X), dtype=bool)
+    mask[2:4, 6:8] = True
+    cube = d3.Cube.from_data(data.astype(np.float32),
+                             variance=var.astype(np.float32), mask=mask,
+                             crval=4750.0, cdelt=1.25, device=device)
+    inst = tins.MUSE(fsf=tins.MoffatPointSpreadFunction(
+        fwhm=0.2, beta=2.6, fwhm_slope=2e-3, lambda_ref=4750.0))
+    return cube, inst
+
+
+def test_on_make_problem_counts_rank_and_swept_spaxels_in_its_spans():
+    """A chromatic, masked, NaN cube: the FSF's rank (> 1), the swept
+    spaxels (the problem's ``n_valid``) and the rest of Y·X; the FSF bank
+    and the weights as spans inside ``setup.problem``."""
+    cube, inst = _chromatic_cube()
+    metrics.tracing(True)
+    problem = tsm.make_problem(cube, inst, tsm.RunConfig(
+        sampler="mh", fsf_size=5, lsf_width=11), device="cpu")
+    counts = metrics.counters()
+    S = int(problem.fsf_spec.shape[0])
+    assert S > 1 and counts["problem.fsf_rank"] == S
+    assert counts["problem.swept_spaxels"] == problem.n_valid == 86
+    assert (counts["problem.swept_spaxels"]
+            + counts["problem.unswept_spaxels"]) == problem.Y * problem.X
+    by = _by_name(metrics.records())
+    (outer,) = by["setup.problem"]
+    for name in ("setup.fsf_bank", "setup.weights"):
+        (inner,) = by[name]
+        assert outer["start_ns"] <= inner["start_ns"] <= inner["end_ns"] \
+            <= outer["end_ns"]
+    assert by["setup.fsf_bank"][0]["end_ns"] <= by["setup.weights"][0][
+        "start_ns"]
+    assert not [k for k in counts if k.startswith("sweep.launches")]
+
+
+def test_plain_segment_counts_no_launch():
+    """Only kernel launches count: a traced CPU run, whose sweeps are the
+    plain torch ones, adds no ``sweep.launches.*``."""
+    metrics.tracing(True)
+    _run()
+    counts = metrics.counters()
+    assert counts["problem.fsf_rank"] >= 1
+    assert not [k for k in counts if k.startswith("sweep.launches")]
+
+
+@pytest.mark.parametrize("S, name", [(1, "sweep.launches.rank1"),
+                                     (3, "sweep.launches.rank_any"),
+                                     (8, "sweep.launches.rank_any")])
+def test_launch_counts_by_the_instantiation_taken(S, name):
+    """``_count_launch`` follows ``launch_variant``: rank 1 takes the
+    ``kS = 1`` build, any other rank the ``kMaxRank`` one; the module
+    counter counts as before, traced or not."""
+    import types
+
+    k = types.SimpleNamespace(spec=torch.zeros(S, 4))
+    counter = types.SimpleNamespace(launches=0, resident_launches=0)
+    tsw._count_launch(k, counter, "resident_launches")
+    assert counter.resident_launches == 1 and metrics.counters() == {}
+    metrics.tracing(True)
+    tsw._count_launch(k, counter, "launches")
+    tsw._count_launch(k, counter, "launches")
+    assert counter.launches == 2 and metrics.counters() == {name: 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["mh", "gibbs"])
+def test_kernel_launches_count_by_instantiation_on_card(sampler):
+    """On the card the chromatic cube's sweeps launch the any-rank build,
+    one count a sweep; the same cube with a constant FSF the rank-1
+    build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernels")
+    for slope, name in ((2e-3, "sweep.launches.rank_any"),
+                        (0.0, "sweep.launches.rank1")):
+        cube, inst = _chromatic_cube("cuda")
+        inst = tins.MUSE(fsf=tins.MoffatPointSpreadFunction(
+            fwhm=0.2, beta=2.6, fwhm_slope=slope, lambda_ref=4750.0))
+        metrics.reset()
+        metrics.tracing(True)
+        run = d3.Run(cube, inst, seed=1, device="cuda", dtype=np.float32,
+                     fsf_size=5, lsf_width=11, sampler=sampler, burn_in=0,
+                     segment_size=3)
+        run.run(3)
+        torch.cuda.synchronize()
+        counts = metrics.counters()
+        metrics.tracing(False)
+        assert (counts["problem.fsf_rank"] > 1) == (slope != 0.0)
+        launches = {k: v for k, v in counts.items()
+                    if k.startswith("sweep.launches")}
+        assert launches == {name: 3}
