@@ -132,7 +132,7 @@ __device__ __forceinline__ float truncated_jump(float linT, float qs,
 
 struct GibbsArgs {
   float* resid;            // [C, Hp, Wp, Ls] (the first L of a row are data)
-  const float* w;          // [Hp, Wp, Ls]
+  const __nv_bfloat16* w;  // [Hp, Wp, Ls] (bfloat16 values: exact)
   const float* quad;       // [Yc, Xc, L]
   const float* quad_lo;    // [Yc, Xc, L] or null (zero)
   const float* qvox;       // [Yc, Xc, L]
@@ -512,9 +512,9 @@ __device__ __forceinline__ void gibbs_step(const GibbsArgs& a,
 
 // Launch `kernel(args, map of the residual, map of the weights)`: the ring's
 // stages (`a->stages` < 0: as many as fit; the ring needs rows padded to 16
-// bytes), the shared memory (the ring and phase (b)'s window share it), and
-// a grid for `a->max_spaxels` (chain, spaxel)s in the largest step; `pos`:
-// the kernel draws with positivity (a wider window).
+// bytes: Ls % 8 == 0), the shared memory (the ring and phase (b)'s window
+// share it), and a grid for `a->max_spaxels` (chain, spaxel)s in the largest
+// step; `pos`: the kernel draws with positivity (a wider window).
 template <typename Kernel>
 inline int launch_gibbs(Kernel kernel, GibbsArgs* a, bool pos,
                         cudaStream_t stream) {
@@ -529,7 +529,7 @@ inline int launch_gibbs(Kernel kernel, GibbsArgs* a, bool pos,
   size_t optin = 0;
   if (const int e = smem_optin(&optin)) return e;
   if (fixed + window > optin) return static_cast<int>(cudaErrorInvalidValue);
-  a->stages = pick_stages(a->Ls % 4 == 0 ? optin - fixed : 0, stage, a->stages);
+  a->stages = pick_stages(a->Ls % 8 == 0 ? optin - fixed : 0, stage, a->stages);
   if (a->stages < 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_r{}, map_w{};
   if (a->stages > 0) {

@@ -32,12 +32,12 @@
 // color.
 //
 // What bounds it.  (a) and (c) read and write every residual voxel f^2
-// times per sweep, as the MH kernel does (1.6 GB per sweep out of L2 on the
-// 30x30x600 MUSE subcube with one chain), through the ring of asynchronous
-// copies; (b) is a serial chain of 2 lw block barriers per color, spread
-// over C x nij x ceil(L / lam_b) blocks, each running its slab's window.
-// A batch of chains runs its (b) blocks side by side and pays the 3 f^2
-// grid barriers once.
+// times per sweep, as the MH kernel does ((a) with the bfloat16 weights:
+// 1.2 GB per sweep out of L2 on the 30x30x600 MUSE subcube with one
+// chain), through the ring of asynchronous copies; (b) is a serial chain of
+// 2 lw block barriers per color, spread over C x nij x ceil(L / lam_b)
+// blocks, each running its slab's window.  A batch of chains runs its (b)
+// blocks side by side and pays the 3 f^2 grid barriers once.
 //
 // Random numbers: Philox streams 2 and 3 (philox.cuh) under each chain's
 // key, or an injected [C, f*f, nij, 2, L] tensor of (u1, u2) for parity
@@ -103,13 +103,14 @@ long long gibbs_sweep_scratch_floats(int L, long long spaxels,
   return (positivity ? 5LL : 4LL) * spaxels * L;
 }
 
-// Launch one sweep of C chains on `stream`; the rows of `resid` and `w`
-// hold `Ls` >= L floats; `stages` ring stages (< 0: as many as fit, 0:
-// synchronous loads), `lam_b` wavelengths per slab of phase (b);
-// `positivity` draws every voxel truncated to clean >= 0.  Returns a
-// cudaError_t (0 on success), checked right after the launch; the kernel
-// itself runs asynchronously.
-int gibbs_sweep_launch(float* resid, const float* w, const float* quad,
+// Launch one sweep of C chains on `stream`; the rows of `resid` (float)
+// and `w` (bfloat16) hold `Ls` >= L elements, Ls % 8 == 0 for the ring;
+// `stages` ring stages (< 0: as many as fit, 0: synchronous loads), `lam_b`
+// wavelengths per slab of phase (b); `positivity` draws every voxel
+// truncated to clean >= 0.  Returns a cudaError_t (0 on success), checked
+// right after the launch; the kernel itself runs asynchronously.
+int gibbs_sweep_launch(float* resid, const __nv_bfloat16* w,
+                       const float* quad,
                        const float* quad_lo, const float* qvox, float* clean,
                        const float* valid,
                        const float* spec, const float* imgs, const float* lsf,

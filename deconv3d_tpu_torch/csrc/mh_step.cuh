@@ -63,7 +63,7 @@ __device__ __forceinline__ float log_scale_step(float ls, float adapt,
 
 struct MhArgs {
   float* resid;            // [C, Hp, Wp, Ls] (the first L of a row are data)
-  const float* w;          // [Hp, Wp, Ls]
+  const __nv_bfloat16* w;  // [Hp, Wp, Ls] (bfloat16 values: exact)
   const float* quad;       // [Yc, Xc, L]
   float* clean;            // [C, Yc, Xc, L]
   float* log_scale;        // [C, Yc, Xc]
@@ -366,8 +366,8 @@ __device__ __forceinline__ void mh_step(const MhArgs& a, const MhShared& sh,
 
 // Launch `kernel(args, map of the residual, map of the weights)`: the ring's
 // stages (`a->stages` < 0: as many as fit; the ring needs rows padded to 16
-// bytes), the shared memory, and a grid for `spaxels` (chain, spaxel)s in
-// the largest step.
+// bytes: Ls % 8 == 0), the shared memory, and a grid for `spaxels` (chain,
+// spaxel)s in the largest step.
 template <typename Kernel>
 inline int launch_mh(Kernel kernel, MhArgs* a, long long spaxels,
                      cudaStream_t stream) {
@@ -379,7 +379,7 @@ inline int launch_mh(Kernel kernel, MhArgs* a, long long spaxels,
   size_t optin = 0;
   if (const int e = smem_optin(&optin)) return e;
   if (fixed > optin || a->Ls < a->L) return static_cast<int>(cudaErrorInvalidValue);
-  a->stages = pick_stages(a->Ls % 4 == 0 ? optin - fixed : 0, stage, a->stages);
+  a->stages = pick_stages(a->Ls % 8 == 0 ? optin - fixed : 0, stage, a->stages);
   if (a->stages < 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_r{}, map_w{};
   if (a->stages > 0) {

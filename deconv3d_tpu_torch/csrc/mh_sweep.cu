@@ -36,16 +36,17 @@
 // for parity tests.
 //
 // What bounds it.  Each color reads the whole f x f x L patch of residual
-// and weights of each of its spaxels (2 x 4 x f^2 x L bytes: 1.4 MB per
-// spaxel at f=17, L=600) and writes the residual patch back on accept;
-// summed over a sweep, every residual voxel is read f^2 times.  On a 30x30
-// MUSE subcube with one chain that is 1.6 GB per sweep out of L2 spread
-// over only 4 spaxels x 19 chunks = 76 tasks, and 578 grid barriers per
-// sweep: the sweep is bound by L2 latency and barriers, not by bandwidth.
-// A batch of chains multiplies the tasks per barrier (32 chains: 2432
-// tasks).  On the full MUSE range (L=3681) the state leaves L2 and the f^2
-// re-reads go to HBM: the ring's copies then run the card's memory at
-// about two thirds of its rate, and that is the sweep's time (PERF.md).
+// and weights of each of its spaxels ((4 + 2) x f^2 x L bytes, the weights
+// in bfloat16: 1.04 MB per spaxel at f=17, L=600) and writes the residual
+// patch back on accept; summed over a sweep, every residual voxel is read
+// f^2 times.  On a 30x30 MUSE subcube with one chain that is 1.2 GB per
+// sweep out of L2 spread over only 4 spaxels x 19 chunks = 76 tasks, and
+// 578 grid barriers per sweep: the sweep is bound by L2 latency and
+// barriers, not by bandwidth.  A batch of chains multiplies the tasks per
+// barrier (32 chains: 2432 tasks).  On the full MUSE range (L=3681) the
+// state leaves L2 and the f^2 re-reads go to HBM: the ring's copies then
+// run the card's memory at about two thirds of its rate, and that is the
+// sweep's time (PERF.md).
 //
 // Per-(chain, color, spaxel) outputs: the accept flag and the proposed
 // dchi2; the wrapper sums accepted dchi2 in a fixed order and applies each
@@ -85,12 +86,14 @@ long long mh_sweep_scratch_floats(int L, long long spaxels) {
   return tasks * (2 * deconv3d::kChunk + 1);
 }
 
-// Launch one sweep of C chains on `stream`; the rows of `resid` and `w`
-// hold `Ls` >= L floats; `stages` ring stages (< 0: as many as fit, 0:
-// synchronous loads); `positivity` reflects every proposal into clean >= 0.
-// Returns a cudaError_t (0 on success), checked right after the launch; the
-// kernel itself runs asynchronously.
-int mh_sweep_launch(float* resid, const float* w, const float* quad,
+// Launch one sweep of C chains on `stream`; the rows of `resid` (float)
+// and `w` (bfloat16) hold `Ls` >= L elements, Ls % 8 == 0 for the ring;
+// `stages` ring stages (< 0: as many as fit, 0: synchronous loads);
+// `positivity` reflects every proposal into clean >= 0.  Returns a
+// cudaError_t (0 on success), checked right after the launch; the kernel
+// itself runs asynchronously.
+int mh_sweep_launch(float* resid, const __nv_bfloat16* w,
+                    const float* quad,
                     float* clean, float* log_scale, const float* valid,
                     const float* spec, const float* imgs, const float* lsf,
                     const unsigned* keys, const float* uniforms,

@@ -5,29 +5,34 @@
 // launch.
 //
 // Layout (lambda-contiguous; the wrapper transposes at the segment
-// boundary): residual [C, Hp, Wp, Ls], weights [Hp, Wp, Ls] (rows of Ls >=
-// L floats, the first L data), clean [C, Yc, Xc, L], quad/qvox [Yc, Xc, L].
+// boundary): residual [C, Hp, Wp, Ls] float, weights [Hp, Wp, Ls] bfloat16
+// (rows of Ls >= L elements, the first L data), clean [C, Yc, Xc, L],
+// quad/qvox [Yc, Xc, L].  The weights are bfloat16 values in the problem
+// itself (the sampler rounds them), so the bfloat16 copy is exact:
+// __bfloat162float gives back the float every product and sum used before.
 // A task's block holds nw row warps and two service warps: lanes on
 // wavelengths (one 128-byte row per warp), row warps on patch rows dy =
 // warp, warp + nw, ...
 //
-// The ring.  A task reads f x f x 32 floats of the residual and of the
-// weights (74 KB at f = 17) and does a few hundred flops per thread on
-// them; loaded by the threads themselves, at most ~35 KB per SM are in
+// The ring.  A task reads f x f x 32 floats of the residual and bfloat16s
+// of the weights (55 KB at f = 17) and does a few hundred flops per thread
+// on them; loaded by the threads themselves, at most ~35 KB per SM are in
 // flight and the card's memory runs at half its rate.  A block therefore
 // walks its tasks with the next tasks' patches in flight: one thread asks
 // the Tensor Memory Accelerator for each patch -- a [f, f, 32] box of the
-// [C, Hp, Wp, L] tensor (cp.async.bulk.tensor, completion on an mbarrier)
+// [C, Hp, Wp, Ls] tensor (cp.async.bulk.tensor, completion on an mbarrier)
 // -- into a ring of stages in shared memory, and refills a stage as soon as
 // the block has consumed it.  A tensor map's strides are multiples of 16
 // bytes and L is odd on MUSE, so the wrapper pads the rows of the residual
-// and the weights to Ls = 4 ceil(L / 4) floats; a box that reaches past L
-// is filled with zeros.  (Per-thread 4-byte cp.async copies, which need no
-// padding, were measured first: issuing them costs more than they hide.)
+// and the weights to Ls = 8 ceil(L / 8) elements (16 bytes of bfloat16); a
+// box that reaches past L is filled with zeros.  (Per-thread 4-byte
+// cp.async copies, which need no padding, were measured first: issuing
+// them costs more than they hide.)
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
@@ -209,7 +214,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 // The box of `map` at (c0, c1, c2, c3) (innermost first) into `dst`.
-__device__ __forceinline__ void tma_load_4d(float* dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -232,12 +237,18 @@ __host__ __device__ inline size_t ring_aligned(size_t floats) {
   return (floats + kRingAlign - 1) / kRingAlign * kRingAlign;
 }
 
-// Floats of one stage: the residual and weights patches [f, f, 32], the
-// chunk's LSF rows [32, lw], quad [32] and spectra [S, 32] (the MH tail's
-// operands), and one float per thread (the commit's g).
+// Floats of a stage's weights patch [f, f, 32] of bfloat16, to 128 bytes.
+__host__ __device__ inline size_t ring_w_floats(int f) {
+  return ring_aligned(static_cast<size_t>(f) * f * kChunk / 2);
+}
+
+// Floats of one stage: the residual patch [f, f, 32] and the weights patch
+// (ring_w_floats), each on 128 bytes, the chunk's LSF rows [32, lw], quad
+// [32] and spectra [S, 32] (the MH tail's operands), and one float per
+// thread (the commit's g).
 __host__ __device__ inline size_t ring_stage_floats(int S, int f, int lw,
                                                     int threads) {
-  return 2 * static_cast<size_t>(f) * f * kChunk +
+  return static_cast<size_t>(f) * f * kChunk + ring_w_floats(f) +
          static_cast<size_t>(kChunk) * lw + kChunk +
          static_cast<size_t>(S) * kChunk + threads;
 }
@@ -252,7 +263,7 @@ inline int pick_stages(size_t room, size_t stage_bytes, int want) {
   return want <= fit ? want : -1;
 }
 
-// The tensor maps of the residual [C, Hp, Wp, Ls] and the weights
+// The tensor maps of the residual [C, Hp, Wp, Ls] and the bfloat16 weights
 // [1, Hp, Wp, Ls] (kernel parameters), and how often each stage's barrier
 // has completed (every thread counts alike).
 struct PatchMaps {
@@ -272,19 +283,26 @@ struct Ring {
         S(S_), f(f_), lw(lw_),
         stride(ring_stage_floats(S_, f_, lw_, blockDim.x)) {}
   __device__ float* rs(int slot) const { return base + slot * stride; }
-  __device__ float* ws(int slot) const { return rs(slot) + f * f * kChunk; }
-  __device__ float* lsf(int slot) const { return ws(slot) + f * f * kChunk; }
+  __device__ __nv_bfloat16* ws(int slot) const {
+    return reinterpret_cast<__nv_bfloat16*>(rs(slot) + f * f * kChunk);
+  }
+  __device__ float* lsf(int slot) const {
+    return rs(slot) + f * f * kChunk + ring_w_floats(f);
+  }
   __device__ float* quad(int slot) const { return lsf(slot) + kChunk * lw; }
   __device__ float* spec(int slot) const { return quad(slot) + kChunk; }
   __device__ float* own(int slot) const { return spec(slot) + S * kChunk; }
+  // bytes of a patch of `T` (a box past L counts whole: it is zero-filled)
+  template <typename T>
   __device__ unsigned box_bytes() const {
-    return static_cast<unsigned>(f * f * kChunk * sizeof(float));
+    return static_cast<unsigned>(f * f * kChunk * sizeof(T));
   }
   // one thread: start the copies of a task's patches into stage `slot`
   // (the residual's of chain `ch`, and the weights' when `w` is set)
   __device__ void produce(const PatchMaps& m, int slot, int l0, int xs, int ys,
                           int ch, bool w) const {
-    mbar_expect_tx(full + slot, (w ? 2 : 1) * box_bytes());
+    mbar_expect_tx(full + slot,
+                   box_bytes<float>() + (w ? box_bytes<__nv_bfloat16>() : 0u));
     tma_load_4d(rs(slot), m.resid, full + slot, l0, xs, ys, ch);
     if (w) tma_load_4d(ws(slot), m.w, full + slot, l0, xs, ys, 0);
   }
@@ -389,11 +407,12 @@ __device__ __forceinline__ float commit_term(float resid, const float* gs,
 //   pool_s[(warp * S + s) * kChunk + lane] =
 //     sum_{dy = warp, warp+nw, ...} sum_dx img_s[s, dy, dx] * (resid * w)[dy, dx]
 // where `row0` is the offset of patch pixel (0, 0) at wavelength l in the
-// chain's residual and in the weights, whose rows hold Ls floats.  Row
-// warps only; the caller syncs the block before reading the partials.
+// chain's residual and in the weights, whose rows hold Ls elements; w is
+// widened to float exactly before the product.  Row warps only; the caller
+// syncs the block before reading the partials.
 template <int kS>
 __device__ __forceinline__ void patch_partials(const float* resid,
-                                               const float* w,
+                                               const __nv_bfloat16* w,
                                                const float* img_s,
                                                float* pool_s, size_t row0,
                                                bool on, int Wp, int Ls, int f,
@@ -409,7 +428,7 @@ __device__ __forceinline__ void patch_partials(const float* resid,
 #pragma unroll 8
       for (int dx = 0; dx < f; ++dx) {
         const size_t off = row + static_cast<size_t>(dx) * Ls;
-        const float rw = __fmul_rn(resid[off], w[off]);
+        const float rw = __fmul_rn(resid[off], __bfloat162float(w[off]));
 #pragma unroll
         for (int s = 0; s < kS; ++s)
           if (kS == 1 || s < S) pooled[s] = pool_term(pooled[s], img_s[(s * f + dy) * f + dx], rw);
@@ -425,7 +444,7 @@ __device__ __forceinline__ void patch_partials(const float* resid,
 // The sums run in patch_partials' order.
 template <int kS>
 __device__ __forceinline__ void staged_partials(const float* rs,
-                                                const float* ws,
+                                                const __nv_bfloat16* ws,
                                                 const float* img_s,
                                                 float* pool_s, bool on, int f,
                                                 int S) {
@@ -440,7 +459,7 @@ __device__ __forceinline__ void staged_partials(const float* rs,
 #pragma unroll 8
       for (int dx = 0; dx < f; ++dx) {
         const int idx = idx0 + dx * kChunk;
-        const float rw = __fmul_rn(rs[idx], ws[idx]);
+        const float rw = __fmul_rn(rs[idx], __bfloat162float(ws[idx]));
 #pragma unroll
         for (int s = 0; s < kS; ++s)
           if (kS == 1 || s < S) pooled[s] = pool_term(pooled[s], img_s[(s * f + dy) * f + dx], rw);
@@ -520,11 +539,16 @@ __device__ __forceinline__ void staged_commit(float* resid, const float* rs,
   }
 }
 
-// The tensor map of a [C, Hp, Wp, Ls] float tensor whose first L of every
-// row's Ls floats are data, cut into [1, f, f, 32] boxes.  Returns a
-// cudaError_t as an int (0 on success).
-inline int patch_map(CUtensorMap* map, const float* base, int C, int Hp, int Wp,
+// The tensor map of a [C, Hp, Wp, Ls] tensor of `T` (float or
+// __nv_bfloat16) whose first L of every row's Ls elements are data, cut
+// into [1, f, f, 32] boxes.  Returns a cudaError_t as an int (0 on
+// success).
+template <typename T>
+inline int patch_map(CUtensorMap* map, const T* base, int C, int Hp, int Wp,
                      int L, int Ls, int f) {
+  static_assert(std::is_same<T, float>::value ||
+                    std::is_same<T, __nv_bfloat16>::value,
+                "patch_map takes float or __nv_bfloat16");
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                              void*, const cuuint64_t*, const cuuint64_t*,
                              const cuuint32_t*, const cuuint32_t*,
@@ -539,8 +563,8 @@ inline int patch_map(CUtensorMap* map, const float* base, int C, int Hp, int Wp,
     if (!fn) return static_cast<int>(cudaErrorNotSupported);
     encode = reinterpret_cast<Encode>(fn);
   }
-  if (Ls % 4 != 0 || Ls < L) return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t row = static_cast<cuuint64_t>(Ls) * sizeof(float);
+  const cuuint64_t row = static_cast<cuuint64_t>(Ls) * sizeof(T);
+  if (row % 16 != 0 || Ls < L) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(Wp),
                               static_cast<cuuint64_t>(Hp),
@@ -550,7 +574,10 @@ inline int patch_map(CUtensorMap* map, const float* base, int C, int Hp, int Wp,
                              static_cast<cuuint32_t>(f), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
+      map,
+      std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<T*>(base), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

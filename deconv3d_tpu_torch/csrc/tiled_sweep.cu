@@ -57,10 +57,11 @@
 // whole field: the same bits as before the band arguments.
 //
 // What bounds it.  Every residual and weight voxel is read f^2 times per
-// sweep (and the residual written back at every commit): 289 x 3.05 GB at
-// the full field, 0.26 s of HBM time for the reads alone unless a window
-// stays in L2.  Then the dependent steps: (waves) * f^2, each with 2 or 3
-// grid barriers.  PERF.md has the measured split.
+// sweep (and the residual written back at every commit): 289 x 2.29 GB at
+// the full field (the weights in bfloat16: 0.76 of the 2.29), 0.20 s of
+// HBM time for the reads alone unless a window stays in L2.  Then the
+// dependent steps: (waves) * f^2, each with 2 or 3 grid barriers.  PERF.md
+// has the measured split.
 
 #include "gibbs_step.cuh"
 #include "mh_step.cuh"
@@ -140,11 +141,12 @@ int task_phase_clocks(unsigned long long* out) {
 // (device ints; at most `max_tiles` tiles in a wave, raster indices of the
 // band's tiles); the band: block rows [by0, by0 + nyb) of the carried
 // ny x nx grid, whose row 0 is the field's block row gy0 (check_band); the
-// rows of `resid` and `w` hold `Ls` >= L floats; `scratch` holds
-// mh_sweep_scratch_floats(L, C * max_tiles * nyt * nxt) floats;
-// `positivity` as in mh_sweep_launch.  Returns a cudaError_t (0 on success),
-// checked right after the launch.
-int tiled_mh_launch(float* resid, const float* w, const float* quad,
+// rows of `resid` (float) and `w` (bfloat16) hold `Ls` >= L elements,
+// Ls % 8 == 0 for the ring; `scratch` holds mh_sweep_scratch_floats(L,
+// C * max_tiles * nyt * nxt) floats; `positivity` as in mh_sweep_launch.
+// Returns a cudaError_t (0 on success), checked right after the launch.
+int tiled_mh_launch(float* resid, const __nv_bfloat16* w,
+                    const float* quad,
                     float* clean, float* log_scale, const float* valid,
                     const float* spec, const float* imgs, const float* lsf,
                     const unsigned* keys, const float* uniforms,
@@ -180,7 +182,8 @@ int tiled_mh_launch(float* resid, const float* w, const float* quad,
 // positivity) floats;
 // `positivity` as in gibbs_sweep_launch.  Returns a cudaError_t (0 on
 // success).
-int tiled_gibbs_launch(float* resid, const float* w, const float* quad,
+int tiled_gibbs_launch(float* resid, const __nv_bfloat16* w,
+                       const float* quad,
                        const float* quad_lo, const float* qvox, float* clean,
                        const float* valid, const float* spec,
                        const float* imgs, const float* lsf,

@@ -52,7 +52,9 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
     ``qvox`` only as ``quad_tiled`` / ``qvox_tiled``, in the layout of
     ``config.tile``: they come back in the cube layout
     (:func:`untiled_layout`).  Its bfloat16 ``w_pad`` holds the same
-    values as the port's float32 one.  Float arrays take ``config.dtype``."""
+    values as the port's float32 one (``Problem.w_bf16``: the weights'
+    values round-trip through bfloat16).  Float arrays take
+    ``config.dtype``."""
     fdt = torch_dtype(config.dtype)
     kw = {n: int(d[n]) for n in _PROBLEM_INTS}
     d = dict(d)
@@ -75,7 +77,9 @@ def problem_from_numpy(d: Mapping, config: sm.RunConfig = sm.RunConfig(),
             arr, dtype = arr.astype(
                 np.float64 if fdt == torch.float64 else np.float32), fdt
         kw[n] = torch.tensor(arr, dtype=dtype, device=device)
-    return sm.Problem(config=config, **kw)
+    w = kw["w_pad"]
+    return sm.Problem(config=config, **kw, w_bf16=bool(
+        (w.to(torch.bfloat16).to(w.dtype) == w).all()))
 
 
 #: the JAX package's engines → the port's CPU engines

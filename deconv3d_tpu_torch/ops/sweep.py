@@ -16,7 +16,8 @@ tile-major — share everything around the sweep:
     ``[Hp, Wp, L]`` weights, ``[C, Yc, Xc, L]`` clean, ``[Yc, Xc, L]`` quad
     and qvox), set up at the segment start and undone at its end; classic
     K1 and the tiled kernel take the residual and the weights with rows
-    padded to 16 bytes, which their asynchronous patch copies need;
+    padded to 16 bytes, which their asynchronous patch copies need, and the
+    weights as bfloat16 (exact: ``Problem.w_bf16``);
   * per-(sweep, chain, color, spaxel) outputs — MH: the accept flag and the
     proposed Δχ²; gibbs: the number of voxels drawn and the Δχ² of the
     color's committed draws — summed per (sweep, chain) in float64 after
@@ -71,11 +72,12 @@ class Segment:
 class _SweepState:
     """Segment-layout tensors one sweep reads and updates in place."""
 
-    # the classic and tiled kernels take resid and w with rows padded to
-    # Ls = 4⌈L/4⌉ floats (the first L are data): a tensor map of the Tensor
-    # Memory Accelerator needs strides of 16 bytes
-    resid: torch.Tensor      # [C, Hp, Wp, L] (kernels: Ls)
-    w: torch.Tensor          # [Hp, Wp, L] (kernels: Ls)
+    # the ring kernels (classic K1, the tiled kernel) take resid and w with
+    # rows padded to Ls = :func:`ring_row` (L) elements (the first L are
+    # data): a tensor map of the Tensor Memory Accelerator needs strides of
+    # 16 bytes; their w is bfloat16, the same values as the problem's
+    resid: torch.Tensor      # [C, Hp, Wp, L] (ring kernels: Ls)
+    w: torch.Tensor          # [Hp, Wp, L] (ring kernels: Ls, bfloat16)
     quad: torch.Tensor       # [Yc, Xc, L]
     qvox: Optional[torch.Tensor]   # [Yc, Xc, L] (gibbs)
     quad_lo: Optional[torch.Tensor]   # [Yc, Xc, L] (gibbs; None = zero)
@@ -180,10 +182,25 @@ def _lambda_last(t: torch.Tensor) -> torch.Tensor:
     return t.movedim(-3, -1).contiguous()
 
 
-def _lambda_last_padded(t: torch.Tensor) -> torch.Tensor:
-    """[..., L, A, B] → contiguous [..., A, B, Ls], Ls = 4⌈L/4⌉, zeros past L."""
+#: the kernels that copy patches through the ring of ``csrc/
+#: sweep_common.cuh``: their rows are padded, their weights bfloat16
+RING_KERNELS = ("classic", "tiled")
+
+
+def ring_row(L: int) -> int:
+    """Ls = 8⌈L/8⌉, the ring kernels' padded row: 16 bytes of bfloat16
+    weights, a multiple of 16 bytes of the float32 residual too."""
+    return -(-L // 8) * 8
+
+
+def _lambda_last_padded(t: torch.Tensor,
+                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """[..., L, A, B] → contiguous [..., A, B, Ls] in ``dtype`` (default
+    ``t``'s), Ls = :func:`ring_row` (L), zeros past L; written straight
+    from ``t``, with no λ-last copy in ``t``'s dtype."""
     L = t.shape[-3]
-    out = t.new_zeros((*t.shape[:-3], *t.shape[-2:], -(-L // 4) * 4))
+    out = t.new_zeros((*t.shape[:-3], *t.shape[-2:], ring_row(L)),
+                      dtype=dtype)
     out[..., :L] = t.movedim(-3, -1)
     return out
 
@@ -530,7 +547,8 @@ def _check_cuda(name: str, t: torch.Tensor, device, shape, dtype=torch.float32):
 def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     """Checked tensors of one launch, the scratch, the schedule tables of
     the tiled kernel (device ints) and the geometry ints (the padded row
-    length Ls after L, but for the resident kernel; after ``lw``: λ_b for
+    length Ls after L, but for the resident kernel, which also takes
+    float32 weights where the others take bfloat16; after ``lw``: λ_b for
     the resident kernel; the ring stages for the others, before them
     the tile's block rows and columns, the waves and the largest wave's
     tiles for the tiled kernel and after them its band (first block row,
@@ -545,9 +563,11 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
     nij, n_colors = ny * nx, f * f
     Hp, Wp, Yc, Xc = f - 1 + ny * f, f - 1 + nx * f, ny * f, nx * f
     per = (L + 1,) if mode == "mh" else (2, L)
-    Ls = L if k.kernel == "resident" else -(-L // 4) * 4
+    ring = k.kernel in RING_KERNELS
+    Ls = ring_row(L) if ring else L
     shapes = {
-        "resid": (k.resid, (C, Hp, Wp, Ls)), "w": (k.w, (Hp, Wp, Ls)),
+        "resid": (k.resid, (C, Hp, Wp, Ls)),
+        "w": (k.w, (Hp, Wp, Ls), torch.bfloat16 if ring else torch.float32),
         "quad": (k.quad, (Yc, Xc, L)), "clean": (k.clean, (C, Yc, Xc, L)),
         "log_scale": (k.log_scale, (C, Yc, Xc)), "valid": (k.valid, (Yc, Xc)),
         "spec": (k.spec, (S, L)), "imgs": (k.imgs, (S, f, f)),
@@ -563,8 +583,8 @@ def _kernel_args(k: _SweepState, mode: str, u, out_a, out_b, u_out):
         shapes["uniforms"] = (u, (C, n_colors, nij, *per))
     if u_out is not None:
         shapes["uniforms_out"] = (u_out, (C, n_colors, nij, *per))
-    for name, (t, shape) in shapes.items():
-        _check_cuda(name, t, dev, shape)
+    for name, (t, *spec) in shapes.items():
+        _check_cuda(name, t, dev, *spec)
     if not 1 <= S <= 8:
         raise ValueError(f"the kernels take FSF rank 1..8, got {S}")
     if k.key_words is None:
@@ -630,10 +650,14 @@ def _count_launch(k: _SweepState, counter, count: str) -> None:
     """One more launch on ``counter.<count>``, and on the tracer's counter
     of the instantiation the launcher takes (``launch_variant`` in
     ``csrc/sweep_common.cuh``): ``sweep.launches.rank1`` for an FSF of
-    rank 1, else ``sweep.launches.rank_any`` (``kMaxRank``)."""
+    rank 1, else ``sweep.launches.rank_any`` (``kMaxRank``); and on
+    ``sweep.launches.w_bf16`` where the launch's weights are bfloat16 (the
+    ring kernels')."""
     setattr(counter, count, getattr(counter, count) + 1)
     metrics.count("sweep.launches.rank1" if k.spec.shape[0] == 1
                   else "sweep.launches.rank_any")
+    if k.w.dtype == torch.bfloat16:
+        metrics.count("sweep.launches.w_bf16")
 
 
 def _launch_of(lib, k: _SweepState, mode: str):
@@ -831,12 +855,18 @@ def sweep_state(p: sm.Problem, states: sm.SamplerState, mode: str,
                                        *resident.device_limits(dev),
                                        positivity=bool(cfg.positivity))
         name = resident.sweep_kernel(tile, classic, plan)
-    # classic K1 and the tiled kernel read padded rows (_SweepState)
-    lam_last = (_lambda_last_padded
-                if kernel and name in ("classic", "tiled") else _lambda_last)
+    # the ring kernels read padded rows and bfloat16 weights (_SweepState)
+    ring = kernel and name in RING_KERNELS
+    if ring and not p.w_bf16:
+        raise ValueError(
+            "the sweep kernels copy the weights as bfloat16, and this "
+            "problem's weights are not bfloat16 values (Problem.w_bf16; "
+            "make_problem rounds them for every sampler but 'direct')")
     return _SweepState(
-        resid=lam_last(states.resid.to(dt)),
-        w=lam_last(p.w_pad),
+        resid=(_lambda_last_padded if ring else _lambda_last)(
+            states.resid.to(dt)),
+        w=(_lambda_last_padded(p.w_pad, torch.bfloat16) if ring
+           else _lambda_last(p.w_pad)),
         quad=_lambda_last(p.quad),
         qvox=_lambda_last(p.qvox) if mode == "gibbs" else None,
         quad_lo=(_lambda_last(p.quad_lo)

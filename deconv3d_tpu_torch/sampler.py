@@ -214,6 +214,10 @@ class Problem:
     # [Yc, Xc] λ-mean of quad, kept where quad is not (sampler='direct')
     quad_mean: Optional[torch.Tensor] = None
     config: RunConfig = RunConfig()
+    # w_pad holds bfloat16 values (make_problem rounds them for every
+    # sampler but 'direct'), so a bfloat16 copy of it is exact: the ring
+    # kernels copy the weights as bfloat16 (ops/sweep.py sweep_state)
+    w_bf16: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -686,6 +690,7 @@ def _make_problem(cube: Cube, instrument: Instrument, config: RunConfig,
         chol=chol,
         quad_mean=quad_mean,
         config=config,
+        w_bf16=not direct,
     )
 
 

@@ -12,6 +12,10 @@ uniforms.  Tolerances: residual and clean cube atol 1e-5·max|·|, χ² rtol
 1e-5 (float32 sums in another order); accept decisions equal — injected
 accept uniforms within 1e-3 of their threshold are first moved off it
 (``ops.sweep.untie_uniforms``), so no decision is a float32 coin flip.
+
+Then the ring kernels' segment layout on the CPU: the weights in bfloat16,
+exact for the bfloat16-valued weights ``make_problem`` makes, in rows
+padded to 16 bytes, and the checks that hold each launch to it.
 """
 
 import dataclasses
@@ -211,3 +215,157 @@ def test_philox_draws_are_recorded_and_keyed_by_absolute_sweep(pair):
     two = sw.mh_segment_reference(tp, later, 1, record_uniforms=True)
     assert torch.equal(one.uniforms[1], two.uniforms[0])
     assert not torch.equal(one.uniforms[0], one.uniforms[1])
+
+
+# ---------------------------------------------------------------------------
+# The ring kernels' layout: the weights in bfloat16, rows padded to Ls
+# ---------------------------------------------------------------------------
+
+def _port_problem(L, sampler="mh", Y=6, X=7):
+    """A small port problem made on the CPU from a variance whose inverse
+    is no bfloat16 value (``make_problem`` rounds it), and its chain-stacked
+    initial state."""
+    from deconv3d_tpu_torch import Cube as TCube
+    from deconv3d_tpu_torch import chains as tch
+    from deconv3d_tpu_torch import instruments as tins
+
+    rng = np.random.default_rng(L)
+    data = rng.standard_normal((L, Y, X)).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, (L, Y, X)).astype(np.float32)
+    cube = TCube.from_data(data, variance=var, crval=4750.0, cdelt=1.25)
+    inst = tins.Instrument(fsf=tins.GaussianFSF(fwhm=0.5),
+                           lsf=tins.GaussianLSF(fwhm=2.0), pixel_scale=0.2)
+    p = tsm.make_problem(cube, inst, tsm.RunConfig(
+        sampler=sampler, fsf_size=5, lsf_width=5), device="cpu")
+    return p, tch.stack_chains([tsm.init_state(p)])
+
+
+#: the ring kernels' layouts on the CPU (their geometry only: nothing
+#: launches)
+RING = {"tiled": dict(tile=(1, 1)), "classic": dict(classic=True)}
+
+
+@pytest.mark.parametrize("L", [600, 37, 3681])
+def test_ring_weights_widen_to_the_float32_layout(L):
+    """Classic K1 and the tiled kernel take the weights λ-last in bfloat16,
+    rows padded to Ls = 8⌈L/8⌉ (16 bytes, a tensor map's stride) with zeros
+    past L; widened, they are the float32 layout bit for bit.  The residual
+    takes the same Ls; the plain sweeps keep float32 rows of L."""
+    p, states = _port_problem(L)
+    assert p.w_bf16
+    Ls = sw.ring_row(L)
+    assert Ls % 8 == 0 and L <= Ls < L + 8
+    want = sw._lambda_last(p.w_pad)
+    for name, kw in RING.items():
+        k = sw.sweep_state(p, states, "mh", kernel=True, **kw)
+        assert k.kernel == name
+        assert k.w.dtype == torch.bfloat16 and k.w.is_contiguous()
+        assert k.w.shape == (p.Hp, p.Wp, Ls)
+        assert k.resid.dtype == torch.float32
+        assert k.resid.shape == (1, p.Hp, p.Wp, Ls)
+        assert torch.equal(k.w[..., :L].float(), want)
+        assert torch.equal(k.w.float(), sw._lambda_last_padded(p.w_pad))
+        assert not k.w[..., L:].any() and not k.resid[..., L:].any()
+        assert torch.equal(k.resid[..., :L], sw._lambda_last(states.resid))
+    plain = sw.sweep_state(p, states, "mh", kernel=False)
+    assert plain.w.dtype == torch.float32 and torch.equal(plain.w, want)
+
+
+def test_kernel_args_take_bfloat16_weights_on_ring_launches_only(
+        monkeypatch):
+    """``_kernel_args`` holds each launch to its kernel's weights: bfloat16
+    rows of Ls on classic K1 and the tiled kernel, float32 rows of L on the
+    resident kernel; a float32 ``w`` on a ring launch, or a bfloat16 one
+    on a resident launch, is refused before the library loads."""
+    from deconv3d_tpu_torch import _build
+
+    class Loaded(Exception):
+        pass
+
+    def load_library():
+        raise Loaded
+
+    monkeypatch.setattr(_build, "load_library", load_library)
+    p, states = _port_problem(37)
+    nij = p.ny * p.nx
+    outs = (torch.zeros((1, p.n_colors, nij)),
+            torch.zeros((1, p.n_colors, nij)))
+    for kw in RING.values():
+        k = sw.sweep_state(p, states, "mh", kernel=True, **kw)
+        with pytest.raises(Loaded):                 # every check held
+            sw._kernel_args(k, "mh", None, *outs, None)
+        f32 = dataclasses.replace(k, w=sw._lambda_last_padded(p.w_pad))
+        with pytest.raises(TypeError, match="w has dtype torch.float32"):
+            sw._kernel_args(f32, "mh", None, *outs, None)
+    k = sw.sweep_state(p, states, "mh", kernel=True, classic=True)
+    resident = dataclasses.replace(
+        k, kernel="resident", plan=(1, 1), resid=sw._lambda_last(states.resid),
+        w=sw._lambda_last(p.w_pad))
+    with pytest.raises(Loaded):
+        sw._kernel_args(resident, "mh", None, *outs, None)
+    bf16 = dataclasses.replace(resident, w=resident.w.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="w has dtype torch.bfloat16"):
+        sw._kernel_args(bf16, "mh", None, *outs, None)
+
+
+def test_ring_layout_refuses_weights_that_are_not_bfloat16_values(pair):
+    """The wrapper never rounds: a problem whose weights ``make_problem``
+    did not round to bfloat16 values (``Problem.w_bf16`` false: the direct
+    sampler's exact weights, or an imported ``w_pad`` off the bfloat16
+    grid) raises on a ring launch, and still runs the plain sweeps."""
+    p, states = _port_problem(37)
+    exact = dataclasses.replace(p, w_bf16=False)
+    for kw in RING.values():
+        with pytest.raises(ValueError, match="not bfloat16 values"):
+            sw.sweep_state(exact, states, "mh", kernel=True, **kw)
+    sw.sweep_state(exact, states, "mh", kernel=False)
+    direct, _ = _port_problem(37, sampler="direct")
+    assert not direct.w_bf16
+    assert not torch.equal(direct.w_pad.to(torch.bfloat16).float(),
+                           direct.w_pad)
+    # a JAX kernel-engine problem carries bfloat16 weights across
+    _, _, tp, _, _ = pair
+    assert tp.w_bf16
+    d = interop.problem_to_numpy(tp)
+    d["w_pad"] = d["w_pad"] * np.float32(1 + 2**-12)
+    assert not interop.problem_from_numpy(d, tp.config).w_bf16
+
+
+@pytest.mark.parametrize("config_name", ["muse_subcube_30x30x600",
+                                         "muse_subcube_chromatic_masked_30x30x600"])
+def test_benchmark_weights_round_trip_bfloat16(config_name):
+    """The weights the benchmark's configurations make, cut to 48 planes
+    over the same wavelengths and 34 × 34 spaxels — unit noise; the
+    chromatic cube's sky-line variance with its masked and NaN spaxels —
+    are bfloat16 values after ``make_problem``, so the ring kernels'
+    bfloat16 copy changes no bit."""
+    import json
+    from pathlib import Path
+
+    from deconv3d_tpu_torch import Cube as TCube
+    from deconv3d_tpu_torch import chains as tch
+    from portbench import harness, scene
+
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / "portbench" / "configs"
+                         / f"{config_name}.json").read_text())
+    L = 48
+    config.update(shape=[L, 34, 34],
+                  cdelt=config["cdelt"] * config["shape"][0] / L)
+    data, variance, mask = scene.make_inputs(config, 2**31 + 7,
+                                             torch.device("cpu"))
+    cube = TCube.from_data(data, variance=variance, mask=mask,
+                           crval=float(config["crval"]),
+                           cdelt=float(config["cdelt"]))
+    for sampler in ("mh", "gibbs"):
+        p = tsm.make_problem(cube, harness.instrument_of(config), tsm.RunConfig(
+            sampler=sampler, fsf_size=config["fsf_size"],
+            lsf_width=config["lsf_width"]), device="cpu")
+        assert p.w_bf16 and p.w_pad.dtype == torch.float32
+        assert torch.equal(p.w_pad.to(torch.bfloat16).float(), p.w_pad)
+        h = p.f // 2               # masked and NaN voxels weigh nothing
+        inner = p.w_pad[:, h:h + p.Y, h:h + p.X]
+        assert bool((inner == 0).any()) == ("mask" in config)
+        k = sw.sweep_state(p, tch.stack_chains([tsm.init_state(p)]), sampler,
+                           kernel=True, tile=(1, 1))
+        assert torch.equal(k.w[..., :L].float(), sw._lambda_last(p.w_pad))

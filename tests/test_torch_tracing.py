@@ -278,7 +278,7 @@ def test_launch_counts_by_the_instantiation_taken(S, name):
     counter counts as before, traced or not."""
     import types
 
-    k = types.SimpleNamespace(spec=torch.zeros(S, 4))
+    k = types.SimpleNamespace(spec=torch.zeros(S, 4), w=torch.zeros(4))
     counter = types.SimpleNamespace(launches=0, resident_launches=0)
     tsw._count_launch(k, counter, "resident_launches")
     assert counter.resident_launches == 1 and metrics.counters() == {}
@@ -286,6 +286,27 @@ def test_launch_counts_by_the_instantiation_taken(S, name):
     tsw._count_launch(k, counter, "launches")
     tsw._count_launch(k, counter, "launches")
     assert counter.launches == 2 and metrics.counters() == {name: 2}
+
+
+@pytest.mark.parametrize("dtype, counted", [(torch.bfloat16, 2),
+                                             (torch.float32, 0)])
+def test_launch_counts_bfloat16_weights(dtype, counted):
+    """``sweep.launches.w_bf16`` counts the launches whose weights are
+    bfloat16 (classic K1's and the tiled kernel's), beside the rank
+    counters, and none of the resident kernel's float32 ones."""
+    import types
+
+    k = types.SimpleNamespace(spec=torch.zeros(3, 4),
+                              w=torch.zeros(4, dtype=dtype))
+    counter = types.SimpleNamespace(launches=0)
+    tsw._count_launch(k, counter, "launches")
+    assert metrics.counters() == {}
+    metrics.tracing(True)
+    tsw._count_launch(k, counter, "launches")
+    tsw._count_launch(k, counter, "launches")
+    counts = metrics.counters()
+    assert counter.launches == 3 and counts["sweep.launches.rank_any"] == 2
+    assert counts.get("sweep.launches.w_bf16", 0) == counted
 
 
 @pytest.mark.gpu
@@ -314,3 +335,25 @@ def test_kernel_launches_count_by_instantiation_on_card(sampler):
         launches = {k: v for k, v in counts.items()
                     if k.startswith("sweep.launches")}
         assert launches == {name: 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["mh", "gibbs"])
+def test_ring_launches_count_bfloat16_weights_on_card(sampler):
+    """On the card every tiled-kernel launch copies bfloat16 weights, one
+    ``sweep.launches.w_bf16`` a sweep, and the resident kernel's none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernels")
+    for tile, bf16 in (((1, 1), 3), (None, 0)):
+        cube, inst = _chromatic_cube("cuda")
+        metrics.reset()
+        metrics.tracing(True)
+        run = d3.Run(cube, inst, seed=1, device="cuda", dtype=np.float32,
+                     fsf_size=5, lsf_width=11, sampler=sampler, burn_in=0,
+                     segment_size=3, tile=tile)
+        run.run(3)
+        torch.cuda.synchronize()
+        counts = metrics.counters()
+        metrics.tracing(False)
+        assert counts["sweep.launches.rank_any"] == 3
+        assert counts.get("sweep.launches.w_bf16", 0) == bf16
