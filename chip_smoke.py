@@ -311,6 +311,7 @@ from deconv3d_tpu_torch.ops import truncnorm as tn
 from deconv3d_tpu_torch.parallel import Mesh, mesh as pm
 from deconv3d_tpu_torch.parallel import direct_sharded as ds
 from deconv3d_tpu_torch.parallel import kernel_sharded as ks
+from deconv3d_tpu_torch.parallel import sweep_sharded as ss
 from deconv3d_tpu_torch.tile_sweep import field_cube
 
 
@@ -2835,9 +2836,9 @@ def phase_band_launch():
                 whole = tl.band_segment(problem, ch.stack_chains(
                     [copy_state(ch.select_chains(states, c))
                      for c in range(C)]), 1, (by0, nyb))
-                cut_p = sw.cut_problem(problem, by0, nyb)
+                cut_p = ss.cut_problem(problem, by0, nyb)
                 cut = tl.band_segment(
-                    cut_p, sw.cut_state(states, f, by0, nyb, "cuda"), 1,
+                    cut_p, ss.cut_state(states, f, by0, nyb, "cuda"), 1,
                     (0, nyb), gy0=by0, record_uniforms=True)
                 torch.cuda.synchronize()
                 launches = band_counter(sampler).launches - n0
@@ -3032,7 +3033,7 @@ def phase_sharded_field(cube, unsharded, card, n=8, n_gibbs=3):
         launches_ms = sum(sum(v) for v in per_band.values())
         bounds = {}
         for name, rows0, nyb, _, _ in plan:
-            cut = sw.cut_problem(run.problem, rows0 // run.problem.f, nyb)
+            cut = ss.cut_problem(run.problem, rows0 // run.problem.f, nyb)
             bounds[name] = sweep_bound(cut, 1, torch.tensor(
                 [diag["acceptance_rate"]]))
             del cut

@@ -42,10 +42,11 @@ accept uniform of every decision), gibbs ``[n_sweeps, (C,) n_colors, nij,
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import math
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,7 +54,6 @@ from .. import chains as ch
 from .. import convolve as cv
 from .. import metrics
 from .. import sampler as sm
-from ..parallel import mesh as pm
 from . import banded, philox, resident, truncnorm
 
 
@@ -311,7 +311,8 @@ def _steps(k: _SweepState):
 def _mh_step_torch(k: _SweepState, c: int, by0: int, bx0: int, adapt: float,
                    u: torch.Tensor, accept_out: torch.Tensor,
                    dchi_out: torch.Tensor) -> torch.Tensor:
-    """One MH step: color ``c``'s spaxels in the tile at block (by0, bx0),
+    """One MH step of a plain sweep (:func:`_sweep`, in the order of
+    :func:`_steps`): color ``c``'s spaxels in the tile at block (by0, bx0),
     with the uniforms ``u`` ``[C, n_colors, nij, L+1]``; updates ``k`` in
     place and returns the g it committed (:func:`_commit`)."""
     f = k.f
@@ -340,15 +341,6 @@ def _mh_step_torch(k: _SweepState, c: int, by0: int, bx0: int, adapt: float,
     _at_rows(k, accept_out[:, c], by0, bx0)[...] = accf
     _at_rows(k, dchi_out[:, c], by0, bx0)[...] = dchi
     return g
-
-
-def _mh_sweep_torch(k: _SweepState, adapt: float, u: torch.Tensor,
-                    accept_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
-    """One MH sweep with the uniforms ``u`` ``[C, n_colors, nij, L+1]``;
-    updates ``k`` in place.  Each step updates one color's spaxels in one
-    tile, in the order of :func:`_steps`."""
-    for c, by0, bx0 in _steps(k):
-        _mh_step_torch(k, c, by0, bx0, adapt, u, accept_out, dchi_out)
 
 
 def truncated_jump(linT: torch.Tensor, qs: torch.Tensor, cur: torch.Tensor,
@@ -420,29 +412,22 @@ def slab_phases_reference(lin0: torch.Tensor, q: torch.Tensor,
     return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
 
 
-def _gibbs_sweep_torch(k: _SweepState, u: torch.Tensor,
-                       live_out: torch.Tensor, dchi_out: torch.Tensor) -> None:
-    """One exact-Gibbs sweep with the Box-Muller pairs ``u`` ``[C, n_colors,
-    nij, 2, L]`` (with positivity the pairs of :func:`truncated_jump`), in
-    the step order of :func:`_mh_sweep_torch`; updates ``k`` in place.
-
-    Per step: lin once from the residual, then the ``lw`` λ-phases, each
-    drawing the voxels λ ≡ phase (mod lw) from N(linT/qvox, 1/qvox) and
-    updating lin ← lin − g·quad (exact: same-color patches are disjoint),
-    then one residual commit of the summed g.  Δχ² of the step is that of
-    the summed g against the step's first lin, equal to the phases' sum;
-    its g²·quad_lo part is summed on its own, below the float32 ulp of
-    g²·quad where it would round away.
-    """
-    for c, by0, bx0 in _steps(k):
-        _gibbs_step_torch(k, c, by0, bx0, u, live_out, dchi_out)
-
-
 def _gibbs_step_torch(k: _SweepState, c: int, by0: int, bx0: int,
                       u: torch.Tensor, live_out: torch.Tensor,
                       dchi_out: torch.Tensor) -> torch.Tensor:
-    """One exact-Gibbs step (color ``c`` in the tile at (by0, bx0)) of
-    :func:`_gibbs_sweep_torch`; returns the committed g."""
+    """One exact-Gibbs step (color ``c`` in the tile at (by0, bx0)) of a
+    plain sweep (:func:`_sweep`), with the Box-Muller pairs ``u`` ``[C, n_colors, nij, 2, L]`` (with positivity
+    the pairs of :func:`truncated_jump`); updates ``k`` in place and
+    returns the committed g.
+
+    lin once from the residual, then the ``lw`` λ-phases, each drawing the
+    voxels λ ≡ phase (mod lw) from N(linT/qvox, 1/qvox) and updating lin ←
+    lin − g·quad (exact: same-color patches are disjoint), then one
+    residual commit of the summed g.  Δχ² of the step is that of the
+    summed g against the step's first lin, equal to the phases' sum; its
+    g²·quad_lo part is summed on its own, below the float32 ulp of g²·quad
+    where it would round away.
+    """
     dt = k.resid.dtype
     two_pi = torch.tensor(2.0 * math.pi, dtype=dt)
     cy, cx = divmod(c, k.f)
@@ -471,11 +456,12 @@ def _gibbs_step_torch(k: _SweepState, c: int, by0: int, bx0: int,
     return gacc
 
 
-def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
-                 dchi_out: torch.Tensor, sample) -> None:
-    """One ``gibbs_block`` sweep with the Box-Muller pairs ``u`` ``[C,
-    n_colors, nij, 2, L]``; updates ``k`` in place (the JAX package's
-    ``_make_block_gibbs_step``).
+def _block_step(k: _SweepState, c: int, u: torch.Tensor,
+                live_out: torch.Tensor, dchi_out: torch.Tensor,
+                sample) -> torch.Tensor:
+    """Color ``c`` of a ``gibbs_block`` sweep with the Box-Muller pairs
+    ``u`` ``[C, n_colors, nij, 2, L]``; updates ``k`` in place (the JAX
+    package's ``_make_block_gibbs_step``) and returns the committed g.
 
     Per color: lin from the residual, linT = Mᵀ lin, and every (chain,
     spaxel)'s spectrum jump drawn at once from its exact conditional
@@ -492,14 +478,6 @@ def _block_sweep(k: _SweepState, u: torch.Tensor, live_out: torch.Tensor,
     (made once per segment).  The voxels drawn are valid·L, as the JAX
     package counts them.
     """
-    for c in range(k.f * k.f):
-        _block_step(k, c, u, live_out, dchi_out, sample)
-
-
-def _block_step(k: _SweepState, c: int, u: torch.Tensor,
-                live_out: torch.Tensor, dchi_out: torch.Tensor,
-                sample) -> torch.Tensor:
-    """Color ``c`` of :func:`_block_sweep`; returns the committed g."""
     C, L = k.C, k.spec.shape[1]
     cy, cx = divmod(c, k.f)
     uc = u[:, c]                                          # [C, nij, 2, L]
@@ -660,161 +638,43 @@ def _count_launch(k: _SweepState, counter, count: str) -> None:
         metrics.count("sweep.launches.w_bf16")
 
 
-def _launch_of(lib, k: _SweepState, mode: str):
-    """The C launcher of this sweep's kernel and the name of its counter."""
-    if k.kernel == "resident":
-        return getattr(lib, f"resident_{mode}_launch"), "resident_launches"
-    if k.kernel == "classic":
-        return getattr(lib, f"{mode}_sweep_launch"), "launches"
-    return getattr(lib, f"tiled_{mode}_launch"), "launches"
-
-
 def _ptr(t: Optional[torch.Tensor]):
-    import ctypes
-
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def _stream(dev):
-    import ctypes
-
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _mh_sweep_cuda(k: _SweepState, sweep: int, adapt: float,
-                   u: Optional[torch.Tensor], accept_out: torch.Tensor,
-                   dchi_out: torch.Tensor, u_out: Optional[torch.Tensor],
-                   counter) -> None:
-    """Launch one sweep of the whole batch: ``csrc/resident_sweep.cu`` with
-    a resident plan (counted by ``counter.resident_launches``), else
-    ``csrc/mh_sweep.cu`` or, with a tile, ``csrc/tiled_sweep.cu`` (counted
-    by ``counter.launches``); each launch also on the tracer's counter of
-    its instantiation (:func:`_count_launch`)."""
-    lib, tables, dims = _kernel_args(k, "mh", u, accept_out, dchi_out, u_out)
+def _sweep_cuda(k: _SweepState, mode: str, sweep: int, adapt: float,
+                u: Optional[torch.Tensor], out_a: torch.Tensor,
+                out_b: torch.Tensor, u_out: Optional[torch.Tensor],
+                counter) -> None:
+    """Launch one sweep of ``mode`` for the whole batch:
+    ``csrc/resident_sweep.cu`` with a resident plan (counted by
+    ``counter.resident_launches``), else classic K1 (``csrc/mh_sweep.cu``,
+    ``csrc/gibbs_sweep.cu``) or, with a tile, ``csrc/tiled_sweep.cu``
+    (counted by ``counter.launches``); each launch also on the tracer's
+    counter of its instantiation (:func:`_count_launch`)."""
+    lib, tables, dims = _kernel_args(k, mode, u, out_a, out_b, u_out)
     dev = k.resid.device
-    launch, count = _launch_of(lib, k, "mh")
+    launch = getattr(lib, {"resident": f"resident_{mode}_launch",
+                           "classic": f"{mode}_sweep_launch"}.get(
+                               k.kernel, f"tiled_{mode}_launch"))
+    # the launchers' own fields and scalars: MH's adapt step and target
+    own, scalars = (((k.clean, k.log_scale), (adapt, k.target))
+                    if mode == "mh" else ((k.quad_lo, k.qvox, k.clean), ()))
     with torch.cuda.device(dev):
         err = launch(
-            _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.clean),
-            _ptr(k.log_scale), _ptr(k.valid), _ptr(k.spec), _ptr(k.imgs),
-            _ptr(k.lsf), _ptr(k.key_words), _ptr(u), _ptr(accept_out),
-            _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch),
-            *map(_ptr, tables), *dims,
-            sweep & philox.M32, adapt, k.target, _stream(dev),
+            *map(_ptr, (k.resid, k.w, k.quad, *own, k.valid, k.spec, k.imgs,
+                        k.lsf, k.key_words, u, out_a, out_b, u_out,
+                        k.scratch, *tables)),
+            *dims, sweep & philox.M32, *scalars, _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
-    _count_launch(k, counter, count)
-
-
-def _gibbs_sweep_cuda(k: _SweepState, sweep: int,
-                      u: Optional[torch.Tensor], live_out: torch.Tensor,
-                      dchi_out: torch.Tensor, u_out: Optional[torch.Tensor],
-                      counter) -> None:
-    """Launch one sweep of the whole batch, as :func:`_mh_sweep_cuda`:
-    ``csrc/resident_sweep.cu``, ``csrc/gibbs_sweep.cu`` or
-    ``csrc/tiled_sweep.cu``."""
-    lib, tables, dims = _kernel_args(k, "gibbs", u, live_out, dchi_out,
-                                     u_out)
-    dev = k.resid.device
-    launch, count = _launch_of(lib, k, "gibbs")
-    with torch.cuda.device(dev):
-        err = launch(
-            _ptr(k.resid), _ptr(k.w), _ptr(k.quad), _ptr(k.quad_lo),
-            _ptr(k.qvox), _ptr(k.clean), _ptr(k.valid), _ptr(k.spec),
-            _ptr(k.imgs), _ptr(k.lsf), _ptr(k.key_words), _ptr(u),
-            _ptr(live_out), _ptr(dchi_out), _ptr(u_out), _ptr(k.scratch),
-            *map(_ptr, tables), *dims,
-            sweep & philox.M32, _stream(dev),
-        )
-    if err != 0:
-        raise RuntimeError(f"{launch.__name__} failed: CUDA error {err}")
-    _count_launch(k, counter, count)
-
-
-# ---------------------------------------------------------------------------
-# Shards: the row cuts of a sharded segment (the layout of the callers in
-# parallel/, which pass ``devices`` to _run_segment)
-# ---------------------------------------------------------------------------
-
-def cut_problem(p: sm.Problem, by0: int, nyb: int, device=None) -> sm.Problem:
-    """The problem of block rows [by0, by0 + nyb): its padded residual rows
-    [by0·f, by0·f + nyb·f + f − 1) of the weights, its spaxel rows of every
-    per-spaxel constant, on ``device`` (views where it is ``p``'s).  Its
-    sweeps never read the data, which it does not carry."""
-    f = p.f
-    dev = p.device if device is None else torch.device(device)
-    y0, cells = by0 * f, nyb * f
-
-    def rows(t, n):
-        return None if t is None else t.narrow(-2, y0, n).to(dev)
-
-    def whole(t):
-        return None if t is None else t.to(dev)
-
-    return dataclasses.replace(
-        p, Y=max(0, min(p.Y - y0, cells)), ny=nyb,
-        fsf=whole(p.fsf), lsf=whole(p.lsf),
-        data_pad=torch.empty((0,), dtype=p.w_pad.dtype, device=dev),
-        w_pad=rows(p.w_pad, cells + f - 1), quad=rows(p.quad, cells),
-        valid=rows(p.valid, cells), monitor_idx=whole(p.monitor_idx),
-        fsf_spec=whole(p.fsf_spec), fsf_imgs=whole(p.fsf_imgs),
-        qvox=rows(p.qvox, cells), quad_lo=rows(p.quad_lo, cells),
-        chol=None if p.chol is None else p.chol[y0:y0 + cells].to(dev),
-        quad_mean=None)
-
-
-def cut_state(s: sm.SamplerState, f: int, by0: int, nyb: int,
-              device) -> sm.SamplerState:
-    """The (chain-stacked or single) state of block rows [by0, by0 + nyb),
-    as :func:`cut_problem` cuts the problem, on ``device``."""
-    y0, cells = by0 * f, nyb * f
-    out = {}
-    for fld in dataclasses.fields(s):
-        t = getattr(s, fld.name)
-        if fld.name == "resid":
-            t = t.narrow(-2, y0, cells + f - 1)
-        elif fld.name in ("clean", "log_scale", "sum_clean") or (
-                fld.name == "sum_sq" and t.shape[-2] == s.clean.shape[-2]):
-            t = t.narrow(-2, y0, cells)
-        out[fld.name] = t.to(device)
-    return sm.SamplerState(**out)
-
-
-def shard_problems(p: sm.Problem, devices: Sequence[torch.device]):
-    """The D shard problems of ``p`` on ``devices`` (:func:`cut_problem`;
-    None for the slots of other ranks when ``devices`` is a
-    ``parallel.mesh.Slots``), built once per problem and slots
-    (``sampler.cached``)."""
-    D = len(devices)
-    nyl = p.ny // D
-    mine = _mine(devices)
-    return sm.cached(p, ("shards", tuple(map(str, devices)),
-                         getattr(devices, "ranks", None)), lambda: [
-        cut_problem(p, d * nyl, nyl, dev) if m else None
-        for d, (dev, m) in enumerate(zip(devices, mine))])
-
-
-def _mine(devices) -> List[bool]:
-    """Per slot of ``devices``: does this process own it (a plain device
-    list is all this process's)?"""
-    return devices.local() if hasattr(devices, "local") else [True] * len(
-        devices)
-
-
-def overlap_join(blocks: Sequence[torch.Tensor], f: int,
-                 device=None) -> torch.Tensor:
-    """The field's ``[..., Hp, Wp]`` rows of the halo-replicated blocks
-    ``[..., BYl + f − 1, Wp]`` (``parallel/sweep_sharded.py``
-    ``overlap_blocks``) on ``device`` (default: the first block's): every
-    block's owned rows, then the global tail pad rows, which only the last
-    block holds."""
-    device = blocks[0].device if device is None else device
-    BYl = blocks[0].shape[-2] - (f - 1)
-    parts = [b.narrow(-2, 0, BYl) for b in blocks]
-    parts.append(blocks[-1].narrow(-2, BYl, f - 1))
-    return torch.cat([t.to(device) for t in parts], dim=-2)
-
+    _count_launch(k, counter, "resident_launches" if k.kernel == "resident"
+                  else "launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1011,55 +871,93 @@ def _segment_tail(mode: str, accept: torch.Tensor, dchi: torch.Tensor,
                  monitor, n_acc, n_prop)
 
 
-def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
-                 uniforms: Optional[torch.Tensor], record_uniforms: bool,
-                 mode: str, counter=None,
-                 tile: Optional[Tuple[int, int]] = None,
-                 classic: bool = False,
-                 waves: Optional[List[List[int]]] = None,
-                 stages: int = -1, lam_b: Optional[int] = None,
-                 rows: Optional[Tuple[int, int]] = None,
-                 gy0: int = 0, devices=None, make_sweep=None) -> Segment:
-    """The segment of every wrapper: ``counter`` None runs the plain sweep,
-    else the kernel, adding each launch to ``counter.launches`` (or
-    ``counter.resident_launches``); ``tile`` (block rows, columns) runs the
-    tiled scan in the order of ``waves`` (None: the raster), None the
-    whole-cube one — on the resident kernel where the state fits the
-    card's shared memory (``ops/resident.py``) unless ``classic`` pins
-    classic K1.  ``stages`` and ``lam_b`` are the kernels' tuning knobs,
-    ``rows`` / ``gy0`` a band of the tiled scan (``_SweepState``; the
-    per-spaxel outputs of the other rows stay 0).
+@dataclasses.dataclass
+class _Running:
+    """What a segment keeps of one ``_SweepState`` ``k``: the sweeps'
+    per-(color, spaxel) outputs, which they write; on a kept sweep its
+    clean added to the λ-last accumulators (``sum_sq`` None without
+    ``config.track_variance``); after every sweep its flux partial sum
+    ``[C]`` float32 and its monitored voxels, ``flat`` their indices into
+    its λ-last clean."""
 
-    ``devices`` (the callers in ``parallel/``): the state's block rows cut
-    into ``len(devices)`` shards (:func:`cut_state`,
-    :func:`shard_problems`), shard d's segment layout on ``devices[d]``,
-    and every sweep ``make_sweep(shards)(sweep, adapt, uniforms, out_a,
-    out_b)`` on the shards' lists (each shard's rows of the field's
-    uniforms — the kernels draw their own —, and of the outputs).  Where
-    ``devices`` is a ``parallel.mesh.Slots`` whose slots other ranks own,
-    this process builds and sweeps its own shards only (the others' entries
-    of those lists are None).  After the sweeps the outputs are gathered in
-    the field's row order, the flux summed over the shards' sums in slot
-    order, and the new state in the standard layout joined on the
-    problem's device — on every rank, bit-equal to the one-process
-    segment.
+    k: _SweepState
+    flat: torch.Tensor
+    accept: torch.Tensor          # [n, C, n_colors, k's spaxels]
+    dchi: torch.Tensor
+    sum_clean: torch.Tensor
+    sum_sq: Optional[torch.Tensor]
+    flux: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    mon: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
-    The tail (:func:`_segment_tail`) works on the whole segment at once
-    and never waits for the card: the caller's first read of the result
-    does.  Spans (``metrics``): ``segment.head`` to the first launch,
-    ``segment.tail`` from the last sweep to the return, and
+    @classmethod
+    def of(cls, k: _SweepState, states: sm.SamplerState, p: sm.Problem,
+           flat: torch.Tensor, n_sweeps: int) -> "_Running":
+        """``k``'s, from the state it was laid out of (``p``: the field's
+        problem)."""
+        dt = p.data_pad.dtype
+        accept, dchi = (torch.zeros((n_sweeps, k.C, k.f * k.f, k.ny * k.nx),
+                                    dtype=dt, device=k.resid.device)
+                        for _ in range(2))
+        return cls(k, flat, accept, dchi,
+                   _lambda_last(states.sum_clean.to(dt)),
+                   _lambda_last(states.sum_sq.to(dt))
+                   if p.config.track_variance else None)
+
+    def after(self, keep: bool) -> None:
+        k = self.k
+        if keep:
+            self.sum_clean += k.clean
+            if self.sum_sq is not None:
+                self.sum_sq += k.clean * k.clean
+        self.flux.append(torch.sum(k.clean * k.valid[..., None],
+                                   dim=(1, 2, 3), dtype=torch.float32))
+        self.mon.append(k.clean.reshape(k.C, -1)[:, self.flat])
+
+
+def _monitored(p: sm.Problem, y0: int = 0, rows: Optional[int] = None):
+    """The monitored voxels in the clean rows [y0, y0 + rows) (default:
+    every row, and the slots are the identity): their slots in the
+    problem's order and their indices into the λ-last clean ``[C, rows,
+    Xc, L]`` of those rows, on the problem's device, built once per
+    problem."""
+    rows = p.Yc if rows is None else rows
+
+    def build():
+        mon, Yc, Xc = p.monitor_idx, p.Yc, p.Xc
+        lam, yy, xx = mon // (Yc * Xc), (mon % (Yc * Xc)) // Xc, mon % Xc
+        inside = ((yy >= y0) & (yy < y0 + rows)).to(p.device)
+        return (torch.nonzero(inside).reshape(-1),
+                (((yy - y0) * Xc + xx) * p.L + lam).to(p.device)[inside])
+    return sm.cached(p, ("monitored", y0, rows), build)
+
+
+def _segment(p: sm.Problem, state: sm.SamplerState, n_sweeps: int,
+             uniforms: Optional[torch.Tensor], record_uniforms: bool,
+             mode: str, kernel: bool, lay) -> Segment:
+    """The body of every segment of ``mode``, on one device
+    (:func:`_run_segment`) or on shards (``parallel/sweep_sharded.py``
+    ``sharded_segment``): the checks on its inputs, the schedules, the
+    sweeps, the tail and the new state.  ``lay(states)`` lays the
+    chain-stacked ``states`` out and returns ``(runs, sweep, outputs,
+    fields)``: this process's :class:`_Running` states; ``sweep(s, sweep,
+    adapt, u, u_out)``, the s-th sweep on the field's uniforms ``u`` (None:
+    the kernels draw their own), recorded in ``u_out`` (or None); after the
+    sweeps ``outputs()``, the field's ``(accept, dchi, flux, mon, order)``
+    for :func:`_segment_tail`, and ``fields()``, the new state's resid,
+    clean, log_scale, sum_clean and sum_sq (None: unchanged), λ-first.
+
+    The tail never waits for the card: the caller's first read of the
+    result does.  Spans (``metrics``): ``segment.head`` to the first
+    launch, ``segment.tail`` from the last sweep to the return, and
     ``segment.gap`` from the last launch to the next segment's first."""
-    head = metrics.span("segment.head").start()
-    p, cfg = problem, problem.config
+    span = metrics.span("segment.head").start()
+    dev = p.device
     single = state.clean.dim() == 3
     states = ch.stack_chains([state]) if single else state
     if uniforms is not None and single:
         uniforms = uniforms[:, None]
-    dev = p.device
-    f, ny, nx, L = p.f, p.ny, p.nx, p.L
-    C = states.clean.shape[0]
-    n_colors, nij = p.n_colors, ny * nx
-    per = (L + 1,) if mode == "mh" else (2, L)      # gibbs, gibbs_block
+    C, n_colors, nij = states.clean.shape[0], p.n_colors, p.ny * p.nx
+    per = (p.L + 1,) if mode == "mh" else (2, p.L)      # gibbs, gibbs_block
     if uniforms is not None and tuple(uniforms.shape) != (
         n_sweeps, C, n_colors, nij, *per
     ):
@@ -1080,192 +978,129 @@ def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     if mode == "gibbs_block" and p.chol is None:
         raise ValueError("a gibbs_block segment needs problem.chol "
                          "(make_problem with sampler='gibbs_block')")
-    dt, f32 = p.data_pad.dtype, torch.float32
-    layout = dict(kernel=counter is not None, tile=tile, classic=classic,
-                  waves=waves, stages=stages, lam_b=lam_b, rows=rows, gy0=gy0)
-    ranks = None
-    if devices is None:
-        devices, parts = [dev], [states]
-        ks = [sweep_state(p, states, mode, **layout)]
-    else:
-        if p.ny % len(devices):
-            raise ValueError(f"ny={p.ny} color-rows must be divisible by the "
-                             f"mesh size {len(devices)}")
-        if record_uniforms:
-            raise ValueError("a sharded segment records no uniforms")
-        ranks = getattr(devices, "ranks", None)
-        nyl = p.ny // len(devices)
-        # this process's shards; None for the slots of other ranks
-        parts = [cut_state(states, f, d * nyl, nyl, d_) if m else None
-                 for d, (d_, m) in enumerate(zip(devices, _mine(devices)))]
-        ks = [None if st is None else sweep_state(sp, st, mode, **layout)
-              for sp, st in zip(shard_problems(p, devices), parts)]
-    D, nijl = len(ks), nij // len(ks)
-    local = [d for d, k in enumerate(ks) if k is not None]
-    # draws in torch: the plain sweeps and gibbs_block's
-    plain_draws = counter is None or mode == "gibbs_block"
-    sweep = (make_sweep or _sweep_of(mode, counter))(ks)
     ids = sweep0 + torch.arange(n_sweeps, dtype=torch.int64)
-    adapt = sm.adapt_schedule(ids, cfg).tolist()
-    keep = sm.keep_schedule(ids, cfg).tolist()
-
-    Yc, Xc, BYl = p.Yc, p.Xc, ks[local[0]].ny * f
-    mon = p.monitor_idx
-    # monitored voxels: (shard, the voxel's index in its λ-last clean)
-    lam, yy, xx = (mon // (Yc * Xc), (mon % (Yc * Xc)) // Xc, mon % Xc)
-    owner = (yy // BYl).to(dev)
-    mon_at = [(torch.nonzero(owner == d).reshape(-1),
-               (((yy - d * BYl) * Xc + xx) * L + lam)[owner == d])
-              for d in range(D)]
-    sum_clean = [None if st is None else _lambda_last(st.sum_clean.to(dt))
-                 for st in parts]
-    sum_sq = [_lambda_last(st.sum_sq.to(dt)) if cfg.track_variance
-              and st is not None else None for st in parts]
-    del parts
-    n_kept = states.n_kept.clone()
+    adapt = sm.adapt_schedule(ids, p.config).tolist()
+    keep = sm.keep_schedule(ids, p.config).tolist()
     # the tail's host count, read once per problem: the tail never syncs
     n_valid = float(sm.cached(p, "n_valid", lambda: p.n_valid))
-
-    # every sweep's per-(color, spaxel) outputs, flux partial sums and
-    # monitored voxels, per shard; gathered in the field's order after the
-    # sweeps (the sweeps read none of them)
-    outs = [None if k is None else tuple(
-        torch.zeros((n_sweeps, C, n_colors, nijl), dtype=dt,
-                    device=dev if D == 1 else devices[d]) for _ in range(2))
-        for d, k in enumerate(ks)]
-    flux_sh = [[] if k is not None else None for k in ks]
-    mon_sh = [[] if k is not None else None for k in ks]
-    u_rec = (
-        torch.empty((n_sweeps, C, n_colors, nij, *per), dtype=dt, device=dev)
-        if record_uniforms else None
-    )
-    draws = {"mh": philox.sweep_uniforms, "gibbs": philox.gibbs_sweep_uniforms,
-             "gibbs_block": philox.block_sweep_uniforms}[mode]
-    keys = ks[local[0]].keys
+    runs, sweep, outputs, fields = lay(states)
+    n_kept = states.n_kept.clone()
+    dt, k0 = p.data_pad.dtype, runs[0].k
+    u_rec = (torch.empty((n_sweeps, C, n_colors, nij, *per), dtype=dt,
+                         device=dev) if record_uniforms else None)
+    # the field's Philox draws in torch, from the block row of the first
+    # state's row 0: the plain sweeps' and gibbs_block's
+    draws = None if kernel and mode != "gibbs_block" else {
+        "mh": philox.sweep_uniforms, "gibbs": philox.gibbs_sweep_uniforms,
+        "gibbs_block": philox.block_sweep_uniforms}[mode]
     metrics.segment_began(sweep0, n_sweeps, dev)
-    head.stop()
+    span.stop()
     for s in range(n_sweeps):
         u = None if uniforms is None else uniforms[s]
         u_out = None if u_rec is None else u_rec[s]
-        if plain_draws:
+        if draws is not None:
             if u is None:
-                # the field's draws; a shard takes its rows
                 u = torch.stack([
-                    draws(key, sweep0 + s, n_colors, nij, L, device=dev,
-                          row0=gy0 * nx)
-                    for key in keys
-                ]).to(dt)
+                    draws(key, sweep0 + s, n_colors, nij, p.L, device=dev,
+                          row0=k0.gy0 * p.nx) for key in k0.keys]).to(dt)
             if u_out is not None:
                 u_out.copy_(u)
-        if D == 1:
-            us = [u]
-        else:
-            us = [None if u is None or k is None
-                  else u[:, :, d * nijl:(d + 1) * nijl].to(d_).contiguous()
-                  for d, (d_, k) in enumerate(zip(devices, ks))]
-        sweep(sweep0 + s, adapt[s], us,
-              [None if o is None else o[0][s] for o in outs],
-              [None if o is None else o[1][s] for o in outs], u_out)
+        sweep(s, sweep0 + s, adapt[s], u, u_out)
         if s == n_sweeps - 1:
             metrics.segment_launched(dev)
+        for r in runs:
+            r.after(keep[s])
         if keep[s]:
-            for d in local:
-                k = ks[d]
-                sum_clean[d] += k.clean
-                if cfg.track_variance:
-                    sum_sq[d] += k.clean * k.clean
             n_kept = n_kept + 1.0
-        for d in local:
-            k = ks[d]
-            flux_sh[d].append(torch.sum(k.clean * k.valid[..., None],
-                                        dim=(1, 2, 3), dtype=f32).to(dev))
-            slots, flat = mon_at[d]
-            mon_sh[d].append(k.clean.reshape(C, -1)[
-                :, flat.to(k.clean.device)].to(dev))
-    tail = metrics.span("segment.tail").start()
-
-    def joined(tensors, dim):
-        """The shards' tensors concatenated along ``dim`` on ``dev``, on
-        every rank."""
-        if D == 1:
-            return tensors[0]
-        return pm.gather(tensors, dev, dim, ranks)
-
-    accept = joined([None if o is None else o[0] for o in outs], 3)
-    dchi = joined([None if o is None else o[1] for o in outs], 3)
-    # the flux: the shards' partial sums added in slot order
-    flux_all = pm.slot_sum([None if t is None else torch.stack(t)
-                            for t in flux_sh], ranks)
-    mon_all = joined([None if t is None else torch.stack(t) for t in mon_sh],
-                     2)
-    order = torch.cat([slots for slots, _ in mon_at])
-    tl = _segment_tail(mode, accept, dchi, flux_all, mon_all, order,
-                       states.chi2, states.chi2_comp, n_valid)
-
-    def rows_of(tensors):
-        """The shards' λ-last blocks as one λ-first tensor on ``dev``."""
-        return joined([None if t is None else _lambda_first(t)
-                       for t in tensors], -2)
-
-    # the residual: every shard's owned rows, then the field's tail pad
-    # rows, which only the last shard holds
-    resid = joined([None if k is None else _lambda_first(k.resid[..., :L])
-                    .narrow(-2, 0, BYl + (f - 1 if d == D - 1 else 0))
-                    for d, k in enumerate(ks)], -2)
-    new_state = sm.SamplerState(
-        clean=rows_of([None if k is None else k.clean for k in ks]),
-        resid=resid,
-        key=states.key.clone(),
-        chi2=tl.chi2,
-        chi2_comp=tl.chi2_comp,
-        log_scale=joined([None if k is None else k.log_scale for k in ks],
-                         -2),
-        n_accept=states.n_accept + tl.n_accept,
-        n_propose=states.n_propose + tl.n_propose,
-        sum_clean=rows_of(sum_clean),
-        sum_sq=rows_of(sum_sq) if cfg.track_variance else states.sum_sq.clone(),
-        n_kept=n_kept,
-        sweep=states.sweep + n_sweeps,
-    )
+    span = metrics.span("segment.tail").start()
+    accept, dchi, *tail_in = outputs()
+    tl = _segment_tail(mode, accept, dchi, *tail_in, states.chi2,
+                       states.chi2_comp, n_valid)
+    new = fields()
+    sum_sq = new.pop("sum_sq")
     result = sm.ChainResult(
-        state=new_state,
-        chi2_trace=tl.chi2_trace,
-        accept_trace=tl.accept_trace,
-        flux_trace=tl.flux_trace,
-        monitor_trace=tl.monitor_trace,
-    )
+        state=sm.SamplerState(
+            key=states.key.clone(), chi2=tl.chi2, chi2_comp=tl.chi2_comp,
+            n_accept=states.n_accept + tl.n_accept,
+            n_propose=states.n_propose + tl.n_propose,
+            sum_sq=states.sum_sq.clone() if sum_sq is None else sum_sq,
+            n_kept=n_kept, sweep=states.sweep + n_sweeps, **new),
+        chi2_trace=tl.chi2_trace, accept_trace=tl.accept_trace,
+        flux_trace=tl.flux_trace, monitor_trace=tl.monitor_trace)
     if single:
         result = ch.select_chains(result, 0)
         accept, dchi = accept[:, 0], dchi[:, 0]
         u_rec = None if u_rec is None else u_rec[:, 0]
-    tail.stop()
+    span.stop()
     return Segment(result=result, accept=accept, dchi=dchi, uniforms=u_rec)
 
 
-def _sweep_of(mode: str, counter):
-    """``make_sweep`` of a one-shard segment: the kernel of ``mode`` (with
-    ``counter``) or its plain sweep; ``gibbs_block``'s per-color draw on
-    the banded kernel or its plain loop."""
-    sample = (banded.sample_conditional if counter is not None
-              else banded.sample_conditional_reference)
+def _run_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
+                 uniforms: Optional[torch.Tensor], record_uniforms: bool,
+                 mode: str, counter=None,
+                 tile: Optional[Tuple[int, int]] = None,
+                 classic: bool = False,
+                 waves: Optional[List[List[int]]] = None,
+                 stages: int = -1, lam_b: Optional[int] = None,
+                 rows: Optional[Tuple[int, int]] = None,
+                 gy0: int = 0) -> Segment:
+    """The segment of every wrapper, on the problem's device
+    (:func:`_segment`): ``counter`` None runs the plain sweep, else the
+    kernel, adding each launch to ``counter.launches`` (or
+    ``counter.resident_launches``); ``tile`` (block rows, columns) runs the
+    tiled scan in the order of ``waves`` (None: the raster), None the
+    whole-cube one — on the resident kernel where the state fits the
+    card's shared memory (``ops/resident.py``) unless ``classic`` pins
+    classic K1.  ``stages`` and ``lam_b`` are the kernels' tuning knobs,
+    ``rows`` / ``gy0`` a band of the tiled scan (``_SweepState``; the
+    per-spaxel outputs of the other rows stay 0)."""
+    p = problem
 
-    def make(ks):
-        (k,) = ks
+    def lay(states):
+        k = sweep_state(p, states, mode, counter is not None, tile, classic,
+                        waves, stages, lam_b, rows, gy0)
+        order, flat = _monitored(p)
+        run = _Running.of(k, states, p, flat, n_sweeps)
 
-        def sweep(sweep_abs, adapt, us, outs_a, outs_b, u_out):
-            u, a, b = us[0], outs_a[0], outs_b[0]
-            if counter is not None and mode == "mh":
-                _mh_sweep_cuda(k, sweep_abs, adapt, u, a, b, u_out, counter)
-            elif counter is not None and mode == "gibbs":
-                _gibbs_sweep_cuda(k, sweep_abs, u, a, b, u_out, counter)
-            elif mode == "mh":
-                _mh_sweep_torch(k, adapt, u, a, b)
-            elif mode == "gibbs":
-                _gibbs_sweep_torch(k, u, a, b)
-            else:
-                _block_sweep(k, u, a, b, sample)
-        return sweep
-    return make
+        def sweep(s, sweep_abs, adapt, u, u_out):
+            _sweep(k, mode, counter, sweep_abs, adapt, u, run.accept[s],
+                   run.dchi[s], u_out)
+
+        def outputs():
+            return (run.accept, run.dchi, torch.stack(run.flux),
+                    torch.stack(run.mon), order)
+
+        def fields():
+            return dict(resid=_lambda_first(k.resid[..., :p.L]),
+                        clean=_lambda_first(k.clean), log_scale=k.log_scale,
+                        sum_clean=_lambda_first(run.sum_clean),
+                        sum_sq=None if run.sum_sq is None
+                        else _lambda_first(run.sum_sq))
+        return [run], sweep, outputs, fields
+    return _segment(p, state, n_sweeps, uniforms, record_uniforms, mode,
+                    counter is not None, lay)
+
+
+def _sweep(k: _SweepState, mode: str, counter, sweep: int, adapt: float,
+           u: Optional[torch.Tensor], out_a: torch.Tensor,
+           out_b: torch.Tensor, u_out: Optional[torch.Tensor]) -> None:
+    """One sweep of ``k``: one launch of the kernel of ``mode`` (with
+    ``counter``), or its plain sweep, a step per color and tile in the
+    order of :func:`_steps`, or ``gibbs_block``'s color by color, its
+    draw on the banded kernel or its plain loop."""
+    if counter is not None and mode != "gibbs_block":
+        _sweep_cuda(k, mode, sweep, adapt, u, out_a, out_b, u_out, counter)
+    elif mode == "mh":
+        for c, by0, bx0 in _steps(k):
+            _mh_step_torch(k, c, by0, bx0, adapt, u, out_a, out_b)
+    elif mode == "gibbs":
+        for c, by0, bx0 in _steps(k):
+            _gibbs_step_torch(k, c, by0, bx0, u, out_a, out_b)
+    else:
+        sample = (banded.sample_conditional if counter is not None
+                  else banded.sample_conditional_reference)
+        for c in range(k.f * k.f):
+            _block_step(k, c, u, out_a, out_b, sample)
 
 
 def _use_kernel(problem: sm.Problem, state: sm.SamplerState, name: str) -> bool:

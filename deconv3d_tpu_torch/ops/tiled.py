@@ -238,14 +238,9 @@ def band_sweep(k: sw._SweepState, mode: str, sweep: int, adapt: float,
     :data:`band_gibbs`; a failed launch raises), else the same scan in
     plain torch (``u`` then required).  The TPU kernel's ``y_base``
     (``deconv3d_tpu/ops/pallas_tiled.py:155``, ``:190-192``)."""
-    if kernel and mode == "mh":
-        sw._mh_sweep_cuda(k, sweep, adapt, u, out_a, out_b, None, band_mh)
-    elif kernel:
-        sw._gibbs_sweep_cuda(k, sweep, u, out_a, out_b, None, band_gibbs)
-    elif mode == "mh":
-        sw._mh_sweep_torch(k, adapt, u, out_a, out_b)
-    else:
-        sw._gibbs_sweep_torch(k, u, out_a, out_b)
+    counter = band_gibbs if mode == "gibbs" else band_mh
+    sw._sweep(k, mode, counter if kernel else None, sweep, adapt, u, out_a,
+              out_b, None)
 
 
 def band_segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,

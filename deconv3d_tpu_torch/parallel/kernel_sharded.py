@@ -9,7 +9,7 @@ exchanges per sweep:
   * The spaxel grid is Y-sharded with the halo-replicated residual of
     ``sweep_sharded`` (each shard its padded rows plus f − 1 replicated
     neighbour rows), in the port's own ``[C, Hpl, Wp, Ls]`` segment layout
-    per shard (``ops/sweep.py`` ``_run_segment`` with ``devices``).
+    per shard (``sweep_sharded.sharded_segment``).
   * Each shard's block rows split into three bands — TOP (block row 0),
     INTERIOR (1 .. nyl − 2), BOTTOM (nyl − 1) — and each band is one launch
     of the tiled kernel over its own sub-grid inside the shard's buffer:
@@ -62,7 +62,7 @@ from .. import sampler as sm
 from ..ops import sweep as sw
 from ..ops import tiled
 from .mesh import Mesh, ppermute
-from .sweep_sharded import mesh_axis
+from .sweep_sharded import mesh_axis, sharded_segment
 
 
 def _band_rows(nyl: int, f: int):
@@ -127,12 +127,12 @@ def _check_kernel_shardable(p: sm.Problem, mesh: Mesh, axis_name: str,
     return interior
 
 
-def _band_sweep(plan, mode: str, kernel: bool, ranks=None):
-    """``make_sweep`` of a sharded ``ops.sweep._run_segment``: per shard
+def _band_sweep(plan, mode: str, kernel: bool):
+    """``make_sweep`` of ``sweep_sharded.sharded_segment``: per shard
     one carried state and a view of it per band (the band's tile, waves
     and rows; the shard's field row ``gy0``), run in the module's scan
     order on this process's shards (``ranks``: the slots' owners)."""
-    def make(ks: List[sw._SweepState]):
+    def make(ks: List[sw._SweepState], ranks):
         mine = [d for d, k in enumerate(ks) if k is not None]
         f = ks[mine[0]].f
         halo, BYl = f - 1, ks[mine[0]].ny * f
@@ -148,7 +148,7 @@ def _band_sweep(plan, mode: str, kernel: bool, ranks=None):
             return [fn(*args) if args[0] is not None else None
                     for args in zip(*lists)]
 
-        def sweep(sweep_abs, adapt, us, outs_a, outs_b, u_out):
+        def sweep(sweep_abs, adapt, us, outs_a, outs_b):
             def run(bi):
                 for d in mine:
                     tiled.band_sweep(bands[d][bi], mode, sweep_abs, adapt,
@@ -194,13 +194,9 @@ def segment(problem: sm.Problem, state: sm.SamplerState, n_sweeps: int,
     mode = problem.config.sampler
     plan = _band_plan(problem, len(devices))
     kernel = interior == "cuda"
-    counter = tiled.band_gibbs if mode == "gibbs" else tiled.band_mh
-    return sw._run_segment(problem, state, n_sweeps, uniforms, False, mode,
-                           counter=counter if kernel else None,
-                           tile=plan[0][4], devices=devices,
-                           make_sweep=_band_sweep(
-                               plan, mode, kernel,
-                               getattr(devices, "ranks", None)))
+    return sharded_segment(problem, state, n_sweeps, uniforms, mode, devices,
+                           _band_sweep(plan, mode, kernel),
+                           kernel=kernel, tile=plan[0][4])
 
 
 def run_sweeps_kernel_sharded(

@@ -9,14 +9,15 @@ lower that device's peak memory (shard states kept across segments are
 still to come).  The slots may belong to several ranks
 (``parallel/multihost.py``'s global mesh): each rank then sweeps its own
 shards, the strip pushes cross the ranks, and every rank ends the segment
-with the whole state (gathered by ``ops/sweep.py`` ``_run_segment``).
+with the whole state (gathered by :func:`sharded_segment`).
 
   * Shard d owns the spaxel block rows [d·nyl, (d+1)·nyl) and holds the
     padded residual rows [d·nyl·f, d·nyl·f + nyl·f + f − 1): the last f − 1
     rows REPLICATE the next shard's first f − 1 rows (they always hold the
     same values, as the zero pads of the single-device layout do).  A shard
-    is itself a problem of nyl block rows (``ops/sweep.py`` ``cut_problem``,
-    ``cut_state``), so the single-device sweep code runs on it as it is.
+    is itself a problem of nyl block rows (:func:`cut_problem`,
+    :func:`cut_state`), so the single-device sweep code runs on it as it
+    is.
   * Same-color spaxels are exactly f apart, across shard edges too, so
     their patches stay disjoint and the color decomposition holds.
   * After every color each shard's committed patch delta on its first and
@@ -32,16 +33,15 @@ log-scales, decisions, χ²; the flux trace sums the shards' partial sums).
 
 The per-color step is the plain one of ``ops/sweep.py`` for every sampler,
 as the JAX package runs its jnp step here, by design; ``gibbs_block``'s
-per-color draw still launches the banded kernel on a CUDA device.  Around
-the sweeps runs the single-device segment itself (``ops/sweep.py``
-``_run_segment`` with ``devices``: the shards' layout, the outputs in the
-field's row order, the Kahan χ², accumulators and traces).  The
-kernel-rate path for ``'mh'`` and ``'gibbs'`` is
-``parallel/kernel_sharded.py``.
+per-color draw still launches the banded kernel on a CUDA device.
+:func:`sharded_segment` runs the sweeps in the one-device segment's body
+(``ops/sweep.py`` ``_segment``); the kernel-rate path for ``'mh'`` and
+``'gibbs'`` is ``parallel/kernel_sharded.py``, on the same segment.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -49,7 +49,7 @@ import torch
 from .. import sampler as sm
 from ..ops import banded
 from ..ops import sweep as sw
-from ..ops.sweep import overlap_join
+from . import mesh as pm
 from .mesh import Mesh, ppermute
 
 
@@ -80,8 +80,68 @@ def overlap_shard(resid: torch.Tensor, f: int, ndev: int) -> torch.Tensor:
 
 
 def overlap_unshard(resid_sh: torch.Tensor, f: int, ndev: int) -> torch.Tensor:
-    """Inverse of :func:`overlap_shard`: drop the replicated rows."""
-    return overlap_join(torch.chunk(resid_sh, ndev, dim=-2), f)
+    """Inverse of :func:`overlap_shard`: drop the replicated rows, keeping
+    every block's owned rows, then the global tail pad rows, which only
+    the last block holds."""
+    blocks = torch.chunk(resid_sh, ndev, dim=-2)
+    BYl = blocks[0].shape[-2] - (f - 1)
+    return torch.cat([b.narrow(-2, 0, BYl) for b in blocks]
+                     + [blocks[-1].narrow(-2, BYl, f - 1)], dim=-2)
+
+
+def cut_problem(p: sm.Problem, by0: int, nyb: int, device=None) -> sm.Problem:
+    """The problem of block rows [by0, by0 + nyb): its padded residual rows
+    [by0·f, by0·f + nyb·f + f − 1) of the weights, its spaxel rows of every
+    per-spaxel constant, on ``device`` (views where it is ``p``'s).  Its
+    sweeps never read the data, which it does not carry."""
+    f = p.f
+    dev = p.device if device is None else torch.device(device)
+    y0, cells = by0 * f, nyb * f
+
+    def rows(t, n):
+        return None if t is None else t.narrow(-2, y0, n).to(dev)
+
+    def whole(t):
+        return None if t is None else t.to(dev)
+
+    return dataclasses.replace(
+        p, Y=max(0, min(p.Y - y0, cells)), ny=nyb,
+        fsf=whole(p.fsf), lsf=whole(p.lsf),
+        data_pad=torch.empty((0,), dtype=p.w_pad.dtype, device=dev),
+        w_pad=rows(p.w_pad, cells + f - 1), quad=rows(p.quad, cells),
+        valid=rows(p.valid, cells), monitor_idx=whole(p.monitor_idx),
+        fsf_spec=whole(p.fsf_spec), fsf_imgs=whole(p.fsf_imgs),
+        qvox=rows(p.qvox, cells), quad_lo=rows(p.quad_lo, cells),
+        chol=None if p.chol is None else p.chol[y0:y0 + cells].to(dev),
+        quad_mean=None)
+
+
+def cut_state(s: sm.SamplerState, f: int, by0: int, nyb: int,
+              device) -> sm.SamplerState:
+    """The (chain-stacked or single) state of block rows [by0, by0 + nyb),
+    as :func:`cut_problem` cuts the problem, on ``device``."""
+    y0, cells = by0 * f, nyb * f
+    out = {}
+    for fld in dataclasses.fields(s):
+        t = getattr(s, fld.name)
+        if fld.name == "resid":
+            t = t.narrow(-2, y0, cells + f - 1)
+        elif fld.name in ("clean", "log_scale", "sum_clean") or (
+                fld.name == "sum_sq" and t.shape[-2] == s.clean.shape[-2]):
+            t = t.narrow(-2, y0, cells)
+        out[fld.name] = t.to(device)
+    return sm.SamplerState(**out)
+
+
+def shard_problems(p: sm.Problem, devices: pm.Slots):
+    """The D shard problems of ``p`` on the slots ``devices``
+    (:func:`cut_problem`; None for the slots of other ranks), built once
+    per problem and slots (``sampler.cached``)."""
+    nyl = p.ny // len(devices)
+    return sm.cached(p, ("shards", tuple(map(str, devices)), devices.ranks),
+                     lambda: [cut_problem(p, d * nyl, nyl, dev) if m else None
+                              for d, (dev, m) in enumerate(
+                                  zip(devices, devices.local()))])
 
 
 def mesh_axis(mesh: Mesh, axis_name: str) -> List[torch.device]:
@@ -93,6 +153,95 @@ def mesh_axis(mesh: Mesh, axis_name: str) -> List[torch.device]:
             f"{mesh.axis_names} (for chains x spatial see "
             "kernel_sharded.run_chains_kernel_sharded)")
     return rows[0]
+
+
+# ---------------------------------------------------------------------------
+# The sharded segment
+# ---------------------------------------------------------------------------
+
+def sharded_segment(problem: sm.Problem, state: sm.SamplerState,
+                    n_sweeps: int, uniforms: Optional[torch.Tensor],
+                    mode: str, devices, make_sweep, kernel: bool = False,
+                    tile=None) -> sw.Segment:
+    """A segment of ``mode`` on the shards of ``devices``, in the body of
+    the one-device segment (``ops/sweep.py`` ``_segment``: its head,
+    per-sweep work, tail and spans).  Shard d is the state's block rows
+    [d·nyl, (d+1)·nyl) (:func:`cut_state`, :func:`shard_problems`) in its
+    segment layout on ``devices[d]`` (the kernel's with ``kernel``, its
+    tiled scan in ``tile``); every sweep is ``make_sweep(shards, ranks)
+    (sweep, adapt, uniforms, out_a, out_b)`` on lists over the shards (each
+    shard's rows of the field's uniforms, None where the kernels draw their
+    own; None for the shards of other ranks of a ``mesh.Slots``).  The
+    outputs are gathered in the field's row order, the flux summed in slot
+    order and the new state joined on the problem's device: on every rank,
+    bit-equal to the one-device segment."""
+    p, dev = problem, problem.device
+
+    def lay(states):
+        slots = devices if isinstance(devices, pm.Slots) else pm.Slots(
+            devices)
+        D = len(slots)
+        if p.ny % D:
+            raise ValueError(f"ny={p.ny} color-rows must be divisible by the "
+                             f"mesh size {D}")
+        f, nyl = p.f, p.ny // D
+        BYl, nijl = nyl * f, nyl * p.nx
+        # each shard's monitored voxels: (their slots, indices in its clean)
+        mon_at = [sw._monitored(p, d * BYl, BYl) for d in range(D)]
+        # this process's shards; None for the slots of other ranks
+        runs = []
+        for d, sp in enumerate(shard_problems(p, slots)):
+            st = None if sp is None else cut_state(states, f, d * nyl, nyl,
+                                                   slots[d])
+            runs.append(None if st is None else sw._Running.of(
+                sw.sweep_state(sp, st, mode, kernel, tile), st, p,
+                mon_at[d][1].to(slots[d]), n_sweeps))
+        shard_sweep = make_sweep([None if r is None else r.k for r in runs],
+                                 slots.ranks)
+
+        def each(fn):
+            return [None if r is None else fn(d, r)
+                    for d, r in enumerate(runs)]
+
+        def sweep(s, sweep_abs, adapt, u, u_out):
+            # a shard's rows of the field's uniforms
+            shard_sweep(sweep_abs, adapt, each(
+                lambda d, r: None if u is None else
+                u[:, :, d * nijl:(d + 1) * nijl].to(slots[d]).contiguous()),
+                each(lambda d, r: r.accept[s]), each(lambda d, r: r.dchi[s]))
+
+        def joined(fn, dim):
+            """``fn(d, shard)`` of this process's shards concatenated along
+            ``dim`` on ``dev``, on every rank."""
+            return pm.gather(each(fn), dev, dim, slots.ranks)
+
+        def outputs():
+            return (joined(lambda d, r: r.accept, 3),
+                    joined(lambda d, r: r.dchi, 3),
+                    # the flux: the shards' partial sums added in slot order
+                    pm.slot_sum(each(lambda d, r: torch.stack(r.flux).to(dev)),
+                                slots.ranks),
+                    joined(lambda d, r: torch.stack(r.mon).to(dev), 2),
+                    torch.cat([at for at, _ in mon_at]))
+
+        def rows(fn):
+            """``fn(shard)`` in the λ-first layout, joined along the rows."""
+            return joined(lambda d, r: sw._lambda_first(fn(r)), -2)
+
+        def fields():
+            return dict(
+                # every shard's owned rows, then the field's tail pad rows,
+                # which only the last shard holds
+                resid=joined(lambda d, r: sw._lambda_first(
+                    r.k.resid[..., :p.L]).narrow(
+                        -2, 0, BYl + (f - 1 if d == D - 1 else 0)), -2),
+                clean=rows(lambda r: r.k.clean),
+                log_scale=joined(lambda d, r: r.k.log_scale, -2),
+                sum_clean=rows(lambda r: r.sum_clean),
+                sum_sq=(rows(lambda r: r.sum_sq)
+                        if p.config.track_variance else None))
+        return [r for r in runs if r is not None], sweep, outputs, fields
+    return sw._segment(p, state, n_sweeps, uniforms, False, mode, kernel, lay)
 
 
 # ---------------------------------------------------------------------------
@@ -121,18 +270,18 @@ def edge_deltas(delta: torch.Tensor, c: int, f: int, Wp: int):
     return head, tail
 
 
-def _color_sweep(mode: str, ranks=None):
-    """``make_sweep`` of a sharded ``ops.sweep._run_segment`` for the plain
-    color step: per color every shard's step, then its head and tail
-    deltas pushed to the neighbours' replicas (``ranks``: the slots'
-    owners; this process steps its own shards)."""
-    def make(ks):
+def _color_sweep(mode: str):
+    """``make_sweep`` of :func:`sharded_segment` for the plain color step:
+    per color every shard's step, then its head and tail deltas pushed to
+    the neighbours' replicas (``ranks``: the slots' owners; this process
+    steps its own shards)."""
+    def make(ks, ranks):
         mine = [d for d, k in enumerate(ks) if k is not None]
         f = ks[mine[0]].f
         halo, BYl = f - 1, ks[mine[0]].ny * f
         Wp = ks[mine[0]].resid.shape[2]
 
-        def sweep(sweep_abs, adapt, us, outs_a, outs_b, u_out):
+        def sweep(sweep_abs, adapt, us, outs_a, outs_b):
             for c in range(f * f):
                 heads, tails = [None] * len(ks), [None] * len(ks)
                 for d in mine:
@@ -190,9 +339,7 @@ def run_sweeps_sharded(problem: sm.Problem, state: sm.SamplerState,
     mode = cfg.sampler
 
     def inner(s, k):
-        return sw._run_segment(problem, s, k, uniforms, False, mode,
-                               devices=devices,
-                               make_sweep=_color_sweep(mode, devices.ranks)
-                               ).result
+        return sharded_segment(problem, s, k, uniforms, mode, devices,
+                               _color_sweep(mode)).result
 
     return sm.interleaved(problem, state, n_sweeps, inner)

@@ -21,12 +21,15 @@ tests, so the file also loads on the card without it (``pytest
     ``tests/test_kernel_sharded.py``;
   * ``Run(spatial_mesh=...)``, ``Run(mesh=...)``, ``chains.run_chains``
     with a mesh, and ``Run`` without a card;
+  * the layering: no module of ``ops/`` imports ``parallel/``;
   * two ``gpu`` tests: the band launch against a launch on a cut buffer,
     and two shards on one card against their plain version.
 """
 
+import ast
 import dataclasses
 import logging
+import pathlib
 
 import numpy as np
 import pytest
@@ -689,6 +692,32 @@ def test_run_without_a_card_raises_unless_told_cpu(rng, monkeypatch):
     r.run(1)
 
 
+def test_ops_modules_import_nothing_of_parallel():
+    """The kernel layer knows nothing of the layer above it: no module of
+    ``deconv3d_tpu_torch/ops/`` imports ``deconv3d_tpu_torch.parallel``,
+    absolutely or relatively, at its top or inside a function."""
+    ops_dir = pathlib.Path(sw.__file__).parent
+    modules = sorted(ops_dir.glob("*.py"))
+    assert len(modules) > 5
+    found = []
+    for path in modules:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                # a relative import resolved from deconv3d_tpu_torch.ops
+                pkg = (["deconv3d_tpu_torch", "ops"][:3 - node.level]
+                       if node.level else [])
+                mod = ".".join(pkg + [node.module] if node.module else pkg)
+                names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+            else:
+                continue
+            found += [(path.name, node.lineno, n) for n in names
+                      if n == "deconv3d_tpu_torch.parallel"
+                      or n.startswith("deconv3d_tpu_torch.parallel.")]
+    assert not found, found
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -712,8 +741,8 @@ def test_band_launch_equals_cut_buffer_launch_on_card(sampler):
         states = ch.init_chain_states(p, C)
         for by0, nyb in ((0, 1), (1, 2), (3, 1)):
             whole = tl.band_segment(p, states, 1, (by0, nyb))
-            cut = tl.band_segment(sw.cut_problem(p, by0, nyb),
-                                  sw.cut_state(states, f, by0, nyb, p.device),
+            cut = tl.band_segment(ss.cut_problem(p, by0, nyb),
+                                  ss.cut_state(states, f, by0, nyb, p.device),
                                   1, (0, nyb), gy0=by0,
                                   record_uniforms=True)
             y0, rows = by0 * f, nyb * f
