@@ -26,12 +26,15 @@
 //   LSF halo, recomputed from Philox or read from the injected uniforms,
 //   and the accept uniforms; (3) lin, g and the per-wavelength dchi2 share
 //   g^2 q - 2 g lin, written to a global buffer (two halves by color
-//   parity);  --- grid barrier ---  (4) every block stages all L shares of
-//   every spaxel in shared memory and reduces them in classic K1's order
-//   (the 32-lane warp_sum tree of each 32-wavelength chunk, computed by one
-//   lane; then the chunk sums lane-strided and warp_sum), so every block
-//   reaches the same dchi2 and decision and keeps the same log-scales;
-//   block 0 writes the spaxel's outputs; (5) the block commits its slab.
+//   parity);  --- grid barrier ---  (4) every block reduces all L shares
+//   of every spaxel in classic K1's order, a warp per (chain, spaxel) and
+//   straight from global memory into registers: lane l reads wavelength
+//   32 q + l of every 32-wavelength chunk q, a register transpose of
+//   shuffles gives lane q chunk q's sum with the bits of classic K1's
+//   32-lane warp_sum tree, lane q adds chunk q's and then chunk q + 32's,
+//   and warp_sum of the lanes gives dchi2; so every block reaches the same
+//   dchi2 and decision and keeps the same log-scales; block 0 writes the
+//   spaxel's outputs; (5) the block commits its slab.
 //   No second barrier: the next color reads only the block's own slab.
 //   f^2 barriers per sweep against classic's 2 f^2.
 //
@@ -73,14 +76,13 @@
 //
 // Shared memory of one block (4-byte words; ops/resident.py smem_bytes
 // mirrors resident_layout below), cs = C ny nx (chain, spaxel) pairs of a
-// color, nw = min(f, 18), P = ceil(L / 32):
+// color, nw = min(f, 18):
 //   S f^2 + 2C + (C + 1) Hp Wp lam_b + C Yc Xc lam_b + S lam_b + f^2
 //     + 7 f^2 cs + cs lam_b (nw S + 2)
-//   MH    + C Yc Xc + Yc Xc lam_b + lam_b lw + cs (lam_b + lw - 1)
-//         + 33 cs P + 2 cs
+//   MH    + C Yc Xc + Yc Xc lam_b + lam_b lw + cs (lam_b + lw - 1) + 2 cs
 //   gibbs + wd lw + 5 cs wd + 3 nw,   wd = min(L, lam_b + 2(lw-1) + lw(lw-1))
 //         (+ 2 cs wd with positivity)
-// MUSE 30x30x600 at lam_b = 5 (120 blocks): 198 KB (MH), 176 KB (gibbs) of
+// MUSE 30x30x600 at lam_b = 5 (120 blocks): 188 KB (MH), 176 KB (gibbs) of
 // the 227 KB a block may opt in to.  The wrapper launches this kernel only
 // where the plan fits (ops/resident.py plan_slabs) and classic K1
 // elsewhere.
@@ -128,7 +130,7 @@ constexpr int kResidentThreads = 32 * kMaxWarps;
 // Offsets (4-byte words) of the block's shared arrays.
 struct ResidentLayout {
   size_t img, key, rs, ws, cl, spec, off, geo, vt, pool, lin, g;
-  size_t lsmap, quad, lsf, jump, stage, u2, acc;   // MH (lsf: the slab's rows)
+  size_t lsmap, quad, lsf, jump, u2, acc;     // MH (lsf: the slab's rows)
   size_t win, red;                             // gibbs (lsf: the window's)
   size_t total;
   int wd;                                      // gibbs window stride
@@ -141,7 +143,7 @@ __host__ __device__ inline ResidentLayout resident_layout(
   const size_t cs = static_cast<size_t>(C) * ny * nx;
   const size_t Hp = f - 1 + ny * f, Wp = f - 1 + nx * f;
   const size_t Yc = static_cast<size_t>(ny) * f, Xc = static_cast<size_t>(nx) * f;
-  const size_t P = (L + kChunk - 1) / kChunk, ff = static_cast<size_t>(f) * f;
+  const size_t ff = static_cast<size_t>(f) * f;
   ResidentLayout o{};
   size_t n = 0;
   o.img = n;   n += S * ff;                    // FSF images
@@ -161,7 +163,6 @@ __host__ __device__ inline ResidentLayout resident_layout(
     o.quad = n;  n += Yc * Xc * lb;            // quad slab
     o.lsf = n;   n += static_cast<size_t>(lb) * lw;
     o.jump = n;  n += cs * (lb + lw - 1);      // jumps with the LSF halo
-    o.stage = n; n += cs * P * (kChunk + 1);   // the shares, 33 per chunk
     o.u2 = n;    n += cs;                      // accept uniforms
     o.acc = n;   n += cs;                      // decisions
   } else {
@@ -396,7 +397,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   float *cls = smem + o.cl, *spec_s = smem + o.spec;
   float *pool = smem + o.pool, *gsl = smem + o.g, *lsmap = smem + o.lsmap;
   float *qd = smem + o.quad, *lsf = smem + o.lsf, *jmp = smem + o.jump;
-  float *stage = smem + o.stage, *acc = smem + o.acc, *u2s = smem + o.u2;
+  float *acc = smem + o.acc, *u2s = smem + o.u2;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwb = nt >> 5;
   const int L = g.L, half = g.half, lw = g.lw, nx = a.nx;
@@ -466,40 +467,38 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
     PHASE(2);                                // lin, g, shares
     grid.sync();
     PHASE(3);                                // the grid barrier
-    // (4) every block: dchi2 and the decision of every (chain, spaxel), in
-    // classic K1's order: the 32-lane warp_sum tree of each 32-wavelength
-    // chunk (here one lane's sum over the shares staged in shared memory,
-    // 33 words per chunk so that the lanes hit distinct banks), then the
-    // chunk sums lane-strided and warp_sum
-    for (int i0 = tid; i0 < g.ncs * L; i0 += 8 * nt) {
-      float v[8];                            // eight loads in flight
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * nt;
-        v[u] = i < g.ncs * L ? shares[i] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * nt, cs = i / L, l = i - cs * L;
-        if (i < g.ncs * L)
-          stage[(cs * g.P + l / kChunk) * (kChunk + 1) + l % kChunk] = v[u];
-      }
-    }
-    __syncthreads();
-    PHASE(4);                                // staging
+    // (4) every block: dchi2 and the decision of every (chain, spaxel), a
+    // warp each, in classic K1's order.  Lane l reads wavelength 32 q + l
+    // of each of 32 chunks q into registers (zero past L).  Five exchange
+    // steps reduce the 32 chunks at once: at offset off a lane keeps the
+    // half of its chunk slots that its bit off selects and adds lane
+    // l ^ off's values of them, so after offset 1 lane q holds chunk q's
+    // sum.  Each chunk meets the same pairs at the same levels as in
+    // warp_sum's shuffle-down tree (classic K1's), so its sum has the same
+    // bits; 31 shuffles for 32 chunks, where warp_sum takes 6 for each.
+    // Lane q adds chunk q's sum, then chunk q + 32's; warp_sum of the
+    // lanes gives dchi2
     for (int cs = warp; cs < g.ncs; cs += nwb) {
+      const float* sh = shares + static_cast<size_t>(cs) * L;
       float dchi = 0.0f;
-      for (int q = lane; q < g.P; q += 32) {
-        const float* sq = stage + (cs * g.P + q) * (kChunk + 1);
-        const int n = min(kChunk, L - q * kChunk);
-        float v[kChunk];
+      for (int q0 = 0; q0 < g.P; q0 += 32) {   // chunks q0 .. q0 + 31
+        float v[32];                           // every load in flight
 #pragma unroll
-        for (int i = 0; i < kChunk; ++i) v[i] = i < n ? sq[i] : 0.0f;
+        for (int i = 0; i < 32; ++i) {
+          const int l = (q0 + i) * kChunk + lane;
+          v[i] = l < L ? sh[l] : 0.0f;
+        }
 #pragma unroll
-        for (int off = kChunk / 2; off > 0; off >>= 1)
+        for (int off = 16; off > 0; off >>= 1) {
+          const bool up = (lane & off) != 0;
 #pragma unroll
-          for (int i = 0; i < off; ++i) v[i] += v[i + off];
-        dchi += v[0];
+          for (int i = 0; i < off; ++i) {
+            const float send = up ? v[i] : v[i + off];
+            const float keep = up ? v[i + off] : v[i];
+            v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+          }
+        }
+        if (q0 + lane < g.P) dchi += v[0];
       }
       dchi = warp_sum(dchi);
       const Geo e = geo_of(geo, cs);
@@ -522,7 +521,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       }
     }
     __syncthreads();
-    PHASE(5);                                // decision
+    PHASE(4);                                // dchi2, decision
     // (5) commit the accepted spaxels on the slab
     slab_commit<kS>(g, smem, o, geo, gsl, acc);
     for (int item = tid; item < items; item += nt) {

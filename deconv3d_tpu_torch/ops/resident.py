@@ -42,7 +42,6 @@ import torch
 H100_SMS = 132
 H100_SMEM_OPTIN = 232_448
 
-_CHUNK = 32           # csrc/sweep_common.cuh kChunk
 _MAX_WARPS = 18       # csrc/sweep_common.cuh kMaxWarps
 
 
@@ -67,12 +66,13 @@ def smem_bytes(mode: str, C: int, f: int, ny: int, nx: int, L: int, S: int,
     ``csrc/resident_sweep.cu::resident_layout``): the slabs of resid (C
     chains), weights, clean (C chains) and, for MH, quad, plus one color's
     working set; with ``positivity`` the gibbs window keeps two arrays
-    more (the second uniforms and the starting clean)."""
+    more (the second uniforms and the starting clean).  MH's per-λ Δχ²
+    shares take none: a warp per (chain, spaxel) reduces them from global
+    memory in registers."""
     nw = min(f, _MAX_WARPS)
     nij = ny * nx
     cs = C * nij                           # (chain, spaxel) of a color
     Hp, Wp, Yc, Xc = f - 1 + ny * f, f - 1 + nx * f, ny * f, nx * f
-    P = -(-L // _CHUNK)
     n = (S * f * f + 2 * C                 # FSF images, Philox keys
          + C * Hp * Wp * lam_b             # resid slab
          + Hp * Wp * lam_b                 # weights slab
@@ -86,7 +86,6 @@ def smem_bytes(mode: str, C: int, f: int, ny: int, nx: int, L: int, S: int,
               + Yc * Xc * lam_b            # quad slab
               + lam_b * lw                 # LSF rows of the slab
               + cs * (lam_b + lw - 1)      # jumps with the LSF halo
-              + cs * P * (_CHUNK + 1)      # the Δχ² shares, 33 per chunk
               + 2 * cs)                    # accept uniforms, decisions
     else:
         lo, hi = window_margins(lw)

@@ -178,6 +178,144 @@ def test_phase_clock_labels_match_the_kernel_markers():
 
 
 # ---------------------------------------------------------------------------
+# the MH decision's reduction order, emulated in float32
+# ---------------------------------------------------------------------------
+
+def _halving_tree(v):
+    """One lane's sum of each 32-value row as the resident kernel used to
+    compute a chunk from shared memory: v[i] += v[i + off], off = 16 … 1."""
+    v = v.copy()
+    off = 16
+    while off:
+        v[..., :off] = v[..., :off] + v[..., off:2 * off]
+        off //= 2
+    return v[..., 0]
+
+
+def _warp_sum(lanes):
+    """``sweep_common.cuh`` ``warp_sum`` over the last axis (32 lanes):
+    ``v += __shfl_down_sync(v, o)`` for o = 16 … 1, where a lane whose
+    source lies past the warp reads its own value, then lane 0's value.
+    Classic K1 reduces each 32-λ chunk so."""
+    x = lanes.copy()
+    idx = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., np.where(idx + o < 32, idx + o, idx)]
+    return x[..., 0]
+
+
+def _transpose_sums(v):
+    """The resident MH decision's register transpose of ``v`` [..., 32
+    chunk slots, 32 lanes]: at offset o = 16 … 1 a lane keeps the o slots
+    its bit o selects, ``keep + __shfl_xor_sync(send, o)``.  Returns [...,
+    32 lanes], lane q holding chunk q's sum."""
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        up = (lane & o) != 0
+        send = np.where(up, v[..., :o, :], v[..., o:2 * o, :])
+        keep = np.where(up, v[..., o:2 * o, :], v[..., :o, :])
+        v = keep + send[..., lane ^ o]
+    return v[..., 0, :]
+
+
+def _dchi_staged(shares, chunk_sum):
+    """Δχ² of each row of per-λ shares: each 32-λ chunk (zero past L)
+    reduced by ``chunk_sum`` over its last axis, lane l summing chunks l,
+    l + 32, … in order, then ``warp_sum`` of the lanes."""
+    n, L = shares.shape
+    P = -(-L // 32)
+    chunks = np.zeros((n, P * 32), np.float32)
+    chunks[:, :L] = shares
+    sums = chunk_sum(chunks.reshape(n, P, 32))
+    lanes = np.zeros((n, 32), np.float32)
+    for lane in range(32):
+        for q in range(lane, P, 32):
+            lanes[:, lane] = lanes[:, lane] + sums[:, q]
+    return _warp_sum(lanes)
+
+
+def _dchi_in_registers(shares):
+    """The resident kernel's pass: for each group of 32 chunks q0 … q0 +
+    31, lane l loads λ = 32 q + l of each (zero past L), the transpose
+    leaves chunk q0 + l's sum in lane l, which adds it where q0 + l < P;
+    then ``warp_sum`` of the lanes."""
+    n, L = shares.shape
+    P = -(-L // 32)
+    dchi = np.zeros((n, 32), np.float32)
+    for q0 in range(0, P, 32):
+        v = np.zeros((n, 32, 32), np.float32)         # [row, slot, lane]
+        for i in range(32):
+            seg = shares[:, (q0 + i) * 32:(q0 + i + 1) * 32]
+            v[:, i, :seg.shape[1]] = seg
+        mine = _transpose_sums(v)
+        live = q0 + np.arange(32) < P
+        dchi[:, live] = dchi[:, live] + mine[:, live]
+    return _warp_sum(dchi)
+
+
+def _awkward_shares(n, L, seed):
+    """float32 shares of mixed magnitudes and signs, with signed zeros:
+    whole zero chunks of either sign, stray −0.0, and large values that
+    cancel, so that a different association shows in the bits."""
+    gen = np.random.default_rng(seed)
+    x = gen.standard_normal((n, L)) * 10.0 ** gen.uniform(-20, 20, (n, L))
+    x = x.astype(np.float32)
+    x[gen.random((n, L)) < 0.1] = -0.0
+    x[gen.random((n, L)) < 0.05] = 0.0
+    x[0] = -0.0                                       # a row of −0.0
+    x[1, :32] = -0.0                                  # a chunk of −0.0
+    x[2, 32:64] = 0.0
+    x[3, ::2] = 1e30                                  # cancellation
+    x[3, 1::2] = -1e30
+    return x
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("reduction", ["warp_sum", "transpose"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chunk_reductions_are_the_one_lane_halving_tree(reduction, seed):
+    """32 chunks of 32 shares each, summed by ``warp_sum``'s shuffles
+    (lane 0; classic K1) or by the register transpose (lane q; the resident
+    kernel), equal the one-lane halving tree bit for bit: each chunk meets
+    the same pairs at every level, and float addition commutes."""
+    x = _awkward_shares(64, 32 * 32, seed).reshape(-1, 32, 32)
+    want = _halving_tree(x)                           # [row, chunk]
+    got = _warp_sum(x) if reduction == "warp_sum" else _transpose_sums(x)
+    assert np.array_equal(_bits(got), _bits(want))
+    # a sum in another order differs somewhere: the check can fail
+    serial = np.zeros(want.shape, np.float32)
+    for i in range(32):
+        serial = serial + x[..., i]
+    assert not np.array_equal(_bits(serial), _bits(want))
+
+
+@pytest.mark.parametrize("L", [600, 1100, 32 * 35])   # P = 19, 35, 35
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dchi_in_registers_equals_the_staged_order(L, seed):
+    """The resident kernel's Δχ² (chunks reduced in registers, lane q
+    adding chunk q, then q + 32) equals the staging pass's and classic
+    K1's bit for bit, P below and above 32 and L past the last full
+    chunk."""
+    shares = _awkward_shares(48, L, seed)
+    got = _dchi_in_registers(shares)
+    assert np.array_equal(_bits(got), _bits(_dchi_staged(shares, _halving_tree)))
+    assert np.array_equal(_bits(got), _bits(_dchi_staged(shares, _warp_sum)))
+    assert _bits(got)[0] == 0                         # +0.0 from −0.0s
+    # the lane-strided order matters: chunk sums added in one run differ
+    P = -(-L // 32)
+    pad = np.zeros((len(shares), P * 32), np.float32)
+    pad[:, :L] = shares
+    sums = _halving_tree(pad.reshape(len(shares), P, 32))
+    run = np.zeros(len(shares), np.float32)
+    for q in range(P):
+        run = run + sums[:, q]
+    assert not np.array_equal(_bits(run), _bits(got))
+
+
+# ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
 
@@ -225,7 +363,7 @@ def test_classic_pin_leaves_the_cpu_on_the_plain_sweep(sampler):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sampler", ["mh", "gibbs"])
-@pytest.mark.parametrize("fsf_size, L", [(5, 200), (21, 40)])
+@pytest.mark.parametrize("fsf_size, L", [(5, 200), (21, 40), (5, 1100)])
 @pytest.mark.parametrize("n_chains", [1, 2])
 def test_resident_matches_classic_and_plain_on_card(sampler, fsf_size, L,
                                                     n_chains):
@@ -234,7 +372,9 @@ def test_resident_matches_classic_and_plain_on_card(sampler, fsf_size, L,
     (MH untied; tolerances of the classic kernels' tests).  L = 200 at
     f = 5 and L = 40 at f = 21 put 100 and 40 slabs on the card, so the
     gibbs windows are cut on both sides; f = 21 has more patch rows than
-    classic K1's 18 warps."""
+    classic K1's 18 warps.  L = 1100 gives 35 chunks of 32 λ, so the MH
+    decision's warp loops over two groups of chunks; f = 5 has 5 warps, so
+    at 2 chains (8 (chain, spaxel) pairs a color) a warp takes two."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the resident kernel has no CPU mode")
     p = _make_toy(L=L, fsf_size=fsf_size, sampler=sampler, device="cuda")
