@@ -525,8 +525,10 @@ def make_problem(
     on ends in a sync of a CUDA device; inside it ``setup.fsf_bank`` (the
     FSF at every λ and its rank-S factors, on the host) and
     ``setup.weights`` (the sanitised cube, the weights, the padded data,
-    ``quad`` and the swept spaxels).  Counters ``problem.fsf_rank`` (S;
-    not for ``'direct'``, which keeps the full FSF),
+    ``quad`` and the swept spaxels), and inside that ``setup.sanitize``
+    (the cube and its variance moved to ``device`` and
+    :meth:`Cube.sanitized`, ending in a sync like its parent).  Counters
+    ``problem.fsf_rank`` (S; not for ``'direct'``, which keeps the full FSF),
     ``problem.swept_spaxels`` and ``problem.unswept_spaxels`` (of Y·X).
     """
     with metrics.span("setup.problem",
@@ -579,8 +581,9 @@ def _make_problem(cube: Cube, instrument: Instrument, config: RunConfig,
                                  lambda_chunk=int(lam_chunk))
 
     weights = metrics.span("setup.weights", sync=device).start()
-    cube = cube.to(device).sanitized()
-    var = cube.variance.to(dtype)
+    with metrics.span("setup.sanitize", sync=device):
+        cube = cube.to(device).sanitized()
+        var = cube.variance.to(dtype)
     zero = torch.zeros((), dtype=dtype, device=device)
     w = torch.where(torch.isfinite(var) & (var > 0), 1.0 / var, zero)
     w = torch.where(cube.mask[None], zero, w)

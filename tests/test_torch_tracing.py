@@ -259,6 +259,27 @@ def test_on_make_problem_counts_rank_and_swept_spaxels_in_its_spans():
     assert not [k for k in counts if k.startswith("sweep.launches")]
 
 
+@pytest.mark.parametrize("on", [True, False])
+def test_sanitize_span_once_per_problem_inside_weights(on):
+    """``setup.sanitize`` (the cube moved and ``Cube.sanitized``) lies
+    inside ``setup.weights``, once per ``make_problem``; with tracing off
+    no span is recorded."""
+    cube, inst = _chromatic_cube()
+    metrics.tracing(on)
+    for _ in range(2):
+        tsm.make_problem(cube, inst, tsm.RunConfig(
+            sampler="gibbs", fsf_size=5, lsf_width=11), device="cpu")
+    by = _by_name(metrics.records())
+    if not on:
+        assert by == {}
+        return
+    spans = list(zip(by["setup.weights"], by["setup.sanitize"]))
+    assert len(spans) == len(by["setup.sanitize"]) == 2
+    for outer, inner in spans:
+        assert outer["start_ns"] <= inner["start_ns"] <= inner["end_ns"] \
+            <= outer["end_ns"]
+
+
 def test_plain_segment_counts_no_launch():
     """Only kernel launches count: a traced CPU run, whose sweeps are the
     plain torch ones, adds no ``sweep.launches.*``."""
